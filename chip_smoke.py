@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Drive mmnc_tpu_torch on one NVIDIA H100 end to end.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, each of which exits non-zero on failure:
+  1. print the card's name and power limit (nvidia-smi);
+  2. build every CUDA kernel of the port (one nvcc per source, all at once)
+     and the rANS coder;
+  3. hold each kernel against its plain PyTorch version on the card at the
+     shapes the serving path gives it, with its time, the plain version's,
+     a library call's where one computes the same op, and the card's bound;
+  4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
+     run eval forward, then compress -> decompress on 3 batches of 8
+     random 256x256 rgb images; check the decode equals the eval
+     forward, the launch counts (9 GDN per compress, 2 GDN + 7 deconv+IGDN
+     per decompress) and the port against its CPU plain path on one image;
+  5. print a {"kernels": [...]} line and, last,
+     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+With no CUDA device, or outside a checkout of the repo, it exits non-zero
+and prints no result. `--profile DIR` also writes a torch.profiler summary
+of one round trip to DIR.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12  # CUDA cores; the kernels use no tensor cores
+F32 = 4
+
+IMAGE = 256
+LATENT = 128
+CONV = 100
+BATCH, BATCHES, SEED = 8, 3, 0
+# At the init scale every y of the untrained model rounds to 0 and the
+# decode is all zeros. Scaling the conv kernels (encoder 4, hyperprior 10,
+# decoder 3) gives non-zero y and z symbols, spread scale indexes and an
+# O(1) reconstruction; on the CPU at this config 43% of y and 36% of z
+# symbols are non-zero.
+HYPER_GAIN, DECODER_GAIN, ENCODER_GAIN = 10.0, 3.0, 4.0
+
+
+def bound_ms(n_bytes, flops):
+    """Least time for the work: the larger of bytes over HBM rate and
+    operations over the f32 rate. Returns (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def gdn_cost(n, c):
+    """Bytes (x read, out written, gamma, beta) and FLOPs (x^2, the
+    C x C product as FMAs, (r)sqrt, multiply) of one (I)GDN on (n, c)."""
+    return (2 * n * c + c * c + c) * F32, 2 * n * c * c + 3 * n * c
+
+
+def deconv_igdn_cost(b, h, w, cin, cout, mode):
+    """Bytes and FLOPs of one k5/s2 deconv (+ epilogue). Taps falling on
+    the zero padding are not counted: (5H-3)(5W-3) input-tap pairs per
+    image and channel pair."""
+    taps = (5 * h - 3) * (5 * w - 3)
+    out_pix = b * 4 * h * w
+    flops = 2 * b * taps * cin * cout + out_pix * cout
+    n_bytes = (b * h * w * cin + 25 * cin * cout + cout + out_pix * cout) * F32
+    if mode is not None:
+        flops += 2 * out_pix * cout * cout + 3 * out_pix * cout
+        n_bytes += (cout * cout + cout) * F32
+    return n_bytes, flops
+
+
+def time_ms(torch, fn, iters=20):
+    """Mean device time of fn over `iters` launches, by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(torch, got, want):
+    return (got - want).abs().max().item(), want.abs().max().item()
+
+
+def gdn_path_shapes(b):
+    """(rows, C, inverse, launches per round trip) of every GDN launch of
+    one compress + decompress of a batch of b images at 256 px."""
+    enc = [(b * IMAGE ** 2, CONV // 2)] + [
+        (b * (IMAGE >> s) ** 2, CONV) for s in range(1, 9)]  # head 5 + g_a 3
+    dec = [(b * 32 ** 2, CONV // 2), (b * 64 ** 2, CONV // 2)]
+    return ([(n, c, False, 1) for n, c in enc]
+            + [(n, c, True, 1) for n, c in dec])
+
+
+def deconv_path_shapes(b):
+    """(B, H, W, Cin, Cout, mode) of every deconv+IGDN launch of one
+    decompress: g_s 1->2->4->8, then the decoder head 16->...->256."""
+    return [(b, 1, 1, LATENT, CONV, "igdn"), (b, 2, 2, CONV, CONV, "igdn"),
+            (b, 4, 4, CONV, CONV, "igdn"), (b, 16, 16, CONV, CONV // 2, "igdn"),
+            (b, 32, 32, CONV // 2, CONV // 2, "igdn"),
+            (b, 64, 64, CONV // 2, 3, "igdn"), (b, 128, 128, 3, 3, "igdn")]
+
+
+def check_gdn(torch, b, gen):
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain
+
+    tol_rel = 1e-4
+    path = gdn_path_shapes(b)
+    extra = [(n, c, not inv, 0) for n, c, inv, _ in
+             (path[0], path[1], path[-2])]  # the other direction
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    bound_by = {}
+    for n, c, inverse, per_trip in path + extra:
+        x = torch.randn(n, c, generator=gen).cuda()
+        gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=gen)).cuda()
+        beta = (1 + 0.1 * torch.rand(c, generator=gen)).cuda()
+        got = gdn_cuda(x, gamma, beta, inverse)
+        want = gdn_plain(x, gamma, beta, inverse)
+        torch.cuda.synchronize()
+        err, scale = max_err(torch, got, want)
+        if not err <= tol_rel * max(1.0, scale):
+            raise RuntimeError(f"gdn ({n},{c}) inverse={inverse}: max abs err "
+                               f"{err} > {tol_rel} x {max(1.0, scale)}")
+        ms = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, inverse))
+        plain = time_ms(torch, lambda: gdn_plain(x, gamma, beta, inverse))
+        bms, by = bound_ms(*gdn_cost(n, c))
+        print(f"kernel gdn rows={n} C={c} inverse={inverse} per_round_trip="
+              f"{per_trip} max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
+              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.5f} "
+              f"bound_by={by}")
+        totals["err"] = max(totals["err"], err)
+        if per_trip:
+            totals["ms"] += per_trip * ms
+            totals["plain_ms"] += per_trip * plain
+            totals["bound_ms"] += per_trip * bms
+            bound_by[by] = bound_by.get(by, 0.0) + bms
+        del x, gamma, beta, got, want
+    return totals, max(bound_by, key=bound_by.get), tol_rel
+
+
+def check_deconv(torch, b, gen):
+    import torch.nn.functional as F
+
+    from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
+                                                deconv_igdn_plain)
+
+    tol_rel = 1e-4
+    cases = [(s, 1) for s in deconv_path_shapes(b)]
+    cases.append(((b, 8, 8, CONV, CONV, None), 0))  # g_s's last deconv, no epilogue
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "err": 0.0}
+    bound_by = {}
+    for (bb, h, w, cin, cout, mode), per_trip in cases:
+        x = torch.randn(bb, h, w, cin, generator=gen).cuda()
+        wt = ((torch.rand(cin, cout, 5, 5, generator=gen) * 2 - 1)
+              / (25 * cin) ** 0.5).cuda()  # torch layout, init scale
+        taps = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+        bias = (0.1 * torch.randn(cout, generator=gen)).cuda()
+        gamma = (0.1 * torch.eye(cout)
+                 + 0.01 * torch.rand(cout, cout, generator=gen)).cuda()
+        beta = (1 + 0.1 * torch.rand(cout, generator=gen)).cuda()
+        got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode)
+        want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
+        torch.cuda.synchronize()
+        err, scale = max_err(torch, got, want)
+        if not err <= tol_rel * max(1.0, scale):
+            raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout, mode)}: "
+                               f"max abs err {err} > {tol_rel} x "
+                               f"{max(1.0, scale)}")
+        x_nchw = x.permute(0, 3, 1, 2)
+        ms = time_ms(torch, lambda: deconv_igdn_cuda(x, taps, bias, gamma,
+                                                     beta, mode))
+        plain = time_ms(torch, lambda: deconv_igdn_plain(x, taps, bias, gamma,
+                                                         beta, mode))
+        lib = time_ms(torch, lambda: F.conv_transpose2d(
+            x_nchw, wt, bias, stride=2, padding=2, output_padding=1))
+        bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode))
+        print(f"kernel deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
+              f"mode={mode} per_round_trip={per_trip} max_abs_err={err:.3e} "
+              f"(|ref|max {scale:.3g}) ms={ms:.5f} plain_ms={plain:.5f} "
+              f"library_ms={lib:.5f} bound_ms={bms:.5f} bound_by={by}")
+        totals["err"] = max(totals["err"], err)
+        if per_trip:
+            totals["ms"] += ms
+            totals["plain_ms"] += plain
+            totals["library_ms"] += lib
+            totals["bound_ms"] += bms
+            bound_by[by] = bound_by.get(by, 0.0) + bms
+    return totals, max(bound_by, key=bound_by.get), tol_rel
+
+
+def counts():
+    from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda
+    return {"gdn": gdn_cuda.launches, "deconv_igdn": deconv_igdn_cuda.launches}
+
+
+def reset_counts():
+    from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda
+    gdn_cuda.launches = 0
+    deconv_igdn_cuda.launches = 0
+
+
+def seeded_model(torch, device, seed):
+    """The bench config from `seed`, conv kernels scaled as above."""
+    from mmnc_tpu_torch import build_model
+    from mmnc_tpu_torch.ops.layers import Conv, Deconv
+
+    model = build_model(1, ["rgb"], latent_channels=LATENT, conv_channels=CONV,
+                        device=device, seed=seed)
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if isinstance(module, (Conv, Deconv)):
+                if ".h_a." in name or ".h_s." in name:
+                    module.weight.mul_(HYPER_GAIN)
+                elif ".g_s." in name or "output_heads" in name:
+                    module.weight.mul_(DECODER_GAIN)
+                else:
+                    module.weight.mul_(ENCODER_GAIN)
+    model.update_bottleneck_values()
+    return model
+
+
+def run_model(torch, profile_dir):
+    model = seeded_model(torch, "cuda", SEED)
+    rng = np.random.default_rng(SEED)
+    batches = [{"rgb": torch.from_numpy(rng.random(
+        (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
+        for _ in range(BATCHES)]
+
+    refs = []
+    for batch in batches:
+        x_hats, liks = model(batch)
+        rec = x_hats["rgb"]
+        if rec.shape != (BATCH, IMAGE, IMAGE, 3):
+            raise RuntimeError(f"eval forward shape {tuple(rec.shape)}")
+        if liks["y"].shape != (BATCH, 4, 4, LATENT) or \
+                liks["z"].shape != (BATCH, 1, 1, CONV):
+            raise RuntimeError("likelihood shapes")
+        for name, t in (("x_hat", rec), ("y", liks["y"]), ("z", liks["z"])):
+            if not torch.isfinite(t).all():
+                raise RuntimeError(f"eval forward: non-finite {name}")
+        if not ((liks["y"] > 0).all() and (liks["z"] > 0).all()):
+            raise RuntimeError("eval forward: likelihood <= 0")
+        refs.append(rec)
+
+    ans, _ = model.compress(batches[0])  # warm-up: cuDNN heuristics, coder
+    model.decompress(ans)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    per_call, outs, n_bytes = [], [], 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        c0 = counts()
+        ans, nb = model.compress(batch)
+        c1 = counts()
+        outs.append(model.decompress(ans)["rgb"])
+        torch.cuda.synchronize()
+        c2 = counts()
+        per_call.append(({k: c1[k] - c0[k] for k in c0},
+                         {k: c2[k] - c1[k] for k in c0}))
+        n_bytes += nb
+    seconds = time.perf_counter() - t0
+    launches = counts()
+
+    for enc, dec in per_call:
+        if enc != {"gdn": 9, "deconv_igdn": 0} or \
+                dec != {"gdn": 2, "deconv_igdn": 7}:
+            raise RuntimeError(f"launch counts: compress {enc}, "
+                               f"decompress {dec}")
+    if n_bytes <= 0:
+        raise RuntimeError("no bytes coded")
+    # decode runs the same layers on the same y_hat as the eval forward, but
+    # cuDNN's transposed conv (a backward-data algorithm) may sum in another
+    # order from call to call: atol 1e-5 as tests/test_models.py
+    dec_err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+    if not dec_err <= 1e-5:
+        raise RuntimeError(f"decode vs eval forward: max abs err {dec_err}")
+
+    images = BATCH * BATCHES
+    print(f"model rgb latent={LATENT} conv={CONV} {IMAGE}px batch={BATCH} "
+          f"batches={BATCHES}: round trip {seconds:.4f} s, "
+          f"{images * IMAGE * IMAGE / 1e6 / seconds:.3f} MP/s, "
+          f"{n_bytes / images:.2f} bytes/image, decode vs eval forward max "
+          f"abs err {dec_err:.3e}")
+    check_against_cpu(torch, model, batches[0]["rgb"][:1])
+    if profile_dir:
+        profile_round_trip(torch, model, batches[0], profile_dir)
+    return launches
+
+
+def check_against_cpu(torch, model, x):
+    """The card's path (kernels) against the port's CPU plain path on one
+    image, same seed so the same weights. Tolerance: float32 sums in
+    another order through ~20 layers, rtol 1e-3 / atol 1e-4 as
+    tests/test_torch_import.py, relative to the largest value."""
+    cpu = seeded_model(torch, "cpu", SEED)
+    with torch.no_grad():
+        y_g, z_g = model.model.analyze([x.permute(0, 3, 1, 2)])
+        y_c, z_c = cpu.model.analyze([x.cpu().permute(0, 3, 1, 2)])
+        y_hat = torch.round(y_c)
+        r_g = model.model.synthesize_from_y(y_hat.cuda())[0]
+        r_c = cpu.model.synthesize_from_y(y_hat)[0]
+    for name, g, c in (("y", y_g, y_c), ("z", z_g, z_c), ("x_hat", r_g, r_c)):
+        err = (g.cpu() - c).abs().max().item()
+        scale = max(1.0, c.abs().max().item())
+        print(f"card vs cpu plain path: {name} max abs err {err:.3e} "
+              f"(|cpu|max {c.abs().max().item():.3g})")
+        if not err <= 1e-4 + 1e-3 * scale:
+            raise RuntimeError(f"card vs cpu: {name} err {err}")
+
+
+def profile_round_trip(torch, model, batch, out_dir):
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ans, _ = model.compress(batch)
+        model.decompress(ans)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    with open(os.path.join(out_dir, "round_trip_profile.txt"), "w") as f:
+        f.write(f"wall {wall * 1e3:.3f} ms, device kernel time {busy_us / 1e3:.3f}"
+                f" ms, {len(events)} device events\n{table}\n")
+    prof.export_chrome_trace(os.path.join(out_dir, "round_trip_trace.json"))
+    print(f"profile: wall {wall * 1e3:.3f} ms, device kernel time "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / (wall * 1e3):.3f} of wall)"
+          f", {len(events)} device events -> {out_dir}")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    parser.add_argument("--profile", default=None,
+                        help="write a profiler summary of one round trip here")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mmnc_tpu_torch.device import resolve_device
+    from mmnc_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card)
+    resolve_device("cuda")  # exact-f32 policy: TF32 off for matmul and cuDNN
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator().manual_seed(SEED)
+    gdn_tot, gdn_by, gdn_tol = check_gdn(torch, BATCH, gen)
+    dec_tot, dec_by, dec_tol = check_deconv(torch, BATCH, gen)
+
+    launches = run_model(torch, args.profile)
+    for name, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"kernel {name} never launched on the main path")
+
+    per_trip = f"sum over one round trip of a batch of {BATCH}"
+    kernels = [
+        {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
+         "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
+         "launches": launches["gdn"], "max_abs_err": gdn_tot["err"],
+         "tolerance": f"{gdn_tol} x max(1, |plain|max)",
+         "ms": gdn_tot["ms"], "plain_ms": gdn_tot["plain_ms"],
+         "bound_ms": gdn_tot["bound_ms"], "bound_by": gdn_by,
+         "library_ms": None, "times": per_trip},
+        {"name": "deconv_igdn", "route": "cuda",
+         "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
+         "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
+         "launches": launches["deconv_igdn"], "max_abs_err": dec_tot["err"],
+         "tolerance": f"{dec_tol} x max(1, |plain|max)",
+         "ms": dec_tot["ms"], "plain_ms": dec_tot["plain_ms"],
+         "bound_ms": dec_tot["bound_ms"], "bound_by": dec_by,
+         "library_ms": dec_tot["library_ms"], "times": per_trip},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""Task-specific encoder/decoder heads (mmnc_tpu/models/heads.py:26-61).
+
+Both are `nn.Sequential`s so their state_dict names are the reference's
+`{seq}.weight` / `{seq}.beta` layout (mmnc_tpu/utils/torch_import.py:4-16).
+
+* EncoderHead: conv3x3 s1 (in -> c/2) + GDN, then 5x [conv5x5 s2 + GDN]
+  at width c — downsamples 32x.
+* DecoderHead: deconv(in -> in/2)+IGDN, conv3x3+IGDN, deconv+IGDN,
+  conv3x3+IGDN, deconv(-> out)+IGDN, deconv(out -> out)+IGDN, conv3x3 —
+  upsamples 16x. Under no-grad its 4 deconv->IGDN pairs run as fused
+  deconv_igdn launches.
+"""
+
+import torch.nn as nn
+
+from ..ops.layers import GDN, Conv, Deconv, run_layers
+
+
+class EncoderHead(nn.Sequential):
+    def __init__(self, in_channels, conv_channels):
+        c = conv_channels
+        layers = [Conv(in_channels, c // 2, 3, 1), GDN(c // 2)]
+        width = c // 2
+        for _ in range(5):
+            layers += [Conv(width, c), GDN(c)]
+            width = c
+        super().__init__(*layers)
+
+    def forward(self, x):
+        return run_layers(self, x)
+
+
+class DecoderHead(nn.Sequential):
+    def __init__(self, in_channels, out_channels):
+        mid = in_channels // 2
+        out = out_channels
+        super().__init__(
+            Deconv(in_channels, mid), GDN(mid, inverse=True),
+            Conv(mid, mid, 3, 1), GDN(mid, inverse=True),
+            Deconv(mid, mid), GDN(mid, inverse=True),
+            Conv(mid, mid, 3, 1), GDN(mid, inverse=True),
+            Deconv(mid, out), GDN(out, inverse=True),
+            Deconv(out, out), GDN(out, inverse=True),
+            Conv(out, out, 3, 1))
+
+    def forward(self, x):
+        return run_layers(self, x)
