@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Drive mmnc_tpu_torch on one NVIDIA H100 end to end.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--tune]
 
 Phases, each of which exits non-zero on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port (one nvcc per source, all at once)
      and the rANS coder;
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the serving path gives it, with its time, the plain version's,
-     a library call's where one computes the same op, and the card's bound;
+     shapes the serving path gives it, with its device time (torch.profiler)
+     and host launch time (CUDA events over back-to-back calls), the plain
+     version's, a library call's where one computes the same op, and the
+     card's bound. For deconv+IGDN also print each shape's launch plan,
+     check the split kernel at extra shapes and that two of its launches
+     are bitwise equal, and check and time the tiled kernel where the plan
+     is the split one;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -20,7 +25,8 @@ Phases, each of which exits non-zero on failure:
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--profile DIR` also writes a torch.profiler summary
-of one round trip to DIR.
+of one round trip to DIR; `--tune` also times every split plan of the
+deconv+IGDN kernel at the latent stages.
 """
 
 import argparse
@@ -28,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +43,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12  # CUDA cores; the kernels use no tensor cores
 F32 = 4
+# chrome-trace categories of device work (torch.profiler / kineto)
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+# torch.profiler (CUPTI) on the H100 now and then keeps only part of a
+# window's kernel records (5 of ~70 windows in one chip_smoke run); such a
+# window is measured again, up to this many times
+TIMING_TRIES = 10
 
 IMAGE = 256
 LATENT = 128
@@ -79,7 +92,21 @@ def deconv_igdn_cost(b, h, w, cin, cout, mode):
 
 
 def time_ms(torch, fn, iters=20):
-    """Mean device time of fn over `iters` launches, by CUDA events."""
+    """(device ms, host ms) of one call of fn, after 3 warm-up calls.
+
+    Device ms: the summed durations of every device activity the calls
+    launched (kernels, cuDNN's layout transforms, memsets, copies), as
+    torch.profiler records them over `iters` calls, per call. The profiler
+    traces `iters` calls as its warm-up step, whose records it drops, and
+    then the `iters` calls it keeps. The trace's categories tell device work
+    apart from the profiler's own "overhead" entries (CUPTI's buffer
+    requests), which are left out; a window whose kernel records are not a
+    whole number per call lost records and is measured again. Host ms: CUDA
+    events around `iters` back-to-back calls, per call; where a call's
+    device work is shorter than its Python and launch cost this is the
+    launch rate the eager path pays, not the device's time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -90,7 +117,32 @@ def time_ms(torch, fn, iters=20):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    host = start.elapsed_time(end) / iters
+    for _ in range(TIMING_TRIES):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(path)
+                         ) as prof:
+                for _ in range(2):  # warm-up step, then the kept step
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            with open(path) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") in DEVICE_WORK]
+        kernels = sum(e["cat"] == "kernel" for e in events)
+        # every call launches the same kernels: a count that is not a
+        # multiple of `iters` means the profiler lost records; measure again
+        if kernels and kernels % iters == 0:
+            return sum(e["dur"] for e in events) / 1e3 / iters, host
+        print(f"time_ms: the profiler kept {kernels} kernel records of "
+              f"{iters} calls; measuring again")
+    raise RuntimeError(f"the profiler lost device records {TIMING_TRIES} "
+                       f"times")
 
 
 def max_err(torch, got, want):
@@ -123,7 +175,8 @@ def check_gdn(torch, b, gen):
     path = gdn_path_shapes(b)
     extra = [(n, c, not inv, 0) for n, c, inv, _ in
              (path[0], path[1], path[-2])]  # the other direction
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "err": 0.0}
     bound_by = {}
     for n, c, inverse, per_trip in path + extra:
         x = torch.randn(n, c, generator=gen).cuda()
@@ -136,16 +189,19 @@ def check_gdn(torch, b, gen):
         if not err <= tol_rel * max(1.0, scale):
             raise RuntimeError(f"gdn ({n},{c}) inverse={inverse}: max abs err "
                                f"{err} > {tol_rel} x {max(1.0, scale)}")
-        ms = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, inverse))
-        plain = time_ms(torch, lambda: gdn_plain(x, gamma, beta, inverse))
+        ms, host = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, inverse))
+        plain, plain_host = time_ms(
+            torch, lambda: gdn_plain(x, gamma, beta, inverse))
         bms, by = bound_ms(*gdn_cost(n, c))
         print(f"kernel gdn rows={n} C={c} inverse={inverse} per_round_trip="
               f"{per_trip} max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
-              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.5f} "
+              f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
+              f"plain_host_ms={plain_host:.5f} bound_ms={bms:.5f} "
               f"bound_by={by}")
         totals["err"] = max(totals["err"], err)
         if per_trip:
             totals["ms"] += per_trip * ms
+            totals["host_ms"] += per_trip * host
             totals["plain_ms"] += per_trip * plain
             totals["bound_ms"] += per_trip * bms
             bound_by[by] = bound_by.get(by, 0.0) + bms
@@ -153,55 +209,139 @@ def check_gdn(torch, b, gen):
     return totals, max(bound_by, key=bound_by.get), tol_rel
 
 
+def split_extra_shapes():
+    """Shapes beyond the path for the split kernel: a Cin the cluster size
+    does not divide (100 over 8, 50 over 4), an odd input, batch 1."""
+    return [(1, 3, 3, CONV, CONV, "igdn"), (2, 4, 4, CONV // 2, 64, "igdn"),
+            (1, 1, 1, LATENT, CONV, "igdn"), (1, 2, 2, CONV, CONV, "igdn"),
+            (1, 4, 4, CONV, CONV, "igdn")]
+
+
+def deconv_case(torch, gen, bb, h, w, cin, cout):
+    """x NHWC, the torch-layout weight at init scale and its JAX tap
+    layout, bias, gamma, beta; all on the card."""
+    x = torch.randn(bb, h, w, cin, generator=gen).cuda()
+    wt = ((torch.rand(cin, cout, 5, 5, generator=gen) * 2 - 1)
+          / (25 * cin) ** 0.5).cuda()
+    taps = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    bias = (0.1 * torch.randn(cout, generator=gen)).cuda()
+    gamma = (0.1 * torch.eye(cout)
+             + 0.01 * torch.rand(cout, cout, generator=gen)).cuda()
+    beta = (1 + 0.1 * torch.rand(cout, generator=gen)).cuda()
+    return x, wt, taps, bias, gamma, beta
+
+
 def check_deconv(torch, b, gen):
+    """Every path shape, g_s's last deconv (no epilogue) and the extra
+    split shapes against the plain version. Where the launch plan is the
+    split kernel it also checks that two launches are bitwise equal and
+    times the tiled kernel at the same shape ("tiled_ms", the variant the
+    split one replaces there)."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
-                                                deconv_igdn_plain)
+                                                deconv_igdn_plain,
+                                                launch_plan, tile_shape)
 
     tol_rel = 1e-4
     cases = [(s, 1) for s in deconv_path_shapes(b)]
     cases.append(((b, 8, 8, CONV, CONV, None), 0))  # g_s's last deconv, no epilogue
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+    cases += [(s, 0) for s in split_extra_shapes()]
+    totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0, "tiled_ms": 0.0, "tiled_host_ms": 0.0,
               "err": 0.0}
     bound_by = {}
     for (bb, h, w, cin, cout, mode), per_trip in cases:
-        x = torch.randn(bb, h, w, cin, generator=gen).cuda()
-        wt = ((torch.rand(cin, cout, 5, 5, generator=gen) * 2 - 1)
-              / (25 * cin) ** 0.5).cuda()  # torch layout, init scale
-        taps = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
-        bias = (0.1 * torch.randn(cout, generator=gen)).cuda()
-        gamma = (0.1 * torch.eye(cout)
-                 + 0.01 * torch.rand(cout, cout, generator=gen)).cuda()
-        beta = (1 + 0.1 * torch.rand(cout, generator=gen)).cuda()
-        got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode)
+        x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
+                                                     cin, cout)
+        plan = launch_plan(bb, h, w, cin, cout)
+        tiled = ("tiled", *tile_shape(bb, h, w, cout), 1)
         want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
-        torch.cuda.synchronize()
-        err, scale = max_err(torch, got, want)
-        if not err <= tol_rel * max(1.0, scale):
-            raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout, mode)}: "
-                               f"max abs err {err} > {tol_rel} x "
-                               f"{max(1.0, scale)}")
+        err, scale = 0.0, want.abs().max().item()
+        for p in {plan, tiled}:
+            got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode, plan=p)
+            torch.cuda.synchronize()
+            e, _ = max_err(torch, got, want)
+            if not e <= tol_rel * max(1.0, scale):
+                raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout, mode)}"
+                                   f" plan {p}: max abs err {e} > {tol_rel} x"
+                                   f" {max(1.0, scale)}")
+            if p == plan:
+                err = e
+            if p[0] == "split" and not torch.equal(got, deconv_igdn_cuda(
+                    x, taps, bias, gamma, beta, mode, plan=p)):
+                raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout)} "
+                                   f"split: two launches differ")
         x_nchw = x.permute(0, 3, 1, 2)
-        ms = time_ms(torch, lambda: deconv_igdn_cuda(x, taps, bias, gamma,
-                                                     beta, mode))
-        plain = time_ms(torch, lambda: deconv_igdn_plain(x, taps, bias, gamma,
-                                                         beta, mode))
-        lib = time_ms(torch, lambda: F.conv_transpose2d(
+        ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
+            x, taps, bias, gamma, beta, mode))
+        if plan == tiled:
+            tms, thost = ms, host
+        else:
+            tms, thost = time_ms(torch, lambda: deconv_igdn_cuda(
+                x, taps, bias, gamma, beta, mode, plan=tiled))
+        plain, plain_host = time_ms(torch, lambda: deconv_igdn_plain(
+            x, taps, bias, gamma, beta, mode))
+        lib, lib_host = time_ms(torch, lambda: F.conv_transpose2d(
             x_nchw, wt, bias, stride=2, padding=2, output_padding=1))
         bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode))
         print(f"kernel deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
-              f"mode={mode} per_round_trip={per_trip} max_abs_err={err:.3e} "
-              f"(|ref|max {scale:.3g}) ms={ms:.5f} plain_ms={plain:.5f} "
-              f"library_ms={lib:.5f} bound_ms={bms:.5f} bound_by={by}")
+              f"mode={mode} plan={plan} per_round_trip={per_trip} "
+              f"max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
+              f"{'bitwise_repeat=ok ' if plan[0] == 'split' else ''}"
+              f"ms={ms:.5f} host_ms={host:.5f} tiled_ms={tms:.5f} "
+              f"tiled_host_ms={thost:.5f} plain_ms={plain:.5f} "
+              f"plain_host_ms={plain_host:.5f} library_ms={lib:.5f} "
+              f"library_host_ms={lib_host:.5f} bound_ms={bms:.5f} "
+              f"bound_by={by}")
         totals["err"] = max(totals["err"], err)
         if per_trip:
             totals["ms"] += ms
+            totals["host_ms"] += host
+            totals["tiled_ms"] += tms
+            totals["tiled_host_ms"] += thost
             totals["plain_ms"] += plain
             totals["library_ms"] += lib
             totals["bound_ms"] += bms
             bound_by[by] = bound_by.get(by, 0.0) + bms
     return totals, max(bound_by, key=bound_by.get), tol_rel
+
+
+def tune_split(torch, b, gen):
+    """Device ms of every split plan (tile x cluster size) at the latent
+    path shapes, with and without the (I)GDN epilogue, beside the launch
+    plan's choice."""
+    from mmnc_tpu_torch.ops.deconv_igdn import (SPLIT_TILES, SPLITS,
+                                                deconv_igdn_cuda,
+                                                deconv_igdn_plain,
+                                                launch_plan)
+
+    for bb, h, w, cin, cout, mode in deconv_path_shapes(b):
+        chosen = launch_plan(bb, h, w, cin, cout)
+        if chosen[0] != "split":
+            continue
+        x, _, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w, cin,
+                                                    cout)
+        want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
+        for t in SPLIT_TILES:
+            if t > 1 and t > min(h, w):
+                continue
+            for s in SPLITS:
+                plan = ("split", t, t, s)
+                got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode,
+                                       plan=plan)
+                err, scale = max_err(torch, got, want)
+                if not err <= 1e-4 * max(1.0, scale):
+                    raise RuntimeError(f"tune {plan}: max abs err {err}")
+                ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
+                    x, taps, bias, gamma, beta, mode, plan=plan))
+                bare, _ = time_ms(torch, lambda: deconv_igdn_cuda(
+                    x, taps, bias, None, None, None, plan=plan))
+                blocks = bb * -(-h // t) * -(-w // t) * s
+                print(f"tune deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
+                      f"plan={plan} blocks={blocks} ms={ms:.5f} "
+                      f"host_ms={host:.5f} no_epilogue_ms={bare:.5f}"
+                      f"{' (launch_plan)' if plan == chosen else ''}")
 
 
 def counts():
@@ -339,12 +479,16 @@ def profile_round_trip(torch, model, batch, out_dir):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    trace = os.path.join(out_dir, "round_trip_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:  # device work only, as in time_ms
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in DEVICE_WORK]
+    busy_us = sum(e["dur"] for e in events)
     with open(os.path.join(out_dir, "round_trip_profile.txt"), "w") as f:
         f.write(f"wall {wall * 1e3:.3f} ms, device kernel time {busy_us / 1e3:.3f}"
-                f" ms, {len(events)} device events\n{table}\n")
-    prof.export_chrome_trace(os.path.join(out_dir, "round_trip_trace.json"))
+                f" ms, {len(events)} device events (the table's \"Activity "
+                f"Buffer Request\" row is the profiler's own)\n{table}\n")
     print(f"profile: wall {wall * 1e3:.3f} ms, device kernel time "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / (wall * 1e3):.3f} of wall)"
           f", {len(events)} device events -> {out_dir}")
@@ -354,6 +498,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--profile", default=None,
                         help="write a profiler summary of one round trip here")
+    parser.add_argument("--tune", action="store_true",
+                        help="also time every split plan at the latent stages")
     args = parser.parse_args(argv)
 
     import torch
@@ -380,19 +526,24 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(SEED)
     gdn_tot, gdn_by, gdn_tol = check_gdn(torch, BATCH, gen)
     dec_tot, dec_by, dec_tol = check_deconv(torch, BATCH, gen)
+    if args.tune:
+        tune_split(torch, BATCH, gen)
 
     launches = run_model(torch, args.profile)
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the main path")
 
-    per_trip = f"sum over one round trip of a batch of {BATCH}"
+    per_trip = (f"sum over one round trip of a batch of {BATCH}; ms, "
+                f"plain_ms, library_ms: device time (torch.profiler); "
+                f"host_ms: CUDA events over back-to-back calls")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
          "launches": launches["gdn"], "max_abs_err": gdn_tot["err"],
          "tolerance": f"{gdn_tol} x max(1, |plain|max)",
-         "ms": gdn_tot["ms"], "plain_ms": gdn_tot["plain_ms"],
+         "ms": gdn_tot["ms"], "host_ms": gdn_tot["host_ms"],
+         "plain_ms": gdn_tot["plain_ms"],
          "bound_ms": gdn_tot["bound_ms"], "bound_by": gdn_by,
          "library_ms": None, "times": per_trip},
         {"name": "deconv_igdn", "route": "cuda",
@@ -400,9 +551,13 @@ def main(argv=None):
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
          "launches": launches["deconv_igdn"], "max_abs_err": dec_tot["err"],
          "tolerance": f"{dec_tol} x max(1, |plain|max)",
-         "ms": dec_tot["ms"], "plain_ms": dec_tot["plain_ms"],
+         "ms": dec_tot["ms"], "host_ms": dec_tot["host_ms"],
+         "plain_ms": dec_tot["plain_ms"],
          "bound_ms": dec_tot["bound_ms"], "bound_by": dec_by,
-         "library_ms": dec_tot["library_ms"], "times": per_trip},
+         "library_ms": dec_tot["library_ms"],
+         "tiled_ms": dec_tot["tiled_ms"],
+         "tiled_host_ms": dec_tot["tiled_host_ms"], "times": per_trip
+         + "; tiled_ms: every shape on the tiled kernel"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

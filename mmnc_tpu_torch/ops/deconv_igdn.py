@@ -3,11 +3,15 @@
 Replaces mmnc_tpu/ops/deconv_igdn_pallas.py:deconv_igdn_pallas (kernel
 body `_kernel`) with the hand-written CUDA kernel `csrc/deconv_igdn.cu`.
 On the H100 the 100- and 50-channel stages are bound by f32 FMAs and the
-3-channel ones by bytes; the kernel tiles the output spatially (a 1-pixel
-input halo per tile, all Cout channels of a pixel in one block so the
-(I)GDN epilogue stays on chip) and writes the interleaved output once.
-See the source for the design. Forward only: the decode path runs it
-under no-grad, training keeps the unfused autograd path.
+3-channel ones by bytes. The kernel has two variants, picked per shape by
+`launch_plan`: "tiled" tiles the output spatially (a 1-pixel input halo
+per tile, all Cout channels of a pixel in one block so the (I)GDN epilogue
+stays on chip); "split", for the latent stages whose tiles would leave
+most SMs idle, gives each tile to a thread-block cluster whose blocks take
+slices of Cin and add their partial sums in rank order through
+distributed shared memory. Both write the interleaved output once. See
+the source for the design. Forward only: the decode path runs it under
+no-grad, training keeps the unfused autograd path.
 
 `deconv_igdn(x, w, b, gamma, beta, mode)` mirrors `deconv_igdn_pallas`:
 x (B, H, W, Cin) NHWC, w (5, 5, Cin, Cout) in the JAX tap layout (the
@@ -58,7 +62,7 @@ def deconv_igdn_plain(x, w, b, gamma=None, beta=None, mode="igdn"):
 @functools.cache
 def _entry():
     fn = _build.load("deconv_igdn").mmnc_deconv_igdn_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -66,6 +70,16 @@ def _entry():
 
 _SMS = 132  # H100 SXM streaming multiprocessors
 _WIDE_TILES = ((4, 4), (2, 4), (1, 4))
+SPLIT_TILES = (4, 2, 1)  # square tiles the split kernel is built for
+SPLITS = (8, 4, 2)  # cluster sizes up to the portable limit of 8
+# one thread per (parity, position group, 4 channels), and gamma beside the
+# weight chunks in shared memory
+_SPLIT_MAX_COUT = 128
+# Blocks of one split launch: half the SMs, so that clusters of up to 8
+# blocks (one per SM, for their shared memory) run in one wave whatever the
+# GPC a cluster lands on. 128 blocks in clusters of 4 ran in two waves on
+# the H100 (PERF.md).
+_SPLIT_MAX_BLOCKS = _SMS // 2
 
 
 def tile_shape(b: int, h: int, w: int, cout: int):
@@ -88,8 +102,49 @@ def tile_shape(b: int, h: int, w: int, cout: int):
     return min(ta, h), tb
 
 
-def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn"):
-    """Launch csrc/deconv_igdn.cu on CUDA float32 tensors; raises otherwise."""
+def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
+    """(variant, TA, TB, splits) for one launch.
+
+    "tiled": `tile_shape`'s tiles, one block each, splits 1. "split": the
+    latent stages, where those tiles give fewer blocks than SMs (Cout >= 32,
+    a multiple of 4, at most 128): a cluster of `splits` blocks owns each
+    square tile of SPLIT_TILES (no larger than the input) and each block
+    takes a slice of Cin (`cin_slices`). Of the (tile, splits) pairs with at
+    most _SPLIT_MAX_BLOCKS blocks, the one with the most blocks wins, the
+    larger tile on a tie (fewer weight reads)."""
+    ta, tb = tile_shape(b, h, w, cout)
+    if (cout < 32 or cout > _SPLIT_MAX_COUT or cout % 4
+            or b * -(-h // ta) * -(-w // tb) >= _SMS):
+        return "tiled", ta, tb, 1
+    best = None
+    for t in SPLIT_TILES:
+        if t > 1 and t > min(h, w):
+            continue
+        tiles = b * -(-h // t) * -(-w // t)
+        for s in SPLITS:
+            blocks = tiles * s
+            if blocks <= _SPLIT_MAX_BLOCKS and (best is None
+                                                or blocks > best[0]):
+                best = (blocks, t, s)
+    if best is None:  # too many tiles for one wave even unsplit
+        return "tiled", ta, tb, 1
+    _, t, s = best
+    return "split", t, t, s
+
+
+def cin_slices(cin: int, splits: int):
+    """[(start, size)] of Cin per cluster rank: contiguous, the first
+    cin % splits ranks one channel longer (100 over 8: 13 x 4, 12 x 4).
+    The kernel computes the same slices (csrc/deconv_igdn.cu)."""
+    base, rem = divmod(cin, splits)
+    return [(r * base + min(r, rem), base + (r < rem)) for r in range(splits)]
+
+
+def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
+    """Launch csrc/deconv_igdn.cu on CUDA float32 tensors; raises otherwise.
+
+    `plan` overrides `launch_plan` (chip_smoke.py times one variant
+    against the other at the same shape)."""
     _check_mode(mode, gamma, beta)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
@@ -108,10 +163,20 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn"):
     gamma, beta = gamma.contiguous(), beta.contiguous()
     out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=x.dtype,
                       device=x.device)
-    ta, tb = tile_shape(bsz, h, wd, cout)
+    variant, ta, tb, splits = plan or launch_plan(bsz, h, wd, cin, cout)
+    if variant == "split":
+        if (splits not in SPLITS or ta != tb or ta not in SPLIT_TILES
+                or cout > _SPLIT_MAX_COUT or cout % 4):
+            raise ValueError(f"plan {plan}: no split kernel for it")
+        # its bulk copies start on 16-byte boundaries: a tensor whose data
+        # does not (a view at an odd offset) is copied to one that does
+        w, gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (w, gamma, beta))
+    elif variant != "tiled" or splits != 1:
+        raise ValueError(f"plan {plan}: no kernel for it")
     rc = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,
-                  ta, tb, _MODES[mode],
+                  ta, tb, splits if variant == "split" else 1, _MODES[mode],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "deconv_igdn")
     deconv_igdn_cuda.launches += 1

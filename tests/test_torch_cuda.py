@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
-                                            deconv_igdn_plain)
+                                            deconv_igdn_plain, launch_plan,
+                                            tile_shape)
 from mmnc_tpu_torch.ops.gdn import gdn, gdn_cuda, gdn_plain
 
 pytestmark = pytest.mark.cuda
@@ -46,15 +47,8 @@ def test_gdn_kernel_matches_plain(device, n, c, inverse):
     _close(got, gdn_plain(x, gamma, beta, inverse))
 
 
-@pytest.mark.parametrize("shape,cout", [((2, 1, 1, 100), 100),
-                                        ((2, 2, 2, 100), 100),
-                                        ((3, 5, 6, 100), 100),
-                                        ((2, 8, 8, 100), 50),
-                                        ((1, 13, 9, 50), 3),
-                                        ((1, 17, 33, 3), 3)])
-@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
-def test_deconv_igdn_kernel_matches_plain(device, shape, cout, mode):
-    g = torch.Generator(device="cpu").manual_seed(cout)
+def _deconv_inputs(device, shape, cout, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
     cin = shape[-1]
     x = torch.randn(*shape, generator=g).to(device)
     w = (torch.rand(5, 5, cin, cout, generator=g) * 2 - 1).to(device) \
@@ -63,9 +57,71 @@ def test_deconv_igdn_kernel_matches_plain(device, shape, cout, mode):
     gamma = (0.1 * torch.eye(cout)
              + 0.01 * torch.rand(cout, cout, generator=g)).to(device)
     beta = (1 + 0.1 * torch.rand(cout, generator=g)).to(device)
-    got = deconv_igdn_cuda(x, w, b, gamma, beta, mode)
+    return x, w, b, gamma, beta
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 1, 1, 100), 100),
+                                        ((2, 2, 2, 100), 100),
+                                        ((3, 5, 6, 100), 100),
+                                        ((2, 8, 8, 100), 50),
+                                        ((1, 13, 9, 50), 3),
+                                        ((1, 17, 33, 3), 3)])
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_deconv_igdn_kernel_matches_plain(device, shape, cout, mode, tiled):
+    """The launch plan's variant, and the tiled variant at every shape
+    (the small shapes' plan is the split one)."""
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    plan = ("tiled", *tile_shape(shape[0], shape[1], shape[2], cout), 1) \
+        if tiled else None
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, mode, plan=plan)
     torch.cuda.synchronize()
     _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
+
+
+@pytest.mark.parametrize("shape,cout", [((8, 1, 1, 128), 100),
+                                        ((8, 2, 2, 100), 100),
+                                        ((1, 3, 3, 100), 100),
+                                        ((2, 4, 4, 50), 64),
+                                        ((1, 1, 1, 128), 100),
+                                        ((1, 2, 2, 100), 100)])
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+def test_deconv_igdn_split_path_matches_plain(device, shape, cout, mode):
+    """The cluster split-K path at the latent stages' shapes and at shapes
+    whose Cin the cluster size does not divide; two launches are bitwise
+    equal (the partial sums are added in rank order)."""
+    assert launch_plan(*shape, cout)[0] == "split"
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, mode)
+    again = deconv_igdn_cuda(x, w, b, gamma, beta, mode)
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,cout,plan", [
+    ((1, 3, 3, 100), 100, ("split", 2, 2, 8)),
+    ((2, 5, 6, 50), 64, ("split", 4, 4, 2)),
+    ((8, 4, 4, 100), 100, ("split", 4, 4, 8)),
+    ((3, 2, 3, 3), 40, ("split", 1, 1, 8))])
+def test_deconv_igdn_split_tiles_match_plain(device, shape, cout, plan):
+    """Every tile size of the split kernel, ragged tiles and ranks with
+    no input channel (Cin 3 over 8) included."""
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, 7)
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, "igdn", plan=plan)
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, "igdn"))
+
+
+def test_deconv_igdn_split_takes_weights_off_16_byte_boundaries(device):
+    x, w, b, gamma, beta = _deconv_inputs(device, (2, 2, 2, 100), 100, 3)
+    shifted = torch.empty(w.numel() + 1, device=device)[1:].view(w.shape)
+    shifted.copy_(w)
+    assert shifted.data_ptr() % 16
+    got = deconv_igdn_cuda(x, shifted, b, gamma, beta, "igdn",
+                           plan=("split", 2, 2, 8))
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, "igdn"))
 
 
 def test_kernel_wrappers_raise_on_unsupported_input(device):
@@ -76,3 +132,8 @@ def test_kernel_wrappers_raise_on_unsupported_input(device):
     with pytest.raises(ValueError):
         gdn_cuda(x.double()[:, :4], torch.eye(4, device=device).double(),
                  torch.ones(4, device=device).double(), False)
+    x, w, b, gamma, beta = _deconv_inputs(device, (1, 2, 2, 8), 8, 0)
+    for plan in (("split", 1, 1, 16), ("split", 1, 2, 4), ("split", 3, 3, 4),
+                 ("tiled", 1, 1, 2), ("other", 1, 1, 1)):
+        with pytest.raises(ValueError):
+            deconv_igdn_cuda(x, w, b, gamma, beta, "igdn", plan=plan)

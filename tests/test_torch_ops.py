@@ -22,9 +22,11 @@ from mmnc_tpu.utils.torch_import import (convert_conv_weight,
 
 from mmnc_tpu_torch.ops import bound as tb
 from mmnc_tpu_torch.ops import layers as tl
-from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn, deconv_igdn_cuda,
+from mmnc_tpu_torch.ops.deconv_igdn import (SPLITS, cin_slices, deconv_igdn,
+                                            deconv_igdn_cuda,
                                             deconv_igdn_plain,
-                                            deconv_weight_taps)
+                                            deconv_weight_taps, launch_plan,
+                                            tile_shape)
 from mmnc_tpu_torch.ops.gdn import GDNFunction, gdn, gdn_cuda, gdn_plain
 from mmnc_tpu_torch.ops.quant import quantize_round
 
@@ -289,3 +291,48 @@ def test_deconv_igdn_rejects_bad_mode_and_cpu_in_cuda_wrapper():
     with pytest.raises(ValueError):
         deconv_igdn_cuda(_t(x), _t(w), _t(b), _t(gamma), _t(beta), "igdn")
     assert deconv_igdn_cuda.launches == before
+
+
+# --- launch plan of the deconv+IGDN kernel -------------------------------
+
+@pytest.mark.parametrize("shape,plan", [
+    ((8, 1, 1, 128, 100), ("split", 1, 1, 8)),
+    ((8, 2, 2, 100, 100), ("split", 2, 2, 8)),
+    ((8, 4, 4, 100, 100), ("split", 4, 4, 8))])
+def test_launch_plan_splits_the_latent_stages(shape, plan):
+    """g_s's three deconv+IGDN stages at batch 8: a cluster split-K, one
+    image per cluster of 8, within half the H100's 132 SMs (one wave)."""
+    b, h, w, _, _ = shape
+    assert launch_plan(*shape) == plan
+    _, t, _, s = plan
+    assert b * -(-h // t) * -(-w // t) * s <= 132 // 2
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 16, 100, 50), (8, 32, 32, 50, 50),
+                                   (8, 64, 64, 50, 3), (8, 128, 128, 3, 3)])
+def test_launch_plan_keeps_the_tiles_of_the_wide_stages(shape):
+    b, h, w, _, cout = shape
+    assert launch_plan(*shape) == ("tiled", *tile_shape(b, h, w, cout), 1)
+
+
+@pytest.mark.parametrize("cin", [3, 50, 100, 128])
+@pytest.mark.parametrize("splits", SPLITS)
+def test_cin_slices_cover_every_channel_once(cin, splits):
+    slices = cin_slices(cin, splits)
+    assert len(slices) == splits
+    covered = [c for start, size in slices for c in range(start, start + size)]
+    assert covered == list(range(cin))
+    sizes = [size for _, size in slices]
+    assert max(sizes) - min(sizes) <= (1 if cin % splits else 0)
+    assert sizes == sorted(sizes, reverse=True)
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 2, 100, 50), (8, 2, 2, 100, 200),
+                                   (8, 2, 2, 100, 16)])
+def test_launch_plan_keeps_tiles_where_the_split_kernel_has_none(shape):
+    """Cout not a multiple of 4, above 128 or below 32."""
+    assert launch_plan(*shape)[0] == "tiled"
+
+
+def test_cin_slices_of_100_over_8_are_13_and_12():
+    assert [size for _, size in cin_slices(100, 8)] == [13] * 4 + [12] * 4
