@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive mmnc_tpu_torch on one NVIDIA H100 end to end.
 
-    python3 chip_smoke.py [--profile DIR] [--tune]
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each of which exits non-zero on failure:
   1. print the card's name and power limit (nvidia-smi);
@@ -13,8 +13,8 @@ Phases, each of which exits non-zero on failure:
      version's, a library call's where one computes the same op, and the
      card's bound. For deconv+IGDN also print each shape's launch plan,
      check the split kernel at extra shapes and that two of its launches
-     are bitwise equal, and check and time the tiled kernel where the plan
-     is the split one;
+     are bitwise equal, and check the tiled kernel too where the plan is
+     the split one;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -25,8 +25,7 @@ Phases, each of which exits non-zero on failure:
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--profile DIR` also writes a torch.profiler summary
-of one round trip to DIR; `--tune` also times every split plan of the
-deconv+IGDN kernel at the latent stages.
+of one round trip to DIR.
 """
 
 import argparse
@@ -80,15 +79,41 @@ def gdn_cost(n, c):
 def deconv_igdn_cost(b, h, w, cin, cout, mode):
     """Bytes and FLOPs of one k5/s2 deconv (+ epilogue). Taps falling on
     the zero padding are not counted: (5H-3)(5W-3) input-tap pairs per
-    image and channel pair."""
+    image and channel pair, and of the weights only the kernel rows and
+    columns that reach the image (2 of 5 along an axis of extent 1)."""
     taps = (5 * h - 3) * (5 * w - 3)
+    kernel_taps = (2 if h == 1 else 5) * (2 if w == 1 else 5)
     out_pix = b * 4 * h * w
     flops = 2 * b * taps * cin * cout + out_pix * cout
-    n_bytes = (b * h * w * cin + 25 * cin * cout + cout + out_pix * cout) * F32
+    n_bytes = (b * h * w * cin + kernel_taps * cin * cout + cout
+               + out_pix * cout) * F32
     if mode is not None:
         flops += 2 * out_pix * cout * cout + 3 * out_pix * cout
         n_bytes += (cout * cout + cout) * F32
     return n_bytes, flops
+
+
+def device_records(torch, fn, calls):
+    """The device-work records torch.profiler keeps of `calls` calls of fn,
+    traced after a profiler warm-up step of as many calls (whose records
+    it drops). The trace's categories tell device work apart from the
+    profiler's own "overhead" entries (CUPTI's buffer requests)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for _ in range(2):  # warm-up step, then the kept step
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            return [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") in DEVICE_WORK]
 
 
 def time_ms(torch, fn, iters=20):
@@ -96,17 +121,13 @@ def time_ms(torch, fn, iters=20):
 
     Device ms: the summed durations of every device activity the calls
     launched (kernels, cuDNN's layout transforms, memsets, copies), as
-    torch.profiler records them over `iters` calls, per call. The profiler
-    traces `iters` calls as its warm-up step, whose records it drops, and
-    then the `iters` calls it keeps. The trace's categories tell device work
-    apart from the profiler's own "overhead" entries (CUPTI's buffer
-    requests), which are left out; a window whose kernel records are not a
-    whole number per call lost records and is measured again. Host ms: CUDA
-    events around `iters` back-to-back calls, per call; where a call's
-    device work is shorter than its Python and launch cost this is the
-    launch rate the eager path pays, not the device's time."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    torch.profiler records them over `iters` calls, per call. A trace of
+    one call gives the kernel records per call; a window of `iters` calls
+    that does not hold exactly `iters` times as many lost or gained
+    records, and both are measured again. Host ms: CUDA events around
+    `iters` back-to-back calls, per call; where a call's device work is
+    shorter than its Python and launch cost this is the launch rate the
+    eager path pays, not the device's time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -118,29 +139,17 @@ def time_ms(torch, fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     host = start.elapsed_time(end) / iters
+
+    def kernels(events):
+        return sum(e["cat"] == "kernel" for e in events)
+
     for _ in range(TIMING_TRIES):
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1),
-                         on_trace_ready=lambda p: p.export_chrome_trace(path)
-                         ) as prof:
-                for _ in range(2):  # warm-up step, then the kept step
-                    for _ in range(iters):
-                        fn()
-                    torch.cuda.synchronize()
-                    prof.step()
-            with open(path) as f:
-                events = [e for e in json.load(f)["traceEvents"]
-                          if e.get("cat") in DEVICE_WORK]
-        kernels = sum(e["cat"] == "kernel" for e in events)
-        # every call launches the same kernels: a count that is not a
-        # multiple of `iters` means the profiler lost records; measure again
-        if kernels and kernels % iters == 0:
+        per_call = kernels(device_records(torch, fn, 1))
+        events = device_records(torch, fn, iters)
+        if per_call and kernels(events) == iters * per_call:
             return sum(e["dur"] for e in events) / 1e3 / iters, host
-        print(f"time_ms: the profiler kept {kernels} kernel records of "
-              f"{iters} calls; measuring again")
+        print(f"time_ms: the profiler kept {kernels(events)} kernel records "
+              f"of {iters} calls against {per_call} of one; measuring again")
     raise RuntimeError(f"the profiler lost device records {TIMING_TRIES} "
                        f"times")
 
@@ -235,8 +244,8 @@ def check_deconv(torch, b, gen):
     """Every path shape, g_s's last deconv (no epilogue) and the extra
     split shapes against the plain version. Where the launch plan is the
     split kernel it also checks that two launches are bitwise equal and
-    times the tiled kernel at the same shape ("tiled_ms", the variant the
-    split one replaces there)."""
+    that the tiled kernel, forced at the same shape, agrees too (its only
+    check there)."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -248,8 +257,7 @@ def check_deconv(torch, b, gen):
     cases.append(((b, 8, 8, CONV, CONV, None), 0))  # g_s's last deconv, no epilogue
     cases += [(s, 0) for s in split_extra_shapes()]
     totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "tiled_ms": 0.0, "tiled_host_ms": 0.0,
-              "err": 0.0}
+              "library_ms": 0.0, "err": 0.0}
     bound_by = {}
     for (bb, h, w, cin, cout, mode), per_trip in cases:
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
@@ -275,11 +283,6 @@ def check_deconv(torch, b, gen):
         x_nchw = x.permute(0, 3, 1, 2)
         ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
             x, taps, bias, gamma, beta, mode))
-        if plan == tiled:
-            tms, thost = ms, host
-        else:
-            tms, thost = time_ms(torch, lambda: deconv_igdn_cuda(
-                x, taps, bias, gamma, beta, mode, plan=tiled))
         plain, plain_host = time_ms(torch, lambda: deconv_igdn_plain(
             x, taps, bias, gamma, beta, mode))
         lib, lib_host = time_ms(torch, lambda: F.conv_transpose2d(
@@ -289,8 +292,7 @@ def check_deconv(torch, b, gen):
               f"mode={mode} plan={plan} per_round_trip={per_trip} "
               f"max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
               f"{'bitwise_repeat=ok ' if plan[0] == 'split' else ''}"
-              f"ms={ms:.5f} host_ms={host:.5f} tiled_ms={tms:.5f} "
-              f"tiled_host_ms={thost:.5f} plain_ms={plain:.5f} "
+              f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
               f"plain_host_ms={plain_host:.5f} library_ms={lib:.5f} "
               f"library_host_ms={lib_host:.5f} bound_ms={bms:.5f} "
               f"bound_by={by}")
@@ -298,50 +300,11 @@ def check_deconv(torch, b, gen):
         if per_trip:
             totals["ms"] += ms
             totals["host_ms"] += host
-            totals["tiled_ms"] += tms
-            totals["tiled_host_ms"] += thost
             totals["plain_ms"] += plain
             totals["library_ms"] += lib
             totals["bound_ms"] += bms
             bound_by[by] = bound_by.get(by, 0.0) + bms
     return totals, max(bound_by, key=bound_by.get), tol_rel
-
-
-def tune_split(torch, b, gen):
-    """Device ms of every split plan (tile x cluster size) at the latent
-    path shapes, with and without the (I)GDN epilogue, beside the launch
-    plan's choice."""
-    from mmnc_tpu_torch.ops.deconv_igdn import (SPLIT_TILES, SPLITS,
-                                                deconv_igdn_cuda,
-                                                deconv_igdn_plain,
-                                                launch_plan)
-
-    for bb, h, w, cin, cout, mode in deconv_path_shapes(b):
-        chosen = launch_plan(bb, h, w, cin, cout)
-        if chosen[0] != "split":
-            continue
-        x, _, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w, cin,
-                                                    cout)
-        want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
-        for t in SPLIT_TILES:
-            if t > 1 and t > min(h, w):
-                continue
-            for s in SPLITS:
-                plan = ("split", t, t, s)
-                got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode,
-                                       plan=plan)
-                err, scale = max_err(torch, got, want)
-                if not err <= 1e-4 * max(1.0, scale):
-                    raise RuntimeError(f"tune {plan}: max abs err {err}")
-                ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
-                    x, taps, bias, gamma, beta, mode, plan=plan))
-                bare, _ = time_ms(torch, lambda: deconv_igdn_cuda(
-                    x, taps, bias, None, None, None, plan=plan))
-                blocks = bb * -(-h // t) * -(-w // t) * s
-                print(f"tune deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
-                      f"plan={plan} blocks={blocks} ms={ms:.5f} "
-                      f"host_ms={host:.5f} no_epilogue_ms={bare:.5f}"
-                      f"{' (launch_plan)' if plan == chosen else ''}")
 
 
 def counts():
@@ -498,8 +461,6 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--profile", default=None,
                         help="write a profiler summary of one round trip here")
-    parser.add_argument("--tune", action="store_true",
-                        help="also time every split plan at the latent stages")
     args = parser.parse_args(argv)
 
     import torch
@@ -526,8 +487,6 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(SEED)
     gdn_tot, gdn_by, gdn_tol = check_gdn(torch, BATCH, gen)
     dec_tot, dec_by, dec_tol = check_deconv(torch, BATCH, gen)
-    if args.tune:
-        tune_split(torch, BATCH, gen)
 
     launches = run_model(torch, args.profile)
     for name, n in launches.items():
@@ -554,10 +513,7 @@ def main(argv=None):
          "ms": dec_tot["ms"], "host_ms": dec_tot["host_ms"],
          "plain_ms": dec_tot["plain_ms"],
          "bound_ms": dec_tot["bound_ms"], "bound_by": dec_by,
-         "library_ms": dec_tot["library_ms"],
-         "tiled_ms": dec_tot["tiled_ms"],
-         "tiled_host_ms": dec_tot["tiled_host_ms"], "times": per_trip
-         + "; tiled_ms: every shape on the tiled kernel"},
+         "library_ms": dec_tot["library_ms"], "times": per_trip},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -86,9 +86,10 @@ def tile_shape(b: int, h: int, w: int, cout: int):
     """(TA, TB) input positions per block.
 
     Wide Cout: the largest of 4x4, 2x4, 1x4 that gives at least one block
-    per SM, else 1x4 (the small latent stages need the blocks more than the
-    weight reuse of a tall tile); inputs narrower than 4 take 1x1 tiles and
-    one column per thread. Narrow Cout: 8x16, so 256 threads have (parity,
+    per SM, else 1x4; inputs narrower than 4 take 1x1 tiles and one column
+    per thread. The 1x4 and 1x1 tiles serve the shapes `launch_plan` keeps
+    off the split kernel (Cout not a multiple of 4 or above 128, or more
+    tiles than one split wave holds) and a forced plan. Narrow Cout: 8x16, so 256 threads have (parity,
     row, column group, channel) items. Never taller or wider than the
     input. (Chosen from chip_smoke.py runs on an H100 at the decode
     stages' shapes; see PERF.md.)"""
