@@ -11,10 +11,13 @@ Phases, each of which exits non-zero on failure:
      shapes the serving path gives it, with its device time (torch.profiler)
      and host launch time (CUDA events over back-to-back calls), the plain
      version's, a library call's where one computes the same op, and the
-     card's bound. For deconv+IGDN also print each shape's launch plan,
-     check the split kernel at extra shapes and that two of its launches
-     are bitwise equal, and check the tiled kernel too where the plan is
-     the split one;
+     card's bound. Print each shape's launch plan. For GDN also check
+     (and time) both plan variants at one large and one small shape, check
+     extra shapes (ragged rows, C = 3 and 128, 5 rows, the other
+     direction) and that two launches are bitwise equal everywhere; for
+     deconv+IGDN check the split kernel at extra shapes and that two of
+     its launches are bitwise equal, and the tiled kernel too where the
+     plan is the split one;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -177,33 +180,78 @@ def deconv_path_shapes(b):
             (b, 64, 64, CONV // 2, 3, "igdn"), (b, 128, 128, 3, 3, "igdn")]
 
 
-def check_gdn(torch, b, gen):
+def gdn_extra_shapes(path):
+    """(rows, C, inverse) beyond the path: the other direction at three
+    path shapes, ragged row counts, C = 3 and C = 128 (padded to 4 and at
+    the wrapper's limit), fewer rows than one warp's 32."""
+    return ([(n, c, not inv) for n, c, inv, _ in (path[0], path[1], path[-2])]
+            + [(4099, CONV // 2, False), (777, CONV, True), (1000, 3, False),
+               (64, 128, True), (5, CONV, False)])
+
+
+def gdn_case(torch, gen, n, c):
+    x = torch.randn(n, c, generator=gen).cuda()
+    gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=gen)).cuda()
+    beta = (1 + 0.1 * torch.rand(c, generator=gen)).cuda()
+    return x, gamma, beta
+
+
+def check_gdn_launch(torch, x, gamma, beta, inverse, plan, tol_rel):
+    """One plan against the plain version, and a second launch bitwise
+    equal to the first. Returns (max abs err, |plain|max)."""
     from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain
+
+    got = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    again = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    want = gdn_plain(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    where = f"gdn {tuple(x.shape)} inverse={inverse} plan {tuple(plan)}"
+    if not err <= tol_rel * max(1.0, scale):
+        raise RuntimeError(f"{where}: max abs err {err} > {tol_rel} x "
+                           f"{max(1.0, scale)}")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{where}: two launches differ")
+    return err, scale
+
+
+def check_gdn(torch, b, gen):
+    """Every path shape and the extra shapes under their launch plan, and
+    first every plan variant forced at one large and one small path shape:
+    each against the plain version and bitwise repeatable; then device
+    time of the plan's launch, the plain version's and the bound."""
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
 
     tol_rel = 1e-4
     path = gdn_path_shapes(b)
-    extra = [(n, c, not inv, 0) for n, c, inv, _ in
-             (path[0], path[1], path[-2])]  # the other direction
+    for n, c in ((b * 128 ** 2, CONV), (b * 8 ** 2, CONV)):
+        x, gamma, beta = gdn_case(torch, gen, n, c)
+        for variant in ("rows", "split"):
+            plan = gdn_plan(n, c, variant)
+            err, _ = check_gdn_launch(torch, x, gamma, beta, False, plan,
+                                      tol_rel)
+            ms, host = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, False,
+                                                       plan=plan))
+            print(f"kernel gdn variant={variant} rows={n} C={c} plan="
+                  f"{tuple(plan)} max_abs_err={err:.3e} bitwise_repeat=ok "
+                  f"ms={ms:.5f} host_ms={host:.5f}")
+        del x, gamma, beta
     totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "err": 0.0}
     bound_by = {}
-    for n, c, inverse, per_trip in path + extra:
-        x = torch.randn(n, c, generator=gen).cuda()
-        gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=gen)).cuda()
-        beta = (1 + 0.1 * torch.rand(c, generator=gen)).cuda()
-        got = gdn_cuda(x, gamma, beta, inverse)
-        want = gdn_plain(x, gamma, beta, inverse)
-        torch.cuda.synchronize()
-        err, scale = max_err(torch, got, want)
-        if not err <= tol_rel * max(1.0, scale):
-            raise RuntimeError(f"gdn ({n},{c}) inverse={inverse}: max abs err "
-                               f"{err} > {tol_rel} x {max(1.0, scale)}")
+    cases = path + [(*s, 0) for s in gdn_extra_shapes(path)]
+    for n, c, inverse, per_trip in cases:
+        x, gamma, beta = gdn_case(torch, gen, n, c)
+        plan = gdn_plan(n, c)
+        err, scale = check_gdn_launch(torch, x, gamma, beta, inverse, plan,
+                                      tol_rel)
         ms, host = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, inverse))
         plain, plain_host = time_ms(
             torch, lambda: gdn_plain(x, gamma, beta, inverse))
         bms, by = bound_ms(*gdn_cost(n, c))
         print(f"kernel gdn rows={n} C={c} inverse={inverse} per_round_trip="
-              f"{per_trip} max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
+              f"{per_trip} plan={tuple(plan)} max_abs_err={err:.3e} "
+              f"(|ref|max {scale:.3g}) bitwise_repeat=ok "
               f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
               f"plain_host_ms={plain_host:.5f} bound_ms={bms:.5f} "
               f"bound_by={by}")
@@ -214,7 +262,7 @@ def check_gdn(torch, b, gen):
             totals["plain_ms"] += per_trip * plain
             totals["bound_ms"] += per_trip * bms
             bound_by[by] = bound_by.get(by, 0.0) + bms
-        del x, gamma, beta, got, want
+        del x, gamma, beta
     return totals, max(bound_by, key=bound_by.get), tol_rel
 
 

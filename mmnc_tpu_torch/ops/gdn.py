@@ -3,10 +3,17 @@
 Replaces mmnc_tpu/ops/gdn_pallas.py:_gdn_forward (kernel body
 `_gdn_kernel`, reached from `gdn_pallas_2d` / `gdn_pallas`) with the
 hand-written CUDA kernel `csrc/gdn.cu`. On the H100 the op sits near the
-balance of bytes and f32 FMAs (C/4 FLOP per byte: C = 50 is bound by
-bytes, C = 100 by FMAs); the kernel reads each row once, keeps gamma,
-beta and the squared rows in shared memory, and writes each row once. See
-the source for the design.
+balance of bytes and f32 FMAs (C/4 FLOP per byte against a balance of 20:
+C = 50 is bound by bytes, C = 100 by FMAs). The kernel reads each row
+once with bulk copies into a ring of shared-memory stages that overlaps
+the next tiles' copies with the current one's product, keeps gamma's
+slice, beta and the squared rows in shared memory, accumulates register
+micro-tiles of rows x 7 output channels in exact f32 FMAs, and writes
+each output once with coalesced stores. `gdn_plan` picks its launch:
+persistent blocks over row tiles, or for row counts too small to fill the
+SMs, blocks that each take a slice of the output channels;
+`gdn_cuda(..., plan=GDNPlan(...))` forces one. See the source for the
+design.
 
 `gdn(x, gamma, beta, inverse)` mirrors `gdn_pallas`: x is NHWC (or any
 channels-last tensor), gamma (C, C) in [out, in] layout, beta (C,). It is
@@ -18,12 +25,37 @@ launches the kernel or raises.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 MAX_CHANNELS = 128
+SMS = 132  # H100 SXM streaming multiprocessors
+# mirrors csrc/gdn.cu: rows per thread (kRM) of the two instantiations, a
+# warp's 8 x kRM rows and 28 output channels, threads per block, ring
+# stages, dynamic shared memory a block may use
+RMS = (2, 8)
+WARP_COLS = 28
+MAX_THREADS = 256
+STAGES = (2, 3, 4)
+MAX_SMEM = 227 * 1024 - 1024
+_SM_SMEM = 228 * 1024  # shared memory of one SM; 1 KB of it per block
+# registers per thread of each kRM (ptxas -v on sm_90a, rounded up to 8)
+_REGS = {2: 128, 8: 256}
+
+
+class GDNPlan(NamedTuple):
+    """One launch of csrc/gdn.cu: rows per thread (`rm`), rows per tile,
+    output channels per block (`slice`), blocks per slice (persistent:
+    each walks tiles blockIdx.x, + blocks, ...) and stages of its ring of
+    row tiles."""
+    rm: int
+    tile_rows: int
+    slice: int
+    blocks: int
+    stages: int
 
 
 def gdn_plain(x2d, gamma, beta, inverse: bool):
@@ -35,19 +67,99 @@ def gdn_plain(x2d, gamma, beta, inverse: bool):
 @functools.cache
 def _entry():
     fn = _build.load("gdn").mmnc_gdn_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def tile_rows(n: int, c: int) -> int:
-    """Rows per block: enough (4-row group, channel) items for 256 threads,
-    no more rows than there are (a multiple of 4)."""
-    return min(64 if c >= 16 else 256, (n + 3) // 4 * 4)
+def _stride(c: int) -> int:
+    cp = -(-c // 4) * 4
+    return cp if (cp // 4) % 2 else cp + 4
 
 
-def gdn_cuda(x2d, gamma, beta, inverse: bool):
-    """Launch csrc/gdn.cu on CUDA float32 tensors; raises on anything else."""
+def gdn_smem_bytes(c: int, plan: GDNPlan) -> int:
+    """Dynamic shared memory of one block (csrc/gdn.cu:smem_floats): the
+    ring of raw row tiles, gamma's slice at a padded stride, the x^2 tile
+    (also gamma's landing area) and beta's slice."""
+    _, tr, sl, _, stages = plan
+    x2 = max(tr * _stride(c), sl * c)
+    return 4 * (stages * tr * c + sl * _stride(c) + x2 + sl)
+
+
+def threads(plan: GDNPlan) -> int:
+    return plan.tile_rows // (8 * plan.rm) * (plan.slice // WARP_COLS) * 32
+
+
+def resident_per_sm(c: int, plan: GDNPlan) -> int:
+    """Blocks of this plan one SM holds at once, by threads, registers and
+    shared memory."""
+    t = threads(plan)
+    regs = t * _REGS[plan.rm]
+    return min(32, 2048 // t, 65536 // regs,
+               _SM_SMEM // (gdn_smem_bytes(c, plan) + 1024))
+
+
+def out_slices(c: int, slice_: int):
+    """[(start, size)] of the output channels, one per blockIdx.y: the
+    kernel's slice y covers channels y*slice .. min(C, (y+1)*slice)."""
+    return [(s, min(slice_, c - s)) for s in range(0, c, slice_)]
+
+
+@functools.lru_cache(maxsize=256)
+def gdn_plan(n: int, c: int, variant: str = None) -> GDNPlan:
+    """The launch for (n, c) rows: variant "rows" or "split", or by default
+    "rows" where its tiles fill at least half the SMs (or C fits one warp
+    column), else "split".
+
+    "rows": 8 rows per thread, one slice of every output channel (C
+    rounded up to 28), tiles of as many rows as 256 threads cover, at most
+    as many blocks as are resident, each walking tiles. "split": 2 rows per
+    thread and slices of 56 channels, one block per (tile, slice): 64-row
+    tiles where they still give half the SMs a block, else 32-row tiles.
+    Stages: the most of 2-4 that the block's tiles can use and that leave
+    the blocks' residency as it is at 2 stages. (Chosen from sweeps of
+    plans at the path's shapes on an H100; see PERF.md.)"""
+    wcols = -(-c // WARP_COLS)
+    rows_tr = 64 * max(1, MAX_THREADS // 32 // wcols)
+    if variant is None:
+        variant = ("rows" if -(-n // rows_tr) >= SMS // 2 or wcols == 1
+                   else "split")
+    if variant == "rows":
+        rm, tr, sl = 8, rows_tr, WARP_COLS * wcols
+    elif variant == "split":
+        rm, sl = 2, WARP_COLS * min(2, wcols)
+        tr = 64 if -(-n // 64) * -(-c // sl) >= SMS // 2 else 32
+    else:
+        raise ValueError(f"gdn plan variant {variant!r}")
+    tiles = -(-n // tr)
+    slices = -(-c // sl)
+    per_sm = resident_per_sm(c, GDNPlan(rm, tr, sl, 1, STAGES[0]))
+    blocks = max(1, min(tiles, SMS * per_sm // slices))
+    per_block = -(-tiles // blocks)
+    stages = STAGES[0]
+    for s in STAGES[1:]:
+        p = GDNPlan(rm, tr, sl, 1, s)
+        if (s <= per_block and gdn_smem_bytes(c, p) <= MAX_SMEM
+                and resident_per_sm(c, p) >= per_sm):
+            stages = s
+    return GDNPlan(rm, tr, sl, blocks, stages)
+
+
+@functools.lru_cache(maxsize=256)
+def check_plan(c: int, plan: GDNPlan) -> None:
+    """Raise ValueError for a plan csrc/gdn.cu has no kernel for."""
+    rm, tr, sl, blocks, stages = plan
+    if (rm not in RMS or tr < 8 * rm or tr % (8 * rm) or sl < WARP_COLS
+            or sl % WARP_COLS or threads(plan) > MAX_THREADS or blocks < 1
+            or stages not in STAGES or gdn_smem_bytes(c, plan) > MAX_SMEM):
+        raise ValueError(f"gdn plan {tuple(plan)}: no kernel for it at C={c}")
+
+
+def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
+    """Launch csrc/gdn.cu on CUDA float32 tensors; raises on anything else.
+
+    `plan` overrides `gdn_plan` (tests, and chip_smoke.py's check of
+    every variant)."""
     n, c = x2d.shape
     if not (x2d.is_cuda and gamma.is_cuda and beta.is_cuda):
         raise ValueError("gdn_cuda takes CUDA tensors")
@@ -59,10 +171,18 @@ def gdn_cuda(x2d, gamma, beta, inverse: bool):
                          f"{tuple(beta.shape)} do not match C={c}")
     if c > MAX_CHANNELS:
         raise ValueError(f"gdn_cuda supports C <= {MAX_CHANNELS}, got {c}")
+    plan = GDNPlan(*plan) if plan is not None else gdn_plan(n, c)
+    check_plan(c, plan)
     x2d, gamma, beta = x2d.contiguous(), gamma.contiguous(), beta.contiguous()
+    # bulk copies start on 16-byte boundaries: a tensor whose data does not
+    # (a view at an odd offset) is copied to one that does
+    if x2d.data_ptr() % 16:
+        x2d = x2d.clone()
+    if gamma.data_ptr() % 16:
+        gamma = gamma.clone()
     out = torch.empty_like(x2d)
     rc = _entry()(x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  out.data_ptr(), n, c, tile_rows(n, c), int(inverse),
+                  out.data_ptr(), n, c, *plan, int(inverse),
                   torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check_launch(rc, "gdn")
     gdn_cuda.launches += 1

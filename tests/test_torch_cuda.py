@@ -14,7 +14,8 @@ import torch
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
                                             deconv_igdn_plain, launch_plan,
                                             tile_shape)
-from mmnc_tpu_torch.ops.gdn import gdn, gdn_cuda, gdn_plain
+from mmnc_tpu_torch.ops.gdn import (GDNPlan, gdn, gdn_cuda, gdn_plain,
+                                   gdn_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,74 @@ def test_gdn_kernel_matches_plain(device, n, c, inverse):
     got = gdn(x, gamma, beta, inverse)
     assert gdn_cuda.launches == before + 1
     _close(got, gdn_plain(x, gamma, beta, inverse))
+
+
+def _gdn_inputs(device, n, c, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(n, c, generator=g).to(device)
+    gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=g)).to(device)
+    beta = (1 + 0.1 * torch.rand(c, generator=g)).to(device)
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 4099])
+@pytest.mark.parametrize("c", [3, 37, 50, 100, 128])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("variant", [None, "rows", "split"])
+def test_gdn_kernel_plans_match_plain(device, n, c, inverse, variant):
+    """Every plan variant at ragged row counts, N below one warp's rows,
+    and C below, at and above the path's: each instantiation (C padded to
+    4, 52, 100, 128, and the generic one at 37); two launches are bitwise
+    equal (no atomics, no split of the input channels)."""
+    x, gamma, beta = _gdn_inputs(device, n, c, n * c)
+    plan = gdn_plan(n, c, variant)
+    got = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    again = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, inverse))
+    assert torch.equal(got, again)
+
+
+# one compress + decompress of one 256 px image: the head and g_a at
+# 256**2 / 4**s rows, IGDN of the decoder head at 32x32 and 64x64
+_GDN_PATH_BATCH_1 = ([(65536, 50, False)]
+                     + [(4 ** (8 - s), 100, False) for s in range(1, 9)]
+                     + [(1024, 50, True), (4096, 50, True)])
+
+
+@pytest.mark.parametrize("n,c,inverse", _GDN_PATH_BATCH_1)
+def test_gdn_kernel_path_shapes_match_plain(device, n, c, inverse):
+    x, gamma, beta = _gdn_inputs(device, n, c, n)
+    got = gdn_cuda(x, gamma, beta, inverse)
+    again = gdn_cuda(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, inverse))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("plan", [
+    GDNPlan(8, 64, 112, 5, 2), GDNPlan(8, 64, 112, 5, 3),
+    GDNPlan(8, 64, 112, 5, 4), GDNPlan(8, 64, 28, 4, 2),
+    GDNPlan(2, 32, 56, 7, 4), GDNPlan(2, 16, 84, 2, 2),
+    GDNPlan(2, 128, 28, 3, 3), GDNPlan(8, 64, 112, 40, 2)])
+def test_gdn_kernel_rings_and_slices_match_plain(device, plan):
+    """Blocks that walk many tiles through rings of 2-4 stages, blocks
+    with one tile beside blocks with two (47 tiles over 40 blocks), and
+    slices that do not divide C (100 over 56 and 84)."""
+    x, gamma, beta = _gdn_inputs(device, 3001, 100, 11)
+    got = gdn_cuda(x, gamma, beta, False, plan=plan)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, False))
+
+
+def test_gdn_kernel_takes_rows_off_16_byte_boundaries(device):
+    x, gamma, beta = _gdn_inputs(device, 77, 50, 5)
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    got = gdn_cuda(shifted, gamma, beta, True)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, True))
 
 
 def _deconv_inputs(device, shape, cout, seed):
@@ -132,6 +201,13 @@ def test_kernel_wrappers_raise_on_unsupported_input(device):
     with pytest.raises(ValueError):
         gdn_cuda(x.double()[:, :4], torch.eye(4, device=device).double(),
                  torch.ones(4, device=device).double(), False)
+    x, gamma, beta = _gdn_inputs(device, 64, 100, 0)
+    for plan in (GDNPlan(3, 128, 112, 1, 2), GDNPlan(8, 100, 112, 1, 2),
+                 GDNPlan(8, 128, 100, 1, 2), GDNPlan(8, 128, 112, 0, 2),
+                 GDNPlan(8, 128, 112, 1, 5), GDNPlan(8, 256, 112, 1, 2),
+                 GDNPlan(2, 8, 28, 1, 2)):
+        with pytest.raises(ValueError):
+            gdn_cuda(x, gamma, beta, False, plan=plan)
     x, w, b, gamma, beta = _deconv_inputs(device, (1, 2, 2, 8), 8, 0)
     for plan in (("split", 1, 1, 16), ("split", 1, 2, 4), ("split", 3, 3, 4),
                  ("tiled", 1, 1, 2), ("other", 1, 1, 1)):

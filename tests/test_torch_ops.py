@@ -27,7 +27,10 @@ from mmnc_tpu_torch.ops.deconv_igdn import (SPLITS, cin_slices, deconv_igdn,
                                             deconv_igdn_plain,
                                             deconv_weight_taps, launch_plan,
                                             tile_shape)
-from mmnc_tpu_torch.ops.gdn import GDNFunction, gdn, gdn_cuda, gdn_plain
+from mmnc_tpu_torch.ops.gdn import (MAX_SMEM, MAX_THREADS, SMS, GDNFunction,
+                                   GDNPlan, check_plan, gdn, gdn_cuda,
+                                   gdn_plain, gdn_plan, gdn_smem_bytes,
+                                   out_slices, resident_per_sm, threads)
 from mmnc_tpu_torch.ops.quant import quantize_round
 
 
@@ -336,3 +339,86 @@ def test_launch_plan_keeps_tiles_where_the_split_kernel_has_none(shape):
 
 def test_cin_slices_of_100_over_8_are_13_and_12():
     assert [size for _, size in cin_slices(100, 8)] == [13] * 4 + [12] * 4
+
+
+# --- launch plan of the GDN kernel ----------------------------------------
+
+# (rows, C) of every GDN launch of one compress + decompress of a batch of 8
+# at 256 px, and the plan each gets
+_GDN_PATH_PLANS = [
+    ((524288, 50), GDNPlan(8, 256, 56, 132, 3)),
+    ((131072, 100), GDNPlan(8, 128, 112, 132, 2)),
+    ((32768, 100), GDNPlan(8, 128, 112, 132, 2)),
+    ((8192, 100), GDNPlan(2, 64, 56, 128, 2)),
+    ((2048, 100), GDNPlan(2, 32, 56, 64, 2)),
+    ((512, 100), GDNPlan(2, 32, 56, 16, 2)),
+    ((128, 100), GDNPlan(2, 32, 56, 4, 2)),
+    ((32, 100), GDNPlan(2, 32, 56, 1, 2)),
+    ((8, 100), GDNPlan(2, 32, 56, 1, 2)),
+    ((8192, 50), GDNPlan(2, 64, 56, 128, 2)),
+    ((32768, 50), GDNPlan(8, 256, 56, 128, 2))]
+
+
+@pytest.mark.parametrize("shape,plan", _GDN_PATH_PLANS)
+def test_gdn_plan_of_the_path_shapes(shape, plan):
+    """Persistent 8-row-per-thread blocks where the tiles fill half the
+    SMs, else 2 rows per thread and 56-channel slices (C = 100 in two):
+    the plans chip_smoke.py times on the H100."""
+    assert gdn_plan(*shape) == plan
+    check_plan(shape[1], plan)
+
+
+_GDN_SHAPES = [(n, c) for n in (1, 5, 8, 31, 4099, 524288)
+               for c in (1, 3, 50, 100, 127, 128)]
+
+
+@pytest.mark.parametrize("variant", [None, "rows", "split"])
+@pytest.mark.parametrize("n,c", _GDN_SHAPES)
+def test_gdn_plan_fits_the_card(n, c, variant):
+    """Every plan has a kernel (check_plan), at most 256 threads and the
+    shared memory a block may have, and no more blocks than are resident
+    on the H100's SMs at once."""
+    plan = gdn_plan(n, c, variant)
+    check_plan(c, plan)
+    assert 32 <= threads(plan) <= MAX_THREADS
+    assert gdn_smem_bytes(c, plan) <= MAX_SMEM
+    slices = len(out_slices(c, plan.slice))
+    assert plan.blocks * slices <= SMS * resident_per_sm(c, plan)
+    assert plan.blocks <= -(-n // plan.tile_rows)
+    assert gdn_plan(n, c, variant) is plan  # cached: one lookup a launch
+
+
+@pytest.mark.parametrize("c", [1, 3, 28, 50, 56, 100, 128])
+@pytest.mark.parametrize("slice_", [28, 56, 84, 112, 140])
+def test_gdn_out_slices_cover_every_channel_once(c, slice_):
+    slices = out_slices(c, slice_)
+    covered = [o for start, size in slices for o in range(start, start + size)]
+    assert covered == list(range(c))
+    assert all(0 < size <= slice_ for _, size in slices)
+    assert len(slices) == -(-c // slice_)
+
+
+def test_gdn_plan_splits_small_row_counts_and_not_large_ones():
+    for n in (8, 512, 8192):
+        plan = gdn_plan(n, 100)
+        assert plan.rm == 2 and len(out_slices(100, plan.slice)) == 2
+    for n in (32768, 524288):
+        plan = gdn_plan(n, 100)
+        assert plan.rm == 8 and out_slices(100, plan.slice) == [(0, 100)]
+
+
+@pytest.mark.parametrize("plan", [
+    GDNPlan(3, 128, 112, 1, 2), GDNPlan(8, 100, 112, 1, 2),
+    GDNPlan(8, 128, 100, 1, 2), GDNPlan(8, 128, 112, 0, 2),
+    GDNPlan(8, 128, 112, 1, 5), GDNPlan(8, 256, 112, 1, 2),
+    GDNPlan(2, 8, 28, 1, 2), GDNPlan(8, 128, 112, 132, 4)])
+def test_gdn_check_plan_refuses_plans_without_a_kernel(plan):
+    """Rows per thread other than 2 or 8, tiles or slices off the warp's
+    grid, no blocks, 5 stages, 512 threads, too much shared memory."""
+    with pytest.raises(ValueError):
+        check_plan(100, plan)
+
+
+def test_gdn_plan_refuses_an_unknown_variant():
+    with pytest.raises(ValueError):
+        gdn_plan(64, 100, "tiles")
