@@ -14,29 +14,45 @@ Phases, each of which exits non-zero on failure:
      card's bound. Print each shape's launch plan. For GDN also check
      (and time) both plan variants at one large and one small shape, check
      extra shapes (ragged rows, C = 3 and 128, 5 rows, the other
-     direction) and that two launches are bitwise equal everywhere; for
-     deconv+IGDN check the split kernel at extra shapes and that two of
-     its launches are bitwise equal, and the tiled kernel too where the
-     plan is the split one;
+     direction, C = 168) and that two launches are bitwise equal
+     everywhere; for deconv+IGDN check the split kernel at extra shapes
+     and that two of its launches are bitwise equal, and the tiled kernel
+     too where the plan is the split one; for both, every launch shape of
+     phase 6's models too;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
      forward, the launch counts (9 GDN per compress, 2 GDN + 7 deconv+IGDN
      per decompress) and the port against its CPU plain path on one image;
-  5. print a {"kernels": [...]} line and, last,
+  5. stream the same 3 batches through `stream_roundtrip` (v2, then v1):
+     per batch the bytes of the packed compress and x_hats within 1e-5 of
+     its decompress, 11 GDN and 7 deconv+IGDN launches a batch; a batch
+     whose fused program reports max_abs = 2^15 takes the int32 path and
+     still round-trips. Print each layout's wall time, device time and
+     busy share (torch.profiler) and its host split by pipeline stage
+     (the streaming module's record_function spans, timed);
+  6. the widths past the first slice's limits: SingleTaskCompressor at
+     conv 192 and at conv 300 (GDN at C = 96..300, deconv+IGDN at Cout =
+     192 and 300), one batch of 8 compress -> decompress each, held
+     against its eval forward, and the card's path against the CPU plain
+     path on one image (phase 3 checks and times the kernels at every
+     launch shape of these models among its extra shapes);
+  7. print a {"kernels": [...]} line and, last,
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
-and prints no result. `--profile DIR` also writes a torch.profiler summary
-of one round trip to DIR.
+and prints no result. `--profile DIR` also writes torch.profiler summaries
+of one round trip and of each layout's streamed run to DIR.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -56,12 +72,7 @@ IMAGE = 256
 LATENT = 128
 CONV = 100
 BATCH, BATCHES, SEED = 8, 3, 0
-# At the init scale every y of the untrained model rounds to 0 and the
-# decode is all zeros. Scaling the conv kernels (encoder 4, hyperprior 10,
-# decoder 3) gives non-zero y and z symbols, spread scale indexes and an
-# O(1) reconstruction; on the CPU at this config 43% of y and 36% of z
-# symbols are non-zero.
-HYPER_GAIN, DECODER_GAIN, ENCODER_GAIN = 10.0, 3.0, 4.0
+WIDE_CONVS = (192, 300)  # phase 6: CompressAI's N, three tasks at bench width
 
 
 def bound_ms(n_bytes, flops):
@@ -161,32 +172,40 @@ def max_err(torch, got, want):
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def gdn_path_shapes(b):
+def gdn_path_shapes(b, conv=CONV):
     """(rows, C, inverse, launches per round trip) of every GDN launch of
     one compress + decompress of a batch of b images at 256 px."""
-    enc = [(b * IMAGE ** 2, CONV // 2)] + [
-        (b * (IMAGE >> s) ** 2, CONV) for s in range(1, 9)]  # head 5 + g_a 3
-    dec = [(b * 32 ** 2, CONV // 2), (b * 64 ** 2, CONV // 2)]
+    enc = [(b * IMAGE ** 2, conv // 2)] + [
+        (b * (IMAGE >> s) ** 2, conv) for s in range(1, 9)]  # head 5 + g_a 3
+    dec = [(b * 32 ** 2, conv // 2), (b * 64 ** 2, conv // 2)]
     return ([(n, c, False, 1) for n, c in enc]
             + [(n, c, True, 1) for n, c in dec])
 
 
-def deconv_path_shapes(b):
+def deconv_path_shapes(b, conv=CONV):
     """(B, H, W, Cin, Cout, mode) of every deconv+IGDN launch of one
     decompress: g_s 1->2->4->8, then the decoder head 16->...->256."""
-    return [(b, 1, 1, LATENT, CONV, "igdn"), (b, 2, 2, CONV, CONV, "igdn"),
-            (b, 4, 4, CONV, CONV, "igdn"), (b, 16, 16, CONV, CONV // 2, "igdn"),
-            (b, 32, 32, CONV // 2, CONV // 2, "igdn"),
-            (b, 64, 64, CONV // 2, 3, "igdn"), (b, 128, 128, 3, 3, "igdn")]
+    return [(b, 1, 1, LATENT, conv, "igdn"), (b, 2, 2, conv, conv, "igdn"),
+            (b, 4, 4, conv, conv, "igdn"), (b, 16, 16, conv, conv // 2, "igdn"),
+            (b, 32, 32, conv // 2, conv // 2, "igdn"),
+            (b, 64, 64, conv // 2, 3, "igdn"), (b, 128, 128, 3, 3, "igdn")]
 
 
 def gdn_extra_shapes(path):
     """(rows, C, inverse) beyond the path: the other direction at three
-    path shapes, ragged row counts, C = 3 and C = 128 (padded to 4 and at
-    the wrapper's limit), fewer rows than one warp's 32."""
+    path shapes, ragged row counts, C = 3 and C = 128 (padded to 4, and
+    the widest of the fixed-C instantiations), fewer rows than one
+    warp's 32; then C above 128 (channel-sliced plans): 168 (four tasks
+    of 42) and the other direction at 192 and 300; last every GDN launch
+    of phase 6's models (conv 192, CompressAI's N, and conv 300, three
+    tasks at bench width: C = 96 and 150 in the heads, 192 and 300)."""
     return ([(n, c, not inv) for n, c, inv, _ in (path[0], path[1], path[-2])]
             + [(4099, CONV // 2, False), (777, CONV, True), (1000, 3, False),
-               (64, 128, True), (5, CONV, False)])
+               (64, 128, True), (5, CONV, False)]
+            + [(4099, 168, False), (777, 168, True),
+               (BATCH * 8 ** 2, 192, True), (BATCH * 8 ** 2, 300, True)]
+            + [(n, c, inv) for conv in WIDE_CONVS
+               for n, c, inv, _ in gdn_path_shapes(BATCH, conv)])
 
 
 def gdn_case(torch, gen, n, c):
@@ -274,6 +293,16 @@ def split_extra_shapes():
             (1, 4, 4, CONV, CONV, "igdn")]
 
 
+def wide_deconv_shapes():
+    """Every deconv+IGDN launch of phase 6's models not on the main path:
+    at conv 192 the tiled plans hold gamma beside 4x4 tiles in up to
+    225 KB of shared memory, at conv 300 g_s's Cout x Cout of gamma does
+    not fit and the plan is "tiled_l2"."""
+    path = deconv_path_shapes(BATCH)
+    return [s for conv in WIDE_CONVS for s in deconv_path_shapes(BATCH, conv)
+            if s not in path]
+
+
 def deconv_case(torch, gen, bb, h, w, cin, cout):
     """x NHWC, the torch-layout weight at init scale and its JAX tap
     layout, bias, gamma, beta; all on the card."""
@@ -303,7 +332,7 @@ def check_deconv(torch, b, gen):
     tol_rel = 1e-4
     cases = [(s, 1) for s in deconv_path_shapes(b)]
     cases.append(((b, 8, 8, CONV, CONV, None), 0))  # g_s's last deconv, no epilogue
-    cases += [(s, 0) for s in split_extra_shapes()]
+    cases += [(s, 0) for s in split_extra_shapes() + wide_deconv_shapes()]
     totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "library_ms": 0.0, "err": 0.0}
     bound_by = {}
@@ -311,10 +340,12 @@ def check_deconv(torch, b, gen):
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
                                                      cin, cout)
         plan = launch_plan(bb, h, w, cin, cout)
-        tiled = ("tiled", *tile_shape(bb, h, w, cout), 1)
+        plans = {plan}
+        if plan[0] == "split":
+            plans.add(("tiled", *tile_shape(bb, h, w, cout), 1))
         want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
         err, scale = 0.0, want.abs().max().item()
-        for p in {plan, tiled}:
+        for p in plans:
             got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode, plan=p)
             torch.cuda.synchronize()
             e, _ = max_err(torch, got, want)
@@ -368,32 +399,32 @@ def reset_counts():
     deconv_igdn_cuda.launches = 0
 
 
-def seeded_model(torch, device, seed):
-    """The bench config from `seed`, conv kernels scaled as above."""
+def seeded_model(device, seed, conv=CONV):
+    """The bench config (at `conv` channels) from `seed`, its conv kernels
+    scaled by `weights.scale_conv_kernels` (encoder 4, hyperprior 10,
+    decoder 3): at the init scale every y of the untrained model rounds to
+    0 and the decode is all zeros; scaled, 43% of y and 36% of z symbols
+    are non-zero (on the CPU at conv 100)."""
     from mmnc_tpu_torch import build_model
-    from mmnc_tpu_torch.ops.layers import Conv, Deconv
+    from mmnc_tpu_torch.weights import scale_conv_kernels
 
-    model = build_model(1, ["rgb"], latent_channels=LATENT, conv_channels=CONV,
-                        device=device, seed=seed)
-    with torch.no_grad():
-        for name, module in model.named_modules():
-            if isinstance(module, (Conv, Deconv)):
-                if ".h_a." in name or ".h_s." in name:
-                    module.weight.mul_(HYPER_GAIN)
-                elif ".g_s." in name or "output_heads" in name:
-                    module.weight.mul_(DECODER_GAIN)
-                else:
-                    module.weight.mul_(ENCODER_GAIN)
+    model = scale_conv_kernels(build_model(
+        1, ["rgb"], latent_channels=LATENT, conv_channels=conv,
+        device=device, seed=seed))
     model.update_bottleneck_values()
     return model
 
 
-def run_model(torch, profile_dir):
-    model = seeded_model(torch, "cuda", SEED)
-    rng = np.random.default_rng(SEED)
-    batches = [{"rgb": torch.from_numpy(rng.random(
+def random_batches(torch, n, seed):
+    rng = np.random.default_rng(seed)
+    return [{"rgb": torch.from_numpy(rng.random(
         (BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
-        for _ in range(BATCHES)]
+        for _ in range(n)]
+
+
+def run_model(torch, profile_dir):
+    model = seeded_model("cuda", SEED)
+    batches = random_batches(torch, BATCHES, SEED)
 
     refs = []
     for batch in batches:
@@ -454,15 +485,15 @@ def run_model(torch, profile_dir):
     check_against_cpu(torch, model, batches[0]["rgb"][:1])
     if profile_dir:
         profile_round_trip(torch, model, batches[0], profile_dir)
-    return launches
+    return launches, model, batches
 
 
-def check_against_cpu(torch, model, x):
+def check_against_cpu(torch, model, x, conv=CONV):
     """The card's path (kernels) against the port's CPU plain path on one
     image, same seed so the same weights. Tolerance: float32 sums in
     another order through ~20 layers, rtol 1e-3 / atol 1e-4 as
     tests/test_torch_import.py, relative to the largest value."""
-    cpu = seeded_model(torch, "cpu", SEED)
+    cpu = seeded_model("cpu", SEED, conv)
     with torch.no_grad():
         y_g, z_g = model.model.analyze([x.permute(0, 3, 1, 2)])
         y_c, z_c = cpu.model.analyze([x.cpu().permute(0, 3, 1, 2)])
@@ -472,10 +503,191 @@ def check_against_cpu(torch, model, x):
     for name, g, c in (("y", y_g, y_c), ("z", z_g, z_c), ("x_hat", r_g, r_c)):
         err = (g.cpu() - c).abs().max().item()
         scale = max(1.0, c.abs().max().item())
-        print(f"card vs cpu plain path: {name} max abs err {err:.3e} "
+        print(f"card vs cpu plain path, conv {conv}: {name} max abs err "
+              f"{err:.3e} "
               f"(|cpu|max {c.abs().max().item():.3g})")
         if not err <= 1e-4 + 1e-3 * scale:
             raise RuntimeError(f"card vs cpu: {name} err {err}")
+
+
+class SpanTimer:
+    """Host seconds per label of the streaming module's record_function
+    spans, summed over every thread (torch.profiler keeps only the spans
+    of the thread that started it, not the coder threads')."""
+
+    def __init__(self, streaming):
+        self.streaming, self.span = streaming, streaming._span
+        self.totals, self.lock = {}, threading.Lock()
+
+    @contextlib.contextmanager
+    def timed(self, name):
+        t0 = time.perf_counter()
+        with self.span(name):
+            yield
+        with self.lock:
+            self.totals[name] = (self.totals.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+
+    def __enter__(self):
+        self.streaming._span = self.timed
+        return self
+
+    def __exit__(self, *exc):
+        self.streaming._span = self.span
+
+
+def busy_us(events):
+    """Microseconds in which the device ran at least one record (the
+    copy stream overlaps the compute stream)."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        if end is None or start > end:
+            total += e["dur"]
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total
+
+
+def run_streaming(torch, model, batches, profile_dir):
+    """Phase 5: both stream layouts against compress/decompress, their
+    launch counts, the int32 fallback, and each layout's time split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmnc_tpu_torch.models import streaming
+
+    refs = []
+    for batch in batches:
+        ans, n_bytes = model.compress(batch)
+        refs.append((n_bytes, model.decompress(ans)["rgb"]))
+    torch.cuda.synchronize()
+
+    def check(impl, results, refs):
+        if len(results) != len(refs):
+            raise RuntimeError(f"stream {impl}: {len(results)} results")
+        for k, ((x_hats, n_bytes), (n_ref, ref)) in enumerate(
+                zip(results, refs)):
+            if n_bytes != n_ref:
+                raise RuntimeError(f"stream {impl} batch {k}: {n_bytes} "
+                                   f"bytes, compress gave {n_ref}")
+            err = (x_hats["rgb"] - ref).abs().max().item()
+            if not err <= 1e-5:
+                raise RuntimeError(f"stream {impl} batch {k}: x_hats vs "
+                                   f"decompress max abs err {err}")
+
+    for impl in streaming.IMPLS:
+        # warm-up: every slot's pinned buffers, the coder thread's plans
+        list(streaming.stream_roundtrip(model, batches, impl=impl))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = list(streaming.stream_roundtrip(model, batches, impl=impl))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        want = {"gdn": 11 * len(batches), "deconv_igdn": 7 * len(batches)}
+        if launches != want:
+            raise RuntimeError(f"stream {impl}: launches {launches}, want "
+                               f"{want} (11 GDN + 7 deconv+IGDN a batch)")
+        check(impl, results, refs)
+        del results
+        images = BATCH * len(batches)
+        with SpanTimer(streaming) as spans, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                ) as prof:
+            t1 = time.perf_counter()
+            results = list(streaming.stream_roundtrip(model, batches,
+                                                      impl=impl))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        check(impl, results, refs)
+        del results
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = os.path.join(profile_dir or tmp, f"stream_{impl}_trace.json")
+            if profile_dir:
+                os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("cat") in DEVICE_WORK]
+        busy = busy_us(events) / 1e3
+        split = {name.split(".", 1)[1]: round(t * 1e3 / len(batches), 5)
+                 for name, t in sorted(spans.totals.items())}
+        print(f"stream {impl} rgb latent={LATENT} conv={CONV} {IMAGE}px "
+              f"batch={BATCH} batches={len(batches)}: {seconds:.4f} s, "
+              f"{images * IMAGE * IMAGE / 1e6 / seconds:.3f} MP/s, launches "
+              f"{launches}, bytes/image "
+              f"{sum(n for n, _ in refs) / images:.2f}; profiled: wall "
+              f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+              f"({busy / (wall * 1e3):.3f} of wall), device records "
+              f"{sum(e['dur'] for e in events) / 1e3:.3f} ms in "
+              f"{len(events)}")
+        print(f"stream {impl} host ms per batch by stage (summed over "
+              f"threads): {json.dumps(split)}")
+
+    # the int32 fallback: the fused program's guard tripped by hand
+    wide = []
+    fused, real_wide = model._compress_device_fused, streaming._roundtrip_one_wide
+
+    def tripped(batch):
+        *outs, _ = fused(batch)
+        return (*outs, torch.tensor(2 ** 15, dtype=torch.int32, device="cuda"))
+
+    def counted(pipe, batch):
+        wide.append(batch)
+        return real_wide(pipe, batch)
+
+    model._compress_device_fused = tripped
+    streaming._roundtrip_one_wide = counted
+    try:
+        results = list(streaming.stream_roundtrip(model, batches[:1]))
+        torch.cuda.synchronize()
+    finally:
+        del model._compress_device_fused
+        streaming._roundtrip_one_wide = real_wide
+    if len(wide) != 1:
+        raise RuntimeError("stream: a max_abs of 2^15 did not take the "
+                           "int32 path")
+    check("v2 (int32 fallback)", results, refs[:1])
+    print("stream v2 int32 fallback (max_abs forced to 2^15): bytes and "
+          "x_hats equal compress/decompress")
+
+
+def run_widths(torch):
+    """Phase 6: compress -> decompress at conv 192 and 300 on the card,
+    held against the eval forward, and the card's path against the CPU
+    plain path on one image (phase 3 holds each kernel launch of these
+    models against its plain version)."""
+    for conv in WIDE_CONVS:
+        model = seeded_model("cuda", SEED, conv)
+        batch = random_batches(torch, 1, SEED + conv)[0]
+        ref = model(batch)[0]["rgb"]
+        reset_counts()
+        ans, n_bytes = model.compress(batch)
+        enc = counts()
+        out = model.decompress(ans)["rgb"]
+        torch.cuda.synchronize()
+        dec = {k: v - enc[k] for k, v in counts().items()}
+        if enc != {"gdn": 9, "deconv_igdn": 0} or \
+                dec != {"gdn": 2, "deconv_igdn": 7}:
+            raise RuntimeError(f"conv {conv}: launch counts compress {enc}, "
+                               f"decompress {dec}")
+        if out.shape != (BATCH, IMAGE, IMAGE, 3) or \
+                not torch.isfinite(out).all():
+            raise RuntimeError(f"conv {conv}: decode shape {tuple(out.shape)}"
+                               " or non-finite values")
+        err = (out - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        if not err <= 1e-5 * scale:
+            raise RuntimeError(f"conv {conv}: decode vs eval forward max abs "
+                               f"err {err}")
+        print(f"width conv={conv} latent={LATENT} {IMAGE}px batch={BATCH}: "
+              f"{n_bytes / BATCH:.2f} bytes/image, decode vs eval forward "
+              f"max abs err {err:.3e} (|ref|max {scale:.3g})")
+        check_against_cpu(torch, model, batch["rgb"][:1], conv)
+        del model
 
 
 def profile_round_trip(torch, model, batch, out_dir):
@@ -536,10 +748,13 @@ def main(argv=None):
     gdn_tot, gdn_by, gdn_tol = check_gdn(torch, BATCH, gen)
     dec_tot, dec_by, dec_tol = check_deconv(torch, BATCH, gen)
 
-    launches = run_model(torch, args.profile)
+    launches, model, batches = run_model(torch, args.profile)
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the main path")
+    run_streaming(torch, model, batches, args.profile)
+    del model, batches
+    run_widths(torch)
 
     per_trip = (f"sum over one round trip of a batch of {BATCH}; ms, "
                 f"plain_ms, library_ms: device time (torch.profiler); "

@@ -26,7 +26,11 @@
 // the pre-activation in registers, parks it in shared memory, applies the
 // (I)GDN epilogue with gamma in shared memory and writes each output pixel
 // once, already interleaved: no depth-to-space pass. Taps that fall wholly
-// on the zero padding are skipped.
+// on the zero padding are skipped. Where Cout x Cout of gamma does not fit
+// beside the tile (Cout above about 230), the kGammaL2 instantiation
+// leaves gamma in global memory and its epilogue reads it through the
+// read-only cache (__ldg; 360 KB at Cout = 300 stays in L2): correct at
+// any width, not tuned.
 //
 // Split (deconv_igdn_split_kernel; the latent stages, 1x1 to 4x4 inputs):
 // there the tiles give 8-32 blocks for 132 SMs, and each thread walks every
@@ -65,8 +69,8 @@ constexpr int kMaxSmem = 227 * 1024 - 1024;
 constexpr int kMaxChunk = 16;  // Cin channels per staged weight chunk
 
 // kCols: input columns (same parity) per thread, 4 or, for tiles narrower
-// than 4, 1.
-template <int kCols>
+// than 4, 1. kGammaL2: gamma stays in global memory (see above).
+template <int kCols, bool kGammaL2>
 __global__ void __launch_bounds__(kThreads)
 deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias,
@@ -80,7 +84,7 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* x_s = smem;                      // hx*wx*cin, input tile + halo
   float* y_s = x_s + hx * wx * cin;       // pix*cout, output-pixel order
   float* g_t = y_s + pix * cout;          // cout*cout, g_t[j*cout+o]
-  float* b_s = g_t + (mode ? cout * cout : 0);  // cout
+  float* b_s = g_t + (mode && !kGammaL2 ? cout * cout : 0);  // cout
 
   const int n = blockIdx.z;
   const int a0 = blockIdx.y * ta, b0 = blockIdx.x * tb;
@@ -94,10 +98,12 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  : 0.f;
   }
   if (mode) {
-    for (int i = threadIdx.x; i < cout * cout; i += blockDim.x) {
-      const int o = i / cout;
-      const int j = i - o * cout;
-      g_t[j * cout + o] = gamma[i];
+    if (!kGammaL2) {
+      for (int i = threadIdx.x; i < cout * cout; i += blockDim.x) {
+        const int o = i / cout;
+        const int j = i - o * cout;
+        g_t[j * cout + o] = gamma[i];
+      }
     }
     for (int i = threadIdx.x; i < cout; i += blockDim.x) b_s[i] = beta[i];
   }
@@ -160,9 +166,11 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (mode) {
       const float* yp = y_s + p * cout;
       float norm = b_s[o];
+      const float* gr = gamma + static_cast<long long>(o) * cout;
       for (int j = 0; j < cout; ++j) {
         const float yj = yp[j];
-        norm = fmaf(g_t[j * cout + o], yj * yj, norm);
+        const float gv = kGammaL2 ? __ldg(gr + j) : g_t[j * cout + o];
+        norm = fmaf(gv, yj * yj, norm);
       }
       v = (mode == 1) ? v * sqrtf(norm) : v * rsqrtf(norm);
     }
@@ -526,10 +534,24 @@ cudaError_t allow_max_smem(Kernel kernel) {
                               kMaxSmem);
 }
 
-template <int kCols>
+template <int kCols, bool kGammaL2>
 cudaError_t tiled_ready() {
-  static const cudaError_t err = allow_max_smem(deconv_igdn_kernel<kCols>);
+  static const cudaError_t err =
+      allow_max_smem(deconv_igdn_kernel<kCols, kGammaL2>);
   return err;
+}
+
+template <int kCols, bool kGammaL2>
+int launch_tiled(const float* x, const float* w, const float* bias,
+                 const float* gamma, const float* beta, float* out, int b,
+                 int h, int wd, int cin, int cout, int ta, int tb, int mode,
+                 size_t smem, cudaStream_t st) {
+  const cudaError_t ready = tiled_ready<kCols, kGammaL2>();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const dim3 grid((wd + tb - 1) / tb, (h + ta - 1) / ta, b);
+  deconv_igdn_kernel<kCols, kGammaL2><<<grid, kThreads, smem, st>>>(
+      x, w, bias, gamma, beta, out, h, wd, cin, cout, ta, tb, mode);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
@@ -583,7 +605,9 @@ int launch_split(const float* x, const float* w, const float* bias,
 // and beta (cout,) (ignored when mode == 0), out (b, 2h, 2wd, cout); all
 // contiguous float32. mode: 0 none, 1 IGDN, 2 GDN. splits == 1: the tiled
 // kernel on ta x tb tiles; a tb that is a multiple of 4 runs 4 columns per
-// thread, any other tb one. splits in {2, 4, 8}: the cluster split-K kernel
+// thread, any other tb one; gamma_l2 != 0 leaves gamma in global memory
+// (ops/deconv_igdn.py:launch_plan picks it where gamma does not fit beside
+// the tile). splits in {2, 4, 8}: the cluster split-K kernel
 // on ta x tb tiles, ta == tb in {1, 2, 4}, cout a multiple of 4 up to 128,
 // w, gamma and beta 16-byte aligned.
 // Launches on `stream`; returns the launch's CUDA error (0 on success), or
@@ -593,7 +617,7 @@ extern "C" int mmnc_deconv_igdn_forward(const float* x, const float* w,
                                         const float* beta, float* out, int b,
                                         int h, int wd, int cin, int cout,
                                         int ta, int tb, int splits, int mode,
-                                        void* stream) {
+                                        int gamma_l2, void* stream) {
   if (b <= 0 || h <= 0 || wd <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (splits != 1) {
@@ -610,21 +634,26 @@ extern "C" int mmnc_deconv_igdn_forward(const float* x, const float* w,
                              cout, splits, mode, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t floats = static_cast<size_t>((ta + 2) * (tb + 2) * cin) +
-                        static_cast<size_t>(4 * ta * tb * cout) +
-                        (mode ? static_cast<size_t>(cout * cout + cout) : 0);
+  // ops/deconv_igdn.py:tiled_smem_bytes mirrors this
+  const size_t floats =
+      static_cast<size_t>((ta + 2) * (tb + 2) * cin) +
+      static_cast<size_t>(4 * ta * tb * cout) +
+      (mode ? static_cast<size_t>(cout) : 0) +
+      (mode && !gamma_l2 ? static_cast<size_t>(cout) * cout : 0);
   const size_t smem = floats * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem))
+  if (ta < 1 || tb < 1 || smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((wd + tb - 1) / tb, (h + ta - 1) / ta, b);
-  const cudaError_t ready = tb % 4 == 0 ? tiled_ready<4>() : tiled_ready<1>();
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  if (tb % 4 == 0) {
-    deconv_igdn_kernel<4><<<grid, kThreads, smem, st>>>(
-        x, w, bias, gamma, beta, out, h, wd, cin, cout, ta, tb, mode);
-  } else {
-    deconv_igdn_kernel<1><<<grid, kThreads, smem, st>>>(
-        x, w, bias, gamma, beta, out, h, wd, cin, cout, ta, tb, mode);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tb % 4 == 0)
+    return gamma_l2 ? launch_tiled<4, true>(x, w, bias, gamma, beta, out, b,
+                                           h, wd, cin, cout, ta, tb, mode,
+                                           smem, st)
+                    : launch_tiled<4, false>(x, w, bias, gamma, beta, out, b,
+                                            h, wd, cin, cout, ta, tb, mode,
+                                            smem, st);
+  return gamma_l2 ? launch_tiled<1, true>(x, w, bias, gamma, beta, out, b, h,
+                                         wd, cin, cout, ta, tb, mode, smem,
+                                         st)
+                  : launch_tiled<1, false>(x, w, bias, gamma, beta, out, b, h,
+                                          wd, cin, cout, ta, tb, mode, smem,
+                                          st);
 }

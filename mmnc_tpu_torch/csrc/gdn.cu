@@ -3,8 +3,8 @@
 // Replaces mmnc_tpu/ops/gdn_pallas.py:_gdn_forward (kernel body
 // _gdn_kernel): out[r, o] = x[r, o] * rsqrt(beta[o] + sum_j gamma[o, j] *
 // x[r, j]^2) for GDN, * sqrt(...) for IGDN. gamma is (C, C) in [out, in]
-// layout. A product with M = N rows and N = K = C <= 128, a square before
-// it and an elementwise epilogue after.
+// layout. A product with M = N rows and N = K = C, a square before it and
+// an elementwise epilogue after.
 //
 // Bound on the H100: each row of C floats is read once and written once
 // (8*C bytes) against C*C FMAs, i.e. C/4 FLOP per byte. The CUDA cores'
@@ -31,7 +31,10 @@
 //   where a thread's serial work, not the FMA rate, sets the time. The
 //   padded channel count CP (C rounded up to 4) is a template parameter
 //   for the counts the path uses (4, 52, 100, 128) so the inner loop
-//   unrolls; other C take a generic instantiation.
+//   unrolls; other C take a generic instantiation, which walks the
+//   columns of its staging loops in chunks of 128, so any C whose plan's
+//   shared memory fits runs (C > 128 takes 56- or 28-channel slices of
+//   16-64 rows: ops/gdn.py:gdn_plan).
 // - Bulk-copy staging. Blocks are persistent; each owns one slice of the
 //   output channels (blockIdx.y). One thread copies that slice of gamma
 //   (contiguous rows) with one bulk (TMA) copy into a landing area, which
@@ -145,11 +148,12 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
 // past row `rows`. Each warp takes rows warp, warp + nwarps, ...; 4 rows
 // x kJ column chunks of 32 per pass, all loads before the stores, so a
 // warp has up to 4 kJ loads in flight instead of one.
+// Columns from j0 on, 32 * kJ of them per call.
 template <int kJ, bool kSquare>
 __device__ __forceinline__ void relayout(float* dst, int ls,
                                          const float* src, int c, int cp,
                                          int rows, int rows_out, int warp,
-                                         int nwarps, int lane) {
+                                         int nwarps, int lane, int j0) {
   for (int r0 = warp; r0 < rows_out; r0 += 4 * nwarps) {
     float v[4][kJ];
 #pragma unroll
@@ -157,7 +161,7 @@ __device__ __forceinline__ void relayout(float* dst, int ls,
       const int r = r0 + u * nwarps;
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
-        const int j = lane + 32 * jj;
+        const int j = j0 + lane + 32 * jj;
         v[u][jj] = (r < rows && j < c) ? src[r * c + j] : 0.f;
       }
     }
@@ -167,7 +171,7 @@ __device__ __forceinline__ void relayout(float* dst, int ls,
       if (r >= rows_out) break;
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
-        const int j = lane + 32 * jj;
+        const int j = j0 + lane + 32 * jj;
         if (j < cp) dst[r * ls + j] = kSquare ? v[u][jj] * v[u][jj] : v[u][jj];
       }
     }
@@ -177,11 +181,12 @@ __device__ __forceinline__ void relayout(float* dst, int ls,
 // Columns [o0, o0 + cols) of rows [0, rows) of the shared tile `src`
 // (stride c) to the same places of `dst` in global memory: each warp
 // stores runs of a row's consecutive floats, 4 rows x kJ chunks of 32 per
-// pass with the loads first.
+// pass with the loads first; columns from j0 on, 32 * kJ of them per call.
 template <int kJ>
 __device__ __forceinline__ void copy_out(float* dst, const float* src,
                                          int c, int o0, int cols, int rows,
-                                         int warp, int nwarps, int lane) {
+                                         int warp, int nwarps, int lane,
+                                         int j0) {
   for (int r0 = warp; r0 < rows; r0 += 4 * nwarps) {
     float v[4][kJ];
 #pragma unroll
@@ -189,7 +194,7 @@ __device__ __forceinline__ void copy_out(float* dst, const float* src,
       const int r = r0 + u * nwarps;
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
-        const int j = lane + 32 * jj;
+        const int j = j0 + lane + 32 * jj;
         if (r < rows && j < cols) v[u][jj] = src[r * c + o0 + j];
       }
     }
@@ -199,7 +204,7 @@ __device__ __forceinline__ void copy_out(float* dst, const float* src,
       if (r >= rows) break;
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
-        const int j = lane + 32 * jj;
+        const int j = j0 + lane + 32 * jj;
         if (j < cols) dst[static_cast<long long>(r) * c + o0 + j] = v[u][jj];
       }
     }
@@ -230,6 +235,11 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   constexpr int kJ = kCP ? (kCP + 31) / 32 : 4;  // 32-column chunks
   const int cp = kCP ? kCP : padded(c);
   const int ls = row_stride(cp);
+  // passes of 32 * kJ columns over CP (and over a slice's columns): one
+  // where CP is fixed, as many as C needs in the generic instantiation
+  auto passes = [](int cols) {
+    return kCP ? 1 : (cols + 32 * kJ - 1) / (32 * kJ);
+  };
   __shared__ unsigned long long bar_s[kMaxStages + 1];  // ring, gamma
   extern __shared__ float4 smem4[];
   float* raw_s = reinterpret_cast<float*>(smem4);  // stages x tile_rows*c
@@ -276,8 +286,9 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   __syncthreads();  // barriers initialised
   mbar_wait(g_bar, 0);
   // gamma at the padded stride, zero past C and past the slice's rows
-  relayout<kJ, false>(g_s, ls, x2_s, c, cp, g_rows, slice, warp, nwarps,
-                      lane);
+  for (int p = 0; p < passes(cp); ++p)
+    relayout<kJ, false>(g_s, ls, x2_s, c, cp, g_rows, slice, warp, nwarps,
+                        lane, 32 * kJ * p);
   __syncthreads();  // gamma staged; the landing area is free
 
   // thread (warp row wr, warp column wc; row group rg, channel group cg)
@@ -300,8 +311,9 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     // squares into the padded tile, zero past C. Rows past the last are
     // left as they are: each row's sums use only its own squares, and
     // their outputs are not stored.
-    relayout<kJ, true>(x2_s, ls, raw, c, cp, rows, rows, warp, nwarps,
-                       lane);
+    for (int p = 0; p < passes(cp); ++p)
+      relayout<kJ, true>(x2_s, ls, raw, c, cp, rows, rows, warp, nwarps,
+                         lane, 32 * kJ * p);
     __syncthreads();
     // a warp whose rows all lie past the last has nothing to compute
     if (wr * kWarpRows < rows) {
@@ -353,8 +365,9 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
     __syncthreads();  // the stage holds the slice's outputs
     // coalesced stores of this slice's columns of the tile
-    copy_out<kJ>(out + row0 * c, raw, c, o0, g_rows, rows, warp, nwarps,
-                 lane);
+    for (int p = 0; p < passes(g_rows); ++p)
+      copy_out<kJ>(out + row0 * c, raw, c, o0, g_rows, rows, warp, nwarps,
+                   lane, 32 * kJ * p);
     __syncthreads();  // stage s and the x^2 tile are no longer read
     if (issuer && k + stages < mine) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -412,10 +425,11 @@ int launch_rm(const float* x, const float* gamma, const float* beta,
 }  // namespace
 
 // x, out: (n, c) row-major float32; gamma (c, c); beta (c,); x and gamma
-// 16-byte aligned. The plan (ops/gdn.py:gdn_plan): rm (rows per thread) 2
-// or 8, tile_rows a multiple of 8 * rm, slice (output channels per block)
-// a multiple of 28, at most 256 threads (tile_rows / (8 * rm) * slice / 28
-// warps), blocks per slice >= 1, stages 2-4. Launches on `stream`; returns
+// 16-byte aligned; any c >= 1 whose plan's shared memory fits. The plan
+// (ops/gdn.py:gdn_plan): rm (rows per thread) 2 or 8, tile_rows a multiple
+// of 8 * rm, slice (output channels per block) a multiple of 28, at most
+// 256 threads (tile_rows / (8 * rm) * slice / 28 warps), blocks per slice
+// >= 1, stages 2-4. Launches on `stream`; returns
 // the launch's CUDA error (0 on success), or cudaErrorInvalidValue for a
 // plan it has no kernel or shared memory for.
 extern "C" int mmnc_gdn_forward(const float* x, const float* gamma,
@@ -429,7 +443,7 @@ extern "C" int mmnc_gdn_forward(const float* x, const float* gamma,
   const size_t smem =
       static_cast<size_t>(smem_floats(c, tile_rows, slice, stages)) *
       sizeof(float);
-  if (c < 1 || c > 128 || (rm != 2 && rm != 8) || tile_rows < warp_rows ||
+  if (c < 1 || (rm != 2 && rm != 8) || tile_rows < warp_rows ||
       tile_rows % warp_rows || slice < kWarpCols || slice % kWarpCols ||
       threads > kMaxThreads || blocks < 1 || stages < 2 ||
       stages > kMaxStages || smem > static_cast<size_t>(kMaxSmem))

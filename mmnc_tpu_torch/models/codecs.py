@@ -9,10 +9,10 @@ h_a,h_s}.{seq}`, `model.compressor.entropy_bottleneck.*`,
 `model.output_heads.{t}.{seq}`), so mmnc_tpu's
 `import_reference_state_dict` reads any state_dict of this port.
 
-This slice ports the serving path: `init(seed)`, eval `forward`,
-`update_bottleneck_values`, `compress` and `decompress`. Training
-forward, losses, the streaming programs and the disjoint/shared variants
-come in later slices.
+Ported so far: the serving path (`init(seed)`, eval `forward`,
+`update_bottleneck_values`, `compress`, `decompress`) and the device
+programs of the streaming round trip (`models/streaming.py`). Training
+forward, losses and the disjoint/shared variants come in later slices.
 """
 
 from dataclasses import dataclass
@@ -165,20 +165,75 @@ class SingleTaskCompressor(nn.Module):
         """-> (y_sym, z_sym, indexes) NHWC int32 on the device
         (mmnc_tpu/models/codecs.py:353-366)."""
         y, z = self.model.analyze(self._inputs(batch))
-        med = self._medians()
-        z_sym = torch.round(z - med)
-        scales = self.model.compressor.hyper_synthesize(z_sym + med)
-        scales = scales[:, :, :y.shape[2], :y.shape[3]]  # coding geometry
-        indexes = gc.build_indexes(scales)
+        z_sym = torch.round(z - self._medians())
+        indexes = self._indexes(z_sym, y.shape[2:])  # coding geometry
         return (_nhwc(torch.round(y).to(torch.int32)),
                 _nhwc(z_sym.to(torch.int32)), _nhwc(indexes))
+
+    # device programs of the streaming round trip (models/streaming.py):
+    # each returns tensors on the device and syncs nothing
+
+    def _symbols(self, batch):
+        """-> (y_sym, z_sym) rounded f32 NCHW, max_abs int32 scalar."""
+        y, z = self.model.analyze(self._inputs(batch))
+        z_sym = torch.round(z - self._medians())
+        y_sym = torch.round(y)
+        max_abs = torch.maximum(y_sym.abs().max(),
+                                z_sym.abs().max()).to(torch.int32)
+        return y_sym, z_sym, max_abs
+
+    @torch.no_grad()
+    def _compress_device_lean(self, batch):
+        """-> (y_sym, z_sym) NHWC int16 and max_abs (int32 scalar)
+        (mmnc_tpu/models/codecs.py:368-386). The caller falls back to
+        `_compress_device` where max_abs says int16 wrapped."""
+        y_sym, z_sym, max_abs = self._symbols(batch)
+        return (_nhwc(y_sym).to(torch.int16), _nhwc(z_sym).to(torch.int16),
+                max_abs)
+
+    @torch.no_grad()
+    def _compress_device_fused(self, batch):
+        """-> (y_sym i16, z_sym i16, indexes u8) NHWC and max_abs in one
+        call (mmnc_tpu/models/codecs.py:388-421): the lean program plus
+        h_s and build_indexes on the encoder's quantized z, which equals the
+        decoder's decoded z because z's coding is lossless."""
+        y_sym, z_sym, max_abs = self._symbols(batch)
+        indexes = self._indexes(z_sym, y_sym.shape[2:])
+        return (_nhwc(y_sym).to(torch.int16), _nhwc(z_sym).to(torch.int16),
+                _nhwc(indexes).to(torch.uint8), max_abs)
+
+    def _indexes(self, z_sym, y_shape):
+        """Rounded z (NCHW f32) -> y's CDF-row indexes (NCHW int32)."""
+        scales = self.model.compressor.hyper_synthesize(z_sym + self._medians())
+        return gc.build_indexes(scales[:, :, :y_shape[0], :y_shape[1]])
+
+    @torch.no_grad()
+    def _decompress_indexes_u8(self, z_sym, y_shape):
+        """z symbols (NHWC, any integer type, host or device) -> y's
+        indexes as NHWC uint8 on the device (mmnc_tpu/models/codecs.py:
+        423-428; the scale table has 64 rows)."""
+        z = _nchw(torch.as_tensor(z_sym, device=self.device).float())
+        return _nhwc(self._indexes(z, y_shape)).to(torch.uint8)
+
+    @torch.no_grad()
+    def _synthesize_from_symbols(self, y_sym):
+        """int16 y symbols (NHWC, on the device) -> {task: NHWC}; the cast
+        to f32 runs on the device (mmnc_tpu/models/codecs.py:430-435)."""
+        return self._decompress_synthesize(y_sym.float())
+
+    @torch.no_grad()
+    def _decompress_synthesize(self, y_hat):
+        """f32 y_hat (NHWC) -> {task: NHWC} (mmnc_tpu/models/codecs.py:
+        496-499)."""
+        y_hat = _nchw(torch.as_tensor(y_hat, device=self.device))
+        x_hats = self.model.synthesize_from_y(y_hat)
+        return {t: _nhwc(x) for t, x in zip(self.tasks, x_hats)}
 
     @torch.no_grad()
     def _decompress_indexes(self, z_sym, y_shape):
         """z symbols (NHWC, host) -> Gaussian CDF-row indexes for y (host)."""
         z = _nchw(torch.as_tensor(z_sym, device=self.device).float())
-        scales = self.model.compressor.hyper_synthesize(z + self._medians())
-        return _host(gc.build_indexes(scales[:, :, :y_shape[0], :y_shape[1]]))
+        return _host(self._indexes(z, y_shape))
 
     def compress(self, batch, packed: bool = True):
         """-> (ans dict(strings=[y_strings, z_strings], shape, y_shape,
@@ -241,9 +296,8 @@ class SingleTaskCompressor(nn.Module):
                                                        tables.gc
                                                        ).reshape(*y_shape, m)
                               for i in range(b)])
-        y_hat = _nchw(torch.as_tensor(y_sym, device=self.device).float())
-        x_hats = self.model.synthesize_from_y(y_hat)
-        return {t: _nhwc(x) for t, x in zip(self.tasks, x_hats)}
+        return self._decompress_synthesize(
+            torch.as_tensor(y_sym, device=self.device).float())
 
 
 MODEL_NUMBER = {1: SingleTaskCompressor}

@@ -6,7 +6,9 @@ On the H100 the 100- and 50-channel stages are bound by f32 FMAs and the
 3-channel ones by bytes. The kernel has two variants, picked per shape by
 `launch_plan`: "tiled" tiles the output spatially (a 1-pixel input halo
 per tile, all Cout channels of a pixel in one block so the (I)GDN epilogue
-stays on chip); "split", for the latent stages whose tiles would leave
+stays on chip; "tiled_l2", the same with gamma left in global memory, for
+Cout too wide to hold Cout x Cout of gamma beside the tile); "split", for
+the latent stages whose tiles would leave
 most SMs idle, gives each tile to a thread-block cluster whose blocks take
 slices of Cin and add their partial sums in rank order through
 distributed shared memory. Both write the interleaved output once. See
@@ -62,13 +64,15 @@ def deconv_igdn_plain(x, w, b, gamma=None, beta=None, mode="igdn"):
 @functools.cache
 def _entry():
     fn = _build.load("deconv_igdn").mmnc_deconv_igdn_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 _SMS = 132  # H100 SXM streaming multiprocessors
+# dynamic shared memory a block may use (csrc/deconv_igdn.cu:kMaxSmem)
+MAX_SMEM = 227 * 1024 - 1024
 _WIDE_TILES = ((4, 4), (2, 4), (1, 4))
 SPLIT_TILES = (4, 2, 1)  # square tiles the split kernel is built for
 SPLITS = (8, 4, 2)  # cluster sizes up to the portable limit of 8
@@ -103,10 +107,23 @@ def tile_shape(b: int, h: int, w: int, cout: int):
     return min(ta, h), tb
 
 
+def tiled_smem_bytes(ta: int, tb: int, cin: int, cout: int,
+                     gamma_l2: bool, mode="igdn") -> int:
+    """Dynamic shared memory of one tiled block: the input tile + halo,
+    the tile's pre-activations, beta and, unless gamma stays in global
+    memory, Cout x Cout of gamma (csrc/deconv_igdn.cu mirrors it)."""
+    floats = (ta + 2) * (tb + 2) * cin + 4 * ta * tb * cout
+    if mode is not None:
+        floats += cout + (0 if gamma_l2 else cout * cout)
+    return 4 * floats
+
+
 def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
     """(variant, TA, TB, splits) for one launch.
 
-    "tiled": `tile_shape`'s tiles, one block each, splits 1. "split": the
+    "tiled": `tile_shape`'s tiles, one block each, splits 1; "tiled_l2"
+    where gamma would not fit beside such a tile in shared memory (Cout
+    above about 230). "split": the
     latent stages, where those tiles give fewer blocks than SMs (Cout >= 32,
     a multiple of 4, at most 128): a cluster of `splits` blocks owns each
     square tile of SPLIT_TILES (no larger than the input) and each block
@@ -114,6 +131,8 @@ def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
     most _SPLIT_MAX_BLOCKS blocks, the one with the most blocks wins, the
     larger tile on a tie (fewer weight reads)."""
     ta, tb = tile_shape(b, h, w, cout)
+    if tiled_smem_bytes(ta, tb, cin, cout, gamma_l2=False) > MAX_SMEM:
+        return "tiled_l2", ta, tb, 1
     if (cout < 32 or cout > _SPLIT_MAX_COUT or cout % 4
             or b * -(-h // ta) * -(-w // tb) >= _SMS):
         return "tiled", ta, tb, 1
@@ -173,11 +192,14 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
         # does not (a view at an odd offset) is copied to one that does
         w, gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
                           for t in (w, gamma, beta))
-    elif variant != "tiled" or splits != 1:
+    elif (variant not in ("tiled", "tiled_l2") or splits != 1
+          or tiled_smem_bytes(ta, tb, cin, cout, variant == "tiled_l2",
+                              mode) > MAX_SMEM):
         raise ValueError(f"plan {plan}: no kernel for it")
     rc = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,
                   ta, tb, splits if variant == "split" else 1, _MODES[mode],
+                  int(variant == "tiled_l2"),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "deconv_igdn")
     deconv_igdn_cuda.launches += 1

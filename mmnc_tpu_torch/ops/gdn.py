@@ -11,7 +11,8 @@ slice, beta and the squared rows in shared memory, accumulates register
 micro-tiles of rows x 7 output channels in exact f32 FMAs, and writes
 each output once with coalesced stores. `gdn_plan` picks its launch:
 persistent blocks over row tiles, or for row counts too small to fill the
-SMs, blocks that each take a slice of the output channels;
+SMs and for C whose all-channel blocks do not fit in shared memory (C >
+140), blocks that each take a slice of the output channels;
 `gdn_cuda(..., plan=GDNPlan(...))` forces one. See the source for the
 design.
 
@@ -31,7 +32,6 @@ import torch
 
 from . import _build
 
-MAX_CHANNELS = 128
 SMS = 132  # H100 SXM streaming multiprocessors
 # mirrors csrc/gdn.cu: rows per thread (kRM) of the two instantiations, a
 # warp's 8 x kRM rows and 28 output channels, threads per block, ring
@@ -86,6 +86,10 @@ def gdn_smem_bytes(c: int, plan: GDNPlan) -> int:
     return 4 * (stages * tr * c + sl * _stride(c) + x2 + sl)
 
 
+def _fits(c: int, plan: GDNPlan) -> bool:
+    return gdn_smem_bytes(c, plan) <= MAX_SMEM
+
+
 def threads(plan: GDNPlan) -> int:
     return plan.tile_rows // (8 * plan.rm) * (plan.slice // WARP_COLS) * 32
 
@@ -108,27 +112,36 @@ def out_slices(c: int, slice_: int):
 @functools.lru_cache(maxsize=256)
 def gdn_plan(n: int, c: int, variant: str = None) -> GDNPlan:
     """The launch for (n, c) rows: variant "rows" or "split", or by default
-    "rows" where its tiles fill at least half the SMs (or C fits one warp
-    column), else "split".
+    "rows" where its blocks fit in shared memory and its tiles fill at
+    least half the SMs (or C fits one warp column), else "split".
 
     "rows": 8 rows per thread, one slice of every output channel (C
     rounded up to 28), tiles of as many rows as 256 threads cover, at most
     as many blocks as are resident, each walking tiles. "split": 2 rows per
     thread and slices of 56 channels, one block per (tile, slice): 64-row
-    tiles where they still give half the SMs a block, else 32-row tiles.
+    tiles where they still give half the SMs a block, else 32-row tiles;
+    where C is too wide for that block's shared memory, 32-row tiles, then
+    28-channel slices, then 16-row tiles. Every block reads all C input
+    channels, so two launches stay bitwise equal at any C.
     Stages: the most of 2-4 that the block's tiles can use and that leave
     the blocks' residency as it is at 2 stages. (Chosen from sweeps of
     plans at the path's shapes on an H100; see PERF.md.)"""
     wcols = -(-c // WARP_COLS)
     rows_tr = 64 * max(1, MAX_THREADS // 32 // wcols)
     if variant is None:
-        variant = ("rows" if -(-n // rows_tr) >= SMS // 2 or wcols == 1
-                   else "split")
+        rows_fit = _fits(c, GDNPlan(8, rows_tr, WARP_COLS * wcols, 1,
+                                    STAGES[0]))
+        variant = ("rows" if rows_fit and (-(-n // rows_tr) >= SMS // 2
+                                           or wcols == 1) else "split")
     if variant == "rows":
         rm, tr, sl = 8, rows_tr, WARP_COLS * wcols
     elif variant == "split":
         rm, sl = 2, WARP_COLS * min(2, wcols)
         tr = 64 if -(-n // 64) * -(-c // sl) >= SMS // 2 else 32
+        for t, w in ((tr, sl), (32, sl), (32, WARP_COLS), (16, WARP_COLS)):
+            if _fits(c, GDNPlan(rm, t, w, 1, STAGES[0])):
+                tr, sl = t, w
+                break
     else:
         raise ValueError(f"gdn plan variant {variant!r}")
     tiles = -(-n // tr)
@@ -139,7 +152,7 @@ def gdn_plan(n: int, c: int, variant: str = None) -> GDNPlan:
     stages = STAGES[0]
     for s in STAGES[1:]:
         p = GDNPlan(rm, tr, sl, 1, s)
-        if (s <= per_block and gdn_smem_bytes(c, p) <= MAX_SMEM
+        if (s <= per_block and _fits(c, p)
                 and resident_per_sm(c, p) >= per_sm):
             stages = s
     return GDNPlan(rm, tr, sl, blocks, stages)
@@ -151,8 +164,19 @@ def check_plan(c: int, plan: GDNPlan) -> None:
     rm, tr, sl, blocks, stages = plan
     if (rm not in RMS or tr < 8 * rm or tr % (8 * rm) or sl < WARP_COLS
             or sl % WARP_COLS or threads(plan) > MAX_THREADS or blocks < 1
-            or stages not in STAGES or gdn_smem_bytes(c, plan) > MAX_SMEM):
+            or stages not in STAGES or not _fits(c, plan)):
         raise ValueError(f"gdn plan {tuple(plan)}: no kernel for it at C={c}")
+
+
+def _max_channels() -> int:
+    smallest = GDNPlan(2, 16, WARP_COLS, 1, STAGES[0])
+    return max(c for c in range(1, 2048) if _fits(c, smallest))
+
+
+# The widest C any plan fits (the smallest block, 16 rows x 28 channels,
+# within MAX_SMEM): gdn_cuda raises above it, where the JAX package's
+# chain still runs.
+MAX_CHANNELS = _max_channels()
 
 
 def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
@@ -170,7 +194,8 @@ def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
         raise ValueError(f"gamma {tuple(gamma.shape)} / beta "
                          f"{tuple(beta.shape)} do not match C={c}")
     if c > MAX_CHANNELS:
-        raise ValueError(f"gdn_cuda supports C <= {MAX_CHANNELS}, got {c}")
+        raise ValueError(f"gdn_cuda: no plan fits C={c} (> {MAX_CHANNELS})"
+                         " in a block's shared memory")
     plan = GDNPlan(*plan) if plan is not None else gdn_plan(n, c)
     check_plan(c, plan)
     x2d, gamma, beta = x2d.contiguous(), gamma.contiguous(), beta.contiguous()

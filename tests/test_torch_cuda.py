@@ -4,18 +4,24 @@ CUDA kernel has no interpret mode). On a host with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerance: float32 sums over up to 25*100 products taken in another order
-than cuBLAS/cuDNN, so 1e-4 relative to the largest output.
+Tolerance: float32 sums over up to 25*300 products taken in another order
+than cuBLAS/cuDNN, so 1e-4 relative to the largest output. The model
+tests at the end hold the card's integers (symbols, indexes, stream
+bytes) exactly equal to the CPU port's.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from mmnc_tpu_torch import build_model
+from mmnc_tpu_torch.models.streaming import stream_roundtrip
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
                                             deconv_igdn_plain, launch_plan,
                                             tile_shape)
-from mmnc_tpu_torch.ops.gdn import (GDNPlan, gdn, gdn_cuda, gdn_plain,
-                                   gdn_plan)
+from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNPlan, gdn, gdn_cuda,
+                                   gdn_plain, gdn_plan)
+from mmnc_tpu_torch.weights import scale_conv_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -196,9 +202,6 @@ def test_deconv_igdn_split_takes_weights_off_16_byte_boundaries(device):
 def test_kernel_wrappers_raise_on_unsupported_input(device):
     x = torch.randn(8, 200, device=device)
     with pytest.raises(ValueError):
-        gdn_cuda(x, torch.eye(200, device=device), torch.ones(200, device=device),
-                 False)
-    with pytest.raises(ValueError):
         gdn_cuda(x.double()[:, :4], torch.eye(4, device=device).double(),
                  torch.ones(4, device=device).double(), False)
     x, gamma, beta = _gdn_inputs(device, 64, 100, 0)
@@ -213,3 +216,120 @@ def test_kernel_wrappers_raise_on_unsupported_input(device):
                  ("tiled", 1, 1, 2), ("other", 1, 1, 1)):
         with pytest.raises(ValueError):
             deconv_igdn_cuda(x, w, b, gamma, beta, "igdn", plan=plan)
+
+
+@pytest.mark.parametrize("n", [5, 777, 4099, 32768])
+@pytest.mark.parametrize("c", [168, 192, 300])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_wide_channels_match_plain(device, n, c, inverse):
+    """C above 128: channel-sliced plans of the generic instantiation; two
+    launches are bitwise equal."""
+    x, gamma, beta = _gdn_inputs(device, n, c, n + c)
+    before = gdn_cuda.launches
+    got = gdn(x, gamma, beta, inverse)
+    again = gdn(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    assert gdn_cuda.launches == before + 2
+    _close(got, gdn_plain(x, gamma, beta, inverse))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n", [5, 777, 4099])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_at_max_channels_matches_plain(device, n, inverse):
+    """C = MAX_CHANNELS, the widest C any plan fits: blocks of 16 rows x
+    28 output channels over all C input channels, in all but 192 of the
+    231,424 bytes of shared memory a block may have."""
+    x, gamma, beta = _gdn_inputs(device, n, MAX_CHANNELS, n)
+    plan = gdn_plan(n, MAX_CHANNELS)
+    assert (plan.tile_rows, plan.slice) == (16, 28)
+    got = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    again = gdn_cuda(x, gamma, beta, inverse, plan=plan)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, inverse))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,cout,tile", [((9, 16, 16, 570), 570, (4, 4)),
+                                             ((8, 4, 4, 1024), 1024, (1, 4))])
+def test_deconv_igdn_widest_tiles_match_plain(device, shape, cout, tile):
+    """The "tiled_l2" plan where its tile alone nearly fills shared
+    memory: 4x4 tiles at Cin = Cout = 570 (230,280 of 231,424 bytes), 1x4
+    tiles at 1024."""
+    plan = launch_plan(*shape, cout)
+    assert plan == ("tiled_l2", *tile, 1)
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, "igdn")
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, "igdn"))
+
+
+@pytest.mark.parametrize("shape,cout,plan", [
+    ((8, 1, 1, 128), 300, None), ((2, 2, 2, 300), 300, None),
+    ((3, 4, 5, 300), 300, None), ((2, 9, 7, 150), 300, ("tiled_l2", 2, 4, 1)),
+    ((2, 4, 4, 192), 192, ("tiled", 4, 4, 1))])
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+def test_deconv_igdn_wide_cout_matches_plain(device, shape, cout, plan, mode):
+    """Cout = 300 reads gamma from global memory ("tiled_l2"); the 4x4 tile
+    at Cin = Cout = 192 holds gamma in 225,024 bytes of shared memory."""
+    if plan is None:
+        assert launch_plan(*shape, cout)[0] == "tiled_l2"
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, mode, plan=plan)
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
+
+
+def _seeded_pair(device):
+    """The c=4, m=8 codec from one seed on the CPU and on the card (the
+    same weights: drawn on the CPU), conv kernels scaled so the symbols
+    are not all zero, and the same coding tables."""
+    models = []
+    for dev in ("cpu", device):
+        model = scale_conv_kernels(build_model(1, ["rgb"], latent_channels=8,
+                                               conv_channels=4, device=dev,
+                                               seed=3))
+        model.update_bottleneck_values()
+        models.append(model)
+    batch = {"rgb": np.random.default_rng(4).random(
+        (2, 256, 256, 3)).astype(np.float32)}
+    return models, batch
+
+
+def test_card_integers_and_stream_equal_the_cpu_port(device):
+    """Symbols, indexes and packed stream bytes on the card equal the CPU
+    port's (which tests/test_torch_codec.py holds equal to the JAX
+    package's), and the CPU decodes the card's stream to what it decodes
+    from its own."""
+    (cpu, card), batch = _seeded_pair(device)
+    want = [t.numpy() for t in cpu._compress_device(batch)]
+    got = [t.cpu().numpy() for t in card._compress_device(batch)]
+    for name, g, w in zip(("y", "z", "indexes"), got, want):
+        mismatches = int((g != w).sum())
+        assert mismatches == 0, f"{name}: {mismatches} of {w.size} differ"
+    assert (want[0] != 0).any()
+    ans_cpu, n_cpu = cpu.compress(batch)
+    ans_card, n_card = card.compress(batch)
+    assert n_card == n_cpu and ans_card["strings"] == ans_cpu["strings"]
+    np.testing.assert_array_equal(cpu.decompress(ans_card)["rgb"].numpy(),
+                                  cpu.decompress(ans_cpu)["rgb"].numpy())
+    np.testing.assert_allclose(card.decompress(ans_card)["rgb"].cpu().numpy(),
+                               cpu.decompress(ans_cpu)["rgb"].numpy(),
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["v2", "v1"])
+def test_card_stream_equals_its_compress(device, impl):
+    """stream_roundtrip on the card (pinned slots, a copy stream, coder
+    threads) against its compress/decompress, batch by batch."""
+    (_, card), batch = _seeded_pair(device)
+    rng = np.random.default_rng(5)
+    batches = [{"rgb": torch.from_numpy(rng.random(
+        (2, 256, 256, 3), dtype=np.float32)).to(device)} for _ in range(5)]
+    results = list(stream_roundtrip(card, batches, depth=2, impl=impl))
+    torch.cuda.synchronize()
+    for b, (x_hats, n_bytes) in zip(batches, results):
+        ans, n_ref = card.compress(b)
+        assert n_bytes == n_ref
+        ref = card.decompress(ans)["rgb"]
+        assert (x_hats["rgb"] - ref).abs().max().item() <= 1e-5

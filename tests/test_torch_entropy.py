@@ -223,3 +223,75 @@ def test_rans_rejects_out_of_table_indexes():
     with pytest.raises(ValueError):
         rans.encode_with_indexes(np.zeros(3, np.int32), np.zeros(2, np.int32),
                                  table)
+
+
+# --- typed entry points and fast decode ------------------------------------
+
+def _gaussian_stream_case(n=4000, seed=7):
+    rng = np.random.default_rng(seed)
+    indexes = rng.integers(0, 64, n).astype(np.int32)
+    symbols = np.round(rng.normal(size=n) * 6).astype(np.int32)
+    symbols[::97] += 300  # bypass escapes, still within int16
+    return symbols, indexes
+
+
+@pytest.mark.parametrize("idx_dtype", [np.uint8, np.int32])
+def test_typed_encode_bytes_equal_to_int32_path_and_to_jax(idx_dtype):
+    """int16 symbols with uint8 / int32 indexes take the typed entry
+    points and give the int32 path's stream, and the JAX package's."""
+    table, j_table = build_gc_table(), j_build_gc_table()
+    symbols, indexes = _gaussian_stream_case()
+    want = rans.encode_with_indexes(symbols, indexes, table)
+    got = rans.encode_with_indexes(symbols.astype(np.int16),
+                                   indexes.astype(idx_dtype), table)
+    assert got == want
+    assert got == j_rans.encode_with_indexes(symbols.astype(np.int16),
+                                             indexes.astype(idx_dtype),
+                                             j_table)
+
+
+@pytest.mark.parametrize("idx_dtype,out_dtype", [
+    (np.int32, np.int32), (np.uint8, np.int16), (np.int32, np.int16),
+    (np.uint8, np.int32)])
+def test_fast_decode_equals_classic_decode(idx_dtype, out_dtype):
+    table = build_gc_table()
+    symbols, indexes = _gaussian_stream_case(seed=8)
+    data = rans.encode_with_indexes(symbols, indexes, table)
+    indexes = indexes.astype(idx_dtype)
+    fast = rans.decode_with_indexes(data, indexes, table, out_dtype=out_dtype)
+    classic = rans.decode_with_indexes(data, indexes, table,
+                                       out_dtype=out_dtype, fast=False)
+    assert fast.dtype == classic.dtype == out_dtype
+    np.testing.assert_array_equal(fast, classic)
+    np.testing.assert_array_equal(fast, symbols)
+    out = np.empty(len(symbols), out_dtype)
+    assert rans.decode_with_indexes(data, indexes, table, out_dtype=out_dtype,
+                                    out=out) is not None
+    np.testing.assert_array_equal(out, symbols)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("idx_dtype", [np.uint8, np.int32])
+def test_int16_decode_raises_overflow_on_an_outlier(fast, idx_dtype):
+    table = build_gc_table()
+    symbols, indexes = _gaussian_stream_case(n=500, seed=9)
+    symbols[123] = 40000  # escapes; does not fit int16
+    data = rans.encode_with_indexes(symbols, indexes, table)
+    with pytest.raises(OverflowError):
+        rans.decode_with_indexes(data, indexes.astype(idx_dtype), table,
+                                 out_dtype=np.int16, fast=fast)
+    np.testing.assert_array_equal(
+        rans.decode_with_indexes(data, indexes, table, fast=fast), symbols)
+
+
+def test_fast_decode_tables_are_built_once_per_table():
+    table = build_gc_table()
+    symbols, indexes = _gaussian_stream_case(n=100)
+    data = rans.encode_with_indexes(symbols, indexes, table)
+    rans.decode_with_indexes(data, indexes, table)
+    cached = table._mmnc_fast
+    rans.decode_with_indexes(data, indexes, table)
+    assert table._mmnc_fast is cached
+    with pytest.raises(ValueError):
+        rans.decode_with_indexes(data, indexes, table, out_dtype=np.int16,
+                                 out=np.empty(len(indexes), np.int32))

@@ -22,15 +22,17 @@ from mmnc_tpu.utils.torch_import import (convert_conv_weight,
 
 from mmnc_tpu_torch.ops import bound as tb
 from mmnc_tpu_torch.ops import layers as tl
+from mmnc_tpu_torch.ops import deconv_igdn as deconv_mod
 from mmnc_tpu_torch.ops.deconv_igdn import (SPLITS, cin_slices, deconv_igdn,
                                             deconv_igdn_cuda,
                                             deconv_igdn_plain,
                                             deconv_weight_taps, launch_plan,
-                                            tile_shape)
-from mmnc_tpu_torch.ops.gdn import (MAX_SMEM, MAX_THREADS, SMS, GDNFunction,
-                                   GDNPlan, check_plan, gdn, gdn_cuda,
-                                   gdn_plain, gdn_plan, gdn_smem_bytes,
-                                   out_slices, resident_per_sm, threads)
+                                            tile_shape, tiled_smem_bytes)
+from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, MAX_SMEM, MAX_THREADS, SMS,
+                                   GDNFunction, GDNPlan, check_plan, gdn,
+                                   gdn_cuda, gdn_plain, gdn_plan,
+                                   gdn_smem_bytes, out_slices,
+                                   resident_per_sm, threads)
 from mmnc_tpu_torch.ops.quant import quantize_round
 
 
@@ -422,3 +424,83 @@ def test_gdn_check_plan_refuses_plans_without_a_kernel(plan):
 def test_gdn_plan_refuses_an_unknown_variant():
     with pytest.raises(ValueError):
         gdn_plan(64, 100, "tiles")
+
+
+# --- wide channels: GDN at C > 128, deconv+IGDN at Cout > 230 -------------
+
+# rows of every GDN launch of one round trip of a batch of 8 at 256 px
+_PATH_ROWS = [8 * 256 ** 2 >> 2 * s for s in range(9)] + [8 * 32 ** 2,
+                                                          8 * 64 ** 2]
+
+
+@pytest.mark.parametrize("c", [141, 150, 168, 192, 300, 400, 600])
+@pytest.mark.parametrize("n", _PATH_ROWS)
+def test_gdn_plan_fits_wide_channels(n, c):
+    """Above 140 channels no all-channel block fits in shared memory, so
+    every row count takes 28- or 56-channel slices of the output, with all
+    C input channels per block (two launches stay bitwise equal)."""
+    plan = gdn_plan(n, c)
+    check_plan(c, plan)
+    assert plan.rm == 2 and plan.slice in (28, 56)
+    assert gdn_smem_bytes(c, plan) <= MAX_SMEM
+    assert resident_per_sm(c, plan) >= 1
+    assert plan.blocks * len(out_slices(c, plan.slice)) <= \
+        SMS * resident_per_sm(c, plan)
+
+
+@pytest.mark.parametrize("c,tile_rows,smem", [(192, 32, 136288),
+                                              (300, 32, 211424)])
+def test_gdn_wide_split_blocks_take_the_shared_memory_counted(c, tile_rows,
+                                                              smem):
+    """56-channel slices with 32-row tiles and 2 stages, by
+    csrc/gdn.cu:smem_floats."""
+    assert gdn_smem_bytes(c, GDNPlan(2, tile_rows, 56, 1, 2)) == smem
+    assert gdn_plan(8, 300) == GDNPlan(2, 32, 56, 1, 2)
+
+
+def test_gdn_max_channels_is_the_widest_c_a_plan_fits():
+    check_plan(MAX_CHANNELS, gdn_plan(4099, MAX_CHANNELS))
+    with pytest.raises(ValueError):
+        check_plan(MAX_CHANNELS + 1, gdn_plan(4099, MAX_CHANNELS + 1))
+
+
+# deconv+IGDN launches of decode at conv 300 and at conv 192 (latent 128,
+# batch 8): g_s, then the decoder head at half width; then the widest
+# tiles the card tests launch (4x4 at 570 channels, 1x4 at 1024)
+_WIDE_DECONVS = [(8, 1, 1, 128, 300), (8, 2, 2, 300, 300),
+                 (8, 4, 4, 300, 300), (8, 16, 16, 300, 150),
+                 (8, 32, 32, 150, 150), (8, 64, 64, 150, 3),
+                 (8, 1, 1, 128, 192), (8, 2, 2, 192, 192),
+                 (8, 4, 4, 192, 192), (8, 16, 16, 192, 96),
+                 (64, 4, 4, 192, 192), (9, 16, 16, 570, 570),
+                 (8, 4, 4, 1024, 1024)]
+
+
+@pytest.mark.parametrize("shape", _WIDE_DECONVS)
+def test_deconv_launch_plan_fits_wide_cout(shape):
+    """Where Cout x Cout of gamma does not fit beside the tile the plan
+    leaves gamma in global memory ("tiled_l2"); either way the block's
+    shared memory fits."""
+    b, h, w, cin, cout = shape
+    variant, ta, tb, splits = launch_plan(*shape)
+    assert splits == 1 and (ta, tb) == tile_shape(b, h, w, cout)
+    with_gamma = tiled_smem_bytes(ta, tb, cin, cout, gamma_l2=False)
+    assert variant == ("tiled" if with_gamma <= deconv_mod.MAX_SMEM
+                       else "tiled_l2")
+    assert tiled_smem_bytes(ta, tb, cin, cout,
+                            variant == "tiled_l2") <= deconv_mod.MAX_SMEM
+    if cout == 300:
+        assert variant == "tiled_l2"
+
+
+def test_deconv_tiled_smem_at_the_widest_tile():
+    """A 4x4 tile with Cin = Cout = 192 and gamma in shared memory: 225,024
+    bytes of the 231,424 a block may have; at Cout = 300 gamma alone
+    (360 KB) does not fit."""
+    assert tiled_smem_bytes(4, 4, 192, 192, gamma_l2=False) == 225024
+    assert tiled_smem_bytes(4, 4, 192, 192, gamma_l2=False) <= \
+        deconv_mod.MAX_SMEM
+    assert tiled_smem_bytes(1, 1, 300, 300, gamma_l2=False) > \
+        deconv_mod.MAX_SMEM
+    assert tiled_smem_bytes(1, 1, 300, 300, gamma_l2=True, mode=None) == \
+        4 * (9 * 300 + 4 * 300)
