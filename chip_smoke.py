@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure:
      everywhere; for deconv+IGDN check the split kernel at extra shapes
      and that two of its launches are bitwise equal, and the tiled kernel
      too where the plan is the split one; for both, every launch shape of
-     phase 6's models too;
+     phase 6's models too, and for GDN every launch shape of phase 7's
+     train step (batch 16, the IGDNs of g_s and the decoder head unfused);
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -37,12 +38,30 @@ Phases, each of which exits non-zero on failure:
      against its eval forward, and the card's path against the CPU plain
      path on one image (phase 3 checks and times the kernels at every
      launch shape of these models among its extra shapes);
-  7. print a {"kernels": [...]} line and, last,
+  7. train: the bench config from seed 0 at the init scale, lmbda 1e-2,
+     learning rates 1e-4 / 1e-3, 20 scheduled steps, clip 5.0, one fixed
+     batch of 16 random 256x256 rgb images.
+     (a) one step on the card against one on the port's CPU plain path,
+         same weights and noise, one image: every log within rtol 1e-4,
+         every parameter's gradient within 1e-3 x max|g_cpu| of it;
+     (b) 20 steps on the batch: every loss finite, the last below the
+         first, 18 GDN and 0 deconv+IGDN launches a step; the step's wall
+         time (median of steps 3-20), images/s and MP/s, peak memory, and
+         from torch.profiler on one more step its device time, busy share,
+         the GDN kernel's 18 launches, the closed-form GDN backward (the
+         device work of its 18 autograd nodes) and the convolutions'
+         (cuDNN's) share;
+     (c) one remat step from the same state and noise as a plain step
+         (cuDNN deterministic for both): loss and parameters within 1e-5
+         relative, 36 GDN launches;
+     (d) the eval step: finite logs, 11 GDN and 7 deconv+IGDN launches;
+  8. print a {"kernels": [...]} line and, last,
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--profile DIR` also writes torch.profiler summaries
-of one round trip and of each layout's streamed run to DIR.
+of one round trip, of each layout's streamed run and of one train step to
+DIR.
 """
 
 import argparse
@@ -73,6 +92,16 @@ LATENT = 128
 CONV = 100
 BATCH, BATCHES, SEED = 8, 3, 0
 WIDE_CONVS = (192, 300)  # phase 6: CompressAI's N, three tasks at bench width
+# phase 7: mmnc_tpu/cli/train.py's defaults (batch 16, lmbda 1e-2, learning
+# rates 1e-4 / 1e-3) over a 20-step schedule, clipped at 5.0
+TRAIN_BATCH, TRAIN_STEPS, LMBDA, LR_MAIN, LR_AUX, CLIP = (
+    16, 20, 1e-2, 1e-4, 1e-3, 5.0)
+# launches (GDN, deconv+IGDN) of a train step (9 GDN in the encoder head
+# and g_a, 9 IGDN in g_s and the decoder head, all unfused), of a remat
+# step (the forward twice) and of an eval step (decode fused)
+TRAIN_LAUNCHES = {"train": {"gdn": 18, "deconv_igdn": 0},
+                  "remat": {"gdn": 36, "deconv_igdn": 0},
+                  "eval": {"gdn": 11, "deconv_igdn": 7}}
 
 
 def bound_ms(n_bytes, flops):
@@ -182,6 +211,26 @@ def gdn_path_shapes(b, conv=CONV):
             + [(n, c, True, 1) for n, c in dec])
 
 
+def gdn_train_shapes(b, conv=CONV):
+    """(rows, C, inverse) of the 18 (I)GDN of a train step's forward on a
+    batch of b rgb images at 256 px: GDN in the encoder head and g_a, then
+    IGDN in g_s at 2x2 to 8x8 and in the decoder head from 32x32 to
+    256x256 (unfused: the serving path fuses these into deconv+IGDN)."""
+    enc = [(n, c, False) for n, c, _, _ in gdn_path_shapes(b, conv)[:9]]
+    dec = ([(b * (IMAGE >> s) ** 2, conv) for s in (7, 6, 5)]
+           + [(b * 32 ** 2, conv // 2)] * 2 + [(b * 64 ** 2, conv // 2)] * 2
+           + [(b * 128 ** 2, 3), (b * IMAGE ** 2, 3)])
+    return enc + [(n, c, True) for n, c in dec]
+
+
+def gdn_backward_cost(n, c):
+    """Bytes (x and the gradient read, dx written, gamma and beta read,
+    their gradients written) and FLOPs (the norm recomputed, u @ gamma
+    and u^T @ x^2 as FMAs, ~12 elementwise operations a value) of the
+    closed-form backward of one (I)GDN on (n, c)."""
+    return (3 * n * c + 2 * c * c + 2 * c) * F32, 6 * n * c * c + 12 * n * c
+
+
 def deconv_path_shapes(b, conv=CONV):
     """(B, H, W, Cin, Cout, mode) of every deconv+IGDN launch of one
     decompress: g_s 1->2->4->8, then the decoder head 16->...->256."""
@@ -235,10 +284,13 @@ def check_gdn_launch(torch, x, gamma, beta, inverse, plan, tol_rel):
 
 
 def check_gdn(torch, b, gen):
-    """Every path shape and the extra shapes under their launch plan, and
-    first every plan variant forced at one large and one small path shape:
-    each against the plain version and bitwise repeatable; then device
-    time of the plan's launch, the plain version's and the bound."""
+    """Every path shape, every launch shape of phase 7's train step (batch
+    TRAIN_BATCH) and the extra shapes under their launch plan, and first
+    every plan variant forced at one large and one small path shape: each
+    against the plain version and bitwise repeatable; then device time of
+    the plan's launch, the plain version's and the bound. Returns the sums
+    over a round trip ("ms", ...) and over a train step's forward
+    launches ("train_ms", ...), the bound's kind and the tolerance."""
     from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
 
     tol_rel = 1e-4
@@ -256,10 +308,16 @@ def check_gdn(torch, b, gen):
                   f"ms={ms:.5f} host_ms={host:.5f}")
         del x, gamma, beta
     totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "train_ms": 0.0, "train_plain_ms": 0.0, "train_bound_ms": 0.0,
               "err": 0.0}
     bound_by = {}
-    cases = path + [(*s, 0) for s in gdn_extra_shapes(path)]
-    for n, c, inverse, per_trip in cases:
+    per_step = {}
+    for shape in gdn_train_shapes(TRAIN_BATCH):
+        per_step[shape] = per_step.get(shape, 0) + 1
+    cases = ([(*s, per_trip, 0) for *s, per_trip in path]
+             + [(*s, 0, k) for s, k in per_step.items()]
+             + [(*s, 0, 0) for s in gdn_extra_shapes(path)])
+    for n, c, inverse, per_trip, per_train_step in cases:
         x, gamma, beta = gdn_case(torch, gen, n, c)
         plan = gdn_plan(n, c)
         err, scale = check_gdn_launch(torch, x, gamma, beta, inverse, plan,
@@ -269,7 +327,8 @@ def check_gdn(torch, b, gen):
             torch, lambda: gdn_plain(x, gamma, beta, inverse))
         bms, by = bound_ms(*gdn_cost(n, c))
         print(f"kernel gdn rows={n} C={c} inverse={inverse} per_round_trip="
-              f"{per_trip} plan={tuple(plan)} max_abs_err={err:.3e} "
+              f"{per_trip} per_train_step={per_train_step} plan="
+              f"{tuple(plan)} max_abs_err={err:.3e} "
               f"(|ref|max {scale:.3g}) bitwise_repeat=ok "
               f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
               f"plain_host_ms={plain_host:.5f} bound_ms={bms:.5f} "
@@ -281,6 +340,9 @@ def check_gdn(torch, b, gen):
             totals["plain_ms"] += per_trip * plain
             totals["bound_ms"] += per_trip * bms
             bound_by[by] = bound_by.get(by, 0.0) + bms
+        totals["train_ms"] += per_train_step * ms
+        totals["train_plain_ms"] += per_train_step * plain
+        totals["train_bound_ms"] += per_train_step * bms
         del x, gamma, beta
     return totals, max(bound_by, key=bound_by.get), tol_rel
 
@@ -690,6 +752,266 @@ def run_widths(torch):
         del model
 
 
+def train_model(device):
+    """The bench config from SEED at the init scale (what training starts
+    from), lmbda LMBDA, learning rates LR_MAIN / LR_AUX; the same weights
+    on any device."""
+    from mmnc_tpu_torch import build_model
+
+    return build_model(1, ["rgb"], latent_channels=LATENT, conv_channels=CONV,
+                       lmbda=LMBDA, learning_rate_main=LR_MAIN,
+                       learning_rate_aux=LR_AUX, device=device, seed=SEED)
+
+
+def train_setup(model, remat=False):
+    from mmnc_tpu_torch.train import create_train_state, make_train_step
+
+    return (create_train_state(model, TRAIN_STEPS),
+            make_train_step(model, clip_norm=CLIP, remat=remat))
+
+
+def check_launches(torch, what, fn):
+    """Run fn with the counts at 0 and check them against TRAIN_LAUNCHES.
+    Returns (fn's result, the counts measured)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched != TRAIN_LAUNCHES[what]:
+        raise RuntimeError(f"{what} step: launches {launched}, want "
+                           f"{TRAIN_LAUNCHES[what]}")
+    return out, launched
+
+
+def rel_err(got, want):
+    """max|got - want| / max|want| over a tensor; where want is all 0 (h_s
+    at the init scale: every scale is below the 0.11 bound and the rate's
+    gradient does not push it up, so its gradients and updates are 0),
+    0 if got is all 0 too, else inf."""
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    return err / scale if scale else (float("inf") if err else 0.0)
+
+
+def check_train_against_cpu(torch, x):
+    """(a) One step of a fresh state on the card and on the port's CPU
+    plain path, same weights, same numpy noise, one image."""
+    got = {}
+    for device in ("cpu", "cuda"):
+        model = train_model(device)
+        state, step = train_setup(model)
+        batch = {"rgb": x.to(device)}
+        rng = np.random.default_rng(SEED + 2)
+        noise = {k: torch.from_numpy(rng.uniform(-0.5, 0.5, s).astype(
+            np.float32)).to(device) for k, s in model.latent_shapes(batch).items()}
+        _, logs = step(state, batch, noise=noise)
+        got[device] = ({k: v.item() for k, v in logs.items()},
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (logs_c, grads_c), (logs_g, grads_g) = got["cpu"], got["cuda"]
+    if set(logs_c) != set(logs_g):
+        raise RuntimeError(f"train logs: {sorted(logs_g)} vs {sorted(logs_c)}")
+    log_err = 0.0
+    for k, want in logs_c.items():
+        rel = abs(logs_g[k] - want) / abs(want)
+        if not rel <= 1e-4:
+            raise RuntimeError(f"train step card vs cpu: {k} {logs_g[k]} vs "
+                               f"{want}")
+        log_err = max(log_err, rel)
+    grad_err = 0.0
+    for name, want in grads_c.items():
+        err = rel_err(grads_g[name], want)
+        if not err <= 1e-3:
+            raise RuntimeError(f"train step card vs cpu: grad {name} max abs "
+                               f"err {err} x max|g_cpu|, over 1e-3")
+        grad_err = max(grad_err, err)
+    print(f"train card vs cpu plain path (1 image): logs max rel err "
+          f"{log_err:.3e}, grads max err {grad_err:.3e} x max|g_cpu| over "
+          f"{len(grads_c)} tensors; loss {logs_c['train/loss']:.6g}")
+
+
+def launched_in_spans(events, match):
+    """Microseconds of the device records launched inside a CPU span
+    (torch op or record_function) whose name passes `match`: the runtime
+    call that shares a record's correlation id lies in the span, on the
+    span's thread (the autograd engine's thread for backward ops)."""
+    spans = [(e["pid"], e["tid"], e["ts"], e["ts"] + e["dur"])
+             for e in events if e.get("cat") in ("cpu_op", "user_annotation")
+             and match(e["name"])]
+    # the CUDA API call records ("cuda_runtime" and its lower-level kin)
+    calls = {e["args"]["correlation"]: (e["pid"], e["tid"], e["ts"])
+             for e in events if e.get("cat", "").startswith("cuda_")
+             and "correlation" in e.get("args", {})}
+    total = 0.0
+    for e in events:
+        if e.get("cat") not in DEVICE_WORK:
+            continue
+        call = calls.get(e.get("args", {}).get("correlation"))
+        if call and any(p == call[0] and t == call[1] and s <= call[2] <= f
+                        for p, t, s, f in spans):
+            total += e["dur"]
+    return total
+
+
+def outermost_spans(events, match):
+    """How many CPU spans whose name passes `match` lie in no other such
+    span of their thread (the autograd engine records a node both as
+    "autograd::engine::evaluate_function: <node>" and as "<node>")."""
+    spans = sorted(((e["pid"], e["tid"]), e["ts"], e["ts"] + e["dur"])
+                   for e in events if e.get("cat") == "cpu_op"
+                   and match(e["name"]))
+    n, end = 0, {}
+    for thread, start, finish in spans:
+        if start >= end.get(thread, -1.0):
+            n += 1
+            end[thread] = finish
+        else:
+            end[thread] = max(end[thread], finish)
+    return n
+
+
+def profile_train_step(torch, step, state, batch, gen, profile_dir):
+    """torch.profiler over one train step -> (wall ms, device ms, busy ms,
+    GDN kernel ms and launches, closed-form backward ms and autograd
+    nodes, conv ms). The closed form's device records are those launched
+    inside the GDNFunction node's span on the autograd engine's thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def gdn_backward(name):
+        return name.endswith("GDNFunctionBackward")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(profile_dir or tmp, "train_step_trace.json")
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            with open(os.path.join(profile_dir, "train_step_profile.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                                  row_limit=50))
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_WORK]
+    gdn = [e for e in device if e.get("cat") == "kernel"
+           and "gdn_kernel" in e["name"] and "deconv" not in e["name"]]
+    backward = launched_in_spans(events, gdn_backward)
+    spans = outermost_spans(events, gdn_backward)
+    conv = launched_in_spans(events, lambda n: n.startswith(
+        ("aten::cudnn_convolution", "aten::convolution_backward")))
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(e["dur"] for e in device) / 1e3,
+            "busy_ms": busy_us(device) / 1e3, "records": len(device),
+            "gdn_ms": sum(e["dur"] for e in gdn) / 1e3, "gdn_kernels": len(gdn),
+            "gdn_backward_ms": backward / 1e3, "gdn_backward_spans": spans,
+            "conv_ms": conv / 1e3}
+
+
+def run_train(torch, profile_dir):
+    """Phase 7: (a) card vs CPU, (b) 20 steps with their times and launch
+    counts, (c) remat, (d) the eval step. Returns the step's profile, the
+    GDN bounds and the launches measured per train, remat and eval step."""
+    from mmnc_tpu_torch.train import make_eval_step
+
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"rgb": torch.from_numpy(rng.random(
+        (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
+    check_train_against_cpu(torch, batch["rgb"][:1])
+
+    # (c) first, from a fresh state: a plain and a remat step, same noise
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results, measured = [], {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, remat in (("train", False), ("remat", True)):
+            model = train_model("cuda")
+            state, step = train_setup(model, remat)
+            if not results:
+                noise = model.draw_noise(batch, gen)
+            (_, logs), measured[what] = check_launches(
+                torch, what, lambda: step(state, batch, noise=noise))
+            results.append((logs["train/loss"].item(),
+                            {n: p.detach().clone()
+                             for n, p in model.named_parameters()}))
+            del model, state, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss_p, params_p), (loss_r, params_r) = results
+    remat_err = abs(loss_r - loss_p) / abs(loss_p)
+    for name, p in params_p.items():
+        remat_err = max(remat_err, rel_err(params_r[name], p))
+    if not remat_err <= 1e-5:
+        raise RuntimeError(f"remat step vs plain step: max rel err {remat_err}")
+    print(f"train remat step vs plain step (same state and noise): loss "
+          f"{loss_r:.6g} vs {loss_p:.6g}, max rel err {remat_err:.3e}; "
+          f"GDN launches {measured['remat']['gdn']} vs "
+          f"{measured['train']['gdn']}")
+    del results, params_p, params_r
+
+    # (b) TRAIN_STEPS steps on the batch, the noise drawn by the step
+    model = train_model("cuda")
+    state, step = train_setup(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (_, logs), measured["train"] = check_launches(
+            torch, "train", lambda: step(state, batch, gen))
+        walls.append(time.perf_counter() - t0)
+        losses.append(logs["train/loss"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().tolist()
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: loss did not fall: {losses}")
+    wall = float(np.median(walls[2:]))
+    shapes = gdn_train_shapes(TRAIN_BATCH)
+    fwd_bound = sum(bound_ms(*gdn_cost(n, c))[0] for n, c, _ in shapes)
+    bwd_bound = sum(bound_ms(*gdn_backward_cost(n, c))[0]
+                    for n, c, _ in shapes)
+    print(f"train rgb latent={LATENT} conv={CONV} {IMAGE}px batch="
+          f"{TRAIN_BATCH}: {TRAIN_STEPS} steps, loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g}, launches per step {measured['train']}; "
+          f"step wall (median of steps 3-{TRAIN_STEPS}, synchronised) "
+          f"{wall * 1e3:.4f} ms, {TRAIN_BATCH / wall:.3f} images/s, "
+          f"{TRAIN_BATCH * IMAGE * IMAGE / 1e6 / wall:.4f} MP/s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB")
+    print(f"train losses: {json.dumps(losses)}")
+    prof = profile_train_step(torch, step, state, batch, gen, profile_dir)
+    want = TRAIN_LAUNCHES["train"]["gdn"]
+    if prof["gdn_kernels"] != want or prof["gdn_backward_spans"] != want:
+        raise RuntimeError(f"train profile: {prof['gdn_kernels']} GDN kernel "
+                           f"records and {prof['gdn_backward_spans']} "
+                           f"GDNFunction backward nodes, want {want} each")
+    print(f"train step profile: wall {prof['wall_ms']:.3f} ms, device "
+          f"{prof['device_ms']:.3f} ms in {prof['records']} records, busy "
+          f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.3f}"
+          f" of wall); GDN kernel ({prof['gdn_kernels']} launches) "
+          f"{prof['gdn_ms']:.4f} ms "
+          f"(bound {fwd_bound:.4f}); GDN closed-form backward "
+          f"{prof['gdn_backward_ms']:.4f} ms in {prof['gdn_backward_spans']} "
+          f"autograd nodes (bound {bwd_bound:.4f}); "
+          f"convolutions (cuDNN) {prof['conv_ms']:.3f} ms "
+          f"({prof['conv_ms'] / prof['device_ms']:.3f} of device)")
+
+    # (d) the eval step on the trained model
+    logs, measured["eval"] = check_launches(
+        torch, "eval", lambda: make_eval_step(model)(batch))
+    logs = {k: v.item() for k, v in logs.items()}
+    if not all(np.isfinite(list(logs.values()))):
+        raise RuntimeError(f"eval step: non-finite logs {logs}")
+    print(f"eval step: {json.dumps(logs)}")
+    return dict(prof, bound_ms=fwd_bound, backward_bound_ms=bwd_bound,
+                launches=measured)
+
+
 def profile_round_trip(torch, model, batch, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
@@ -755,10 +1077,15 @@ def main(argv=None):
     run_streaming(torch, model, batches, args.profile)
     del model, batches
     run_widths(torch)
+    train = run_train(torch, args.profile)
 
     per_trip = (f"sum over one round trip of a batch of {BATCH}; ms, "
                 f"plain_ms, library_ms: device time (torch.profiler); "
-                f"host_ms: CUDA events over back-to-back calls")
+                f"host_ms: CUDA events over back-to-back calls; "
+                f"train_*: phase 7, batch {TRAIN_BATCH}; train_launches_per_step "
+                f"measured; train_step_ms, train_backward_ms: in one "
+                f"profiled step; train_isolated_ms, train_plain_ms: phase 3 "
+                f"at the step's shapes, summed over its launches")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -767,7 +1094,15 @@ def main(argv=None):
          "ms": gdn_tot["ms"], "host_ms": gdn_tot["host_ms"],
          "plain_ms": gdn_tot["plain_ms"],
          "bound_ms": gdn_tot["bound_ms"], "bound_by": gdn_by,
-         "library_ms": None, "times": per_trip},
+         "library_ms": None, "times": per_trip,
+         "train_launches_per_step": {
+             k: v["gdn"] for k, v in train["launches"].items()},
+         "train_step_ms": train["gdn_ms"],
+         "train_isolated_ms": gdn_tot["train_ms"],
+         "train_plain_ms": gdn_tot["train_plain_ms"],
+         "train_bound_ms": train["bound_ms"],
+         "train_backward_ms": train["gdn_backward_ms"],
+         "train_backward_bound_ms": train["backward_bound_ms"]},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -776,7 +1111,9 @@ def main(argv=None):
          "ms": dec_tot["ms"], "host_ms": dec_tot["host_ms"],
          "plain_ms": dec_tot["plain_ms"],
          "bound_ms": dec_tot["bound_ms"], "bound_by": dec_by,
-         "library_ms": dec_tot["library_ms"], "times": per_trip},
+         "library_ms": dec_tot["library_ms"], "times": per_trip,
+         "train_launches_per_step": {
+             k: v["deconv_igdn"] for k, v in train["launches"].items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,8 @@ chain (softplus(matrix) @ x + bias, then x + tanh(factor) * tanh(x)),
 filters (3, 3, 3, 3), and learnable `quantiles` (left tail, median, right
 tail). Parameter names and shapes follow the reference's state_dict:
 `_matrix{k}` (C, f_out, f_in), `_bias{k}` (C, f_out, 1), `_factor{k}`
-(C, f_out, 1), `quantiles` (C, 1, 3). This slice ports the params, init,
-medians, the eval-mode likelihood and `eb_pmf`; the aux loss comes with
-training.
+(C, f_out, 1), `quantiles` (C, 1, 3). Training quantizes with additive
+noise; `aux_loss` trains the quantiles toward the tails and the median.
 """
 
 import math
@@ -15,8 +14,8 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.bound import lower_bound
-from ..ops.quant import quantize_round
+from ..ops.bound import abs_, lower_bound
+from ..ops.quant import quantize_noise, quantize_round
 
 LIKELIHOOD_BOUND = 1e-9
 TAIL_MASS = 1e-9
@@ -24,15 +23,31 @@ INIT_SCALE = 10.0
 FILTERS = (3, 3, 3, 3)
 
 
-def _softplus(x):
-    """jax.nn.softplus as written there: logaddexp(x, 0)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+class _Softplus(torch.autograd.Function):
+    """jax.nn.softplus as written there: logaddexp(x, 0), with the
+    gradient of jnp.logaddexp's custom JVP, exp(x - softplus(x)). Autograd
+    through this forward would give 1 at x = 0 (clamp's gradient plus
+    abs's 0) where JAX gives 1/2."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
+
+
+_softplus = _Softplus.apply
 
 
 def _sign_sigmoid_likelihood(lower, upper):
     """|sigmoid(s*upper) - sigmoid(s*lower)| with s = -sign(lower+upper)."""
     sign = -torch.sign(lower + upper).detach()
-    return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+    return abs_(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
 
 
 class EntropyBottleneck(nn.Module):
@@ -101,10 +116,24 @@ class EntropyBottleneck(nn.Module):
                           LIKELIHOOD_BOUND)
         return lik.reshape(c, b, h, w).permute(1, 0, 2, 3)
 
-    def forward(self, x):
-        """Eval mode: round around the medians -> (x_hat, likelihoods)."""
-        x_hat = quantize_round(x, self.medians().view(1, -1, 1, 1))
+    def forward(self, x, training: bool = False, noise=None):
+        """NCHW x -> (x_hat, likelihoods). Training adds `noise` (U(-1/2,
+        1/2), x's shape); eval rounds around the medians."""
+        if training:
+            x_hat = quantize_noise(x, noise)
+        else:
+            x_hat = quantize_round(x, self.medians().view(1, -1, 1, 1))
         return x_hat, self.likelihood(x_hat)
+
+    def aux_loss(self):
+        """sum |logits(quantiles) - (-t, 0, t)|, t = log(2 / TAIL_MASS - 1):
+        trains the quantiles only (the density parameters are detached)."""
+        logits = self._logits_cumulative(self.quantiles, stop_density_grad=True)
+        target = math.log(2.0 / TAIL_MASS - 1.0)
+        # (-1, 0, 1) made on the device: a host tensor would be copied over
+        # and wait for the stream
+        signs = torch.arange(-1.0, 2.0, device=logits.device)
+        return torch.sum(abs_(logits - target * signs))
 
 
 def eb_pmf(eb: EntropyBottleneck, quantiles, max_length: int, minima):

@@ -11,7 +11,8 @@ bytes. tests/test_torch_entropy.py pins the literals against JAX.
 import numpy as np
 import torch
 
-from ..ops.bound import lower_bound
+from ..ops.bound import abs_, lower_bound
+from ..ops.quant import quantize_noise, quantize_round
 
 SCALE_BOUND = 0.11
 SCALES_MIN = 0.11
@@ -67,10 +68,17 @@ def likelihood(values, scales):
     (legacy_broadcast, mmnc_tpu/models/backbone.py:113-116).
     """
     scales = lower_bound(scales.float(), SCALE_BOUND)
-    v = torch.abs(values.float())
+    v = abs_(values.float())
     upper = _std_cumulative((0.5 - v) / scales)
     lower = _std_cumulative((-0.5 - v) / scales)
     return lower_bound(upper - lower, LIKELIHOOD_BOUND)
+
+
+def quantize(values, noise=None, training: bool = False):
+    """Training: values + noise (U(-1/2, 1/2), values' shape); eval: round."""
+    if training:
+        return quantize_noise(values, noise)
+    return quantize_round(values)
 
 
 def build_indexes(scales, scale_table=None):

@@ -13,11 +13,11 @@ geometry, where h_s's scales (B,M,4,4) broadcast against y (B,M,1,1) at
 the same top-left corner crop (codecs.py `_compress_device`).
 """
 
-import torch
 import torch.nn as nn
 
 from ..entropy import gaussian_conditional as gc
 from ..entropy.entropy_bottleneck import EntropyBottleneck
+from ..ops.bound import abs_
 from ..ops.layers import GDN, Conv, Deconv, run_layers
 
 
@@ -69,7 +69,7 @@ class ScaleHyperprior(nn.Module):
     def analyze(self, x):
         """Deterministic encode path: x -> (y, z)."""
         y = self.g_a(x)
-        return y, self.h_a(torch.abs(y))
+        return y, self.h_a(abs_(y))
 
     def hyper_synthesize(self, z_hat):
         return self.h_s(z_hat)
@@ -77,14 +77,22 @@ class ScaleHyperprior(nn.Module):
     def synthesize(self, y_hat):
         return self.g_s(y_hat)
 
-    def forward(self, x):
-        """Eval forward -> dict(x_hat, likelihoods={y, z}, y_hat, z_hat)."""
+    def forward(self, x, training: bool = False, noise=None):
+        """-> dict(x_hat, likelihoods={y, z}, y_hat, z_hat).
+
+        Training quantizes by additive noise: `noise` is {"z": .., "y": ..}
+        of U(-1/2, 1/2), NCHW in z's and y's shapes; eval rounds (z around
+        the medians)."""
+        noise = noise if training else {}
         y, z = self.analyze(x)
-        z_hat, z_lik = self.entropy_bottleneck(z)
+        z_hat, z_lik = self.entropy_bottleneck(z, training, noise.get("z"))
         scales = self.h_s(z_hat)
         if not self.legacy_broadcast:
             scales = scales[:, :, :y.shape[2], :y.shape[3]]
-        y_hat = torch.round(y)
+        y_hat = gc.quantize(y, noise.get("y"), training)
         y_lik = gc.likelihood(y_hat, scales)
         return {"x_hat": self.g_s(y_hat), "likelihoods": {"y": y_lik, "z": z_lik},
                 "y_hat": y_hat, "z_hat": z_hat}
+
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()

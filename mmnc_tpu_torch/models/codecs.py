@@ -10,9 +10,11 @@ h_a,h_s}.{seq}`, `model.compressor.entropy_bottleneck.*`,
 `import_reference_state_dict` reads any state_dict of this port.
 
 Ported so far: the serving path (`init(seed)`, eval `forward`,
-`update_bottleneck_values`, `compress`, `decompress`) and the device
-programs of the streaming round trip (`models/streaming.py`). Training
-forward, losses and the disjoint/shared variants come in later slices.
+`update_bottleneck_values`, `compress`, `decompress`), the device
+programs of the streaming round trip (`models/streaming.py`) and the
+training side: the noise-quantized training `forward`, `loss_and_logs`
+(loss = lmbda * rec + rate, codecs.py:295-309) and `aux_loss`, which
+`train/step.py` drives. The disjoint/shared variants come in a later slice.
 """
 
 from dataclasses import dataclass
@@ -27,6 +29,9 @@ from ..device import resolve_device
 from ..entropy import gaussian_conditional as gc
 from ..entropy import rans
 from ..entropy.tables import CdfTable, build_eb_table, build_gc_table
+from ..ops.layers import Conv
+from ..ops.quant import uniform_noise
+from . import losses as L
 from .backbone import ScaleHyperprior
 from .heads import DecoderHead, EncoderHead
 
@@ -79,9 +84,12 @@ class CodecNet(nn.Module):
     def synthesize_from_y(self, y_hat):
         return self.decode_heads(self.compressor.synthesize(y_hat))
 
-    def forward(self, xs):
-        out = self.compressor(self.encode_heads(xs))
+    def forward(self, xs, training: bool = False, noise=None):
+        out = self.compressor(self.encode_heads(xs), training, noise)
         return self.decode_heads(out["x_hat"]), out["likelihoods"]
+
+    def aux_loss(self):
+        return self.compressor.aux_loss()
 
 
 class SingleTaskCompressor(nn.Module):
@@ -89,13 +97,17 @@ class SingleTaskCompressor(nn.Module):
 
     Runs on `device` (CUDA unless given; raises with no card and no
     device). Weights are drawn from `seed` with a CPU torch.Generator, so
-    the same seed gives the same model on any device.
+    the same seed gives the same model on any device. `lmbda` and the two
+    learning rates default to the JAX class's (codecs.py:160-171);
+    `train.create_train_state` trains at these rates unless given others.
     """
 
     def __init__(self, tasks: Sequence[str], input_channels: Sequence[int],
                  output_channels: Sequence[int], latent_channels: int,
-                 conv_channels: int, legacy_broadcast: bool = True,
-                 device=None, seed: int = 0):
+                 conv_channels: int, lmbda: float = 1.0,
+                 learning_rate_main: float = 1e-5,
+                 learning_rate_aux: float = 1e-3,
+                 legacy_broadcast: bool = True, device=None, seed: int = 0):
         super().__init__()
         tasks = tuple(tasks)
         if len(tasks) != 1:
@@ -109,6 +121,11 @@ class SingleTaskCompressor(nn.Module):
         self.output_channels = tuple(output_channels)
         self.latent_channels = latent_channels
         self.conv_channels = conv_channels
+        self.lmbda = lmbda
+        self.learning_rate_main = learning_rate_main
+        self.learning_rate_aux = learning_rate_aux
+        self.loss_types = {t: task_parameters[t]["loss_function"]
+                           for t in tasks}
         self.model = CodecNet(self.input_channels, self.output_channels,
                               latent_channels, conv_channels,
                               legacy_broadcast)
@@ -128,18 +145,75 @@ class SingleTaskCompressor(nn.Module):
                 module.init_parameters(generator)
         self.tables = None
 
-    def _inputs(self, batch):
-        return [_nchw(torch.as_tensor(batch[t], dtype=torch.float32,
-                                      device=self.device))
-                for t in self.tasks]
+    def to_device(self, batch):
+        """{task: NHWC array or tensor} -> float32 tensors on the device."""
+        return {t: torch.as_tensor(batch[t], dtype=torch.float32,
+                                   device=self.device) for t in self.tasks}
 
-    @torch.no_grad()
-    def forward(self, batch):
-        """Eval forward: {task: NHWC} -> (x_hats {task: NHWC},
-        likelihoods {"y", "z"} NHWC)."""
-        x_hats, liks = self.model(self._inputs(batch))
+    def _inputs(self, batch):
+        return [_nchw(x) for x in self.to_device(batch).values()]
+
+    def forward(self, batch, training: bool = False, noise=None):
+        """{task: NHWC} -> (x_hats {task: NHWC}, likelihoods {"y", "z"}
+        NHWC). Eval (the default) runs under no-grad, where decode's
+        deconv->IGDN pairs fuse. Training runs with grad and quantizes by
+        `noise`, {"y", "z"} NHWC in the shapes `latent_shapes` gives (drawn
+        by `draw_noise`)."""
+        if not training:
+            with torch.no_grad():
+                return self._forward(batch, False, None)
+        if noise is None:
+            raise ValueError("a training forward needs noise (draw_noise)")
+        return self._forward(batch, True, {
+            k: _nchw(torch.as_tensor(v, device=self.device))
+            for k, v in noise.items()})
+
+    def _forward(self, batch, training, noise):
+        x_hats, liks = self.model(self._inputs(batch), training, noise)
         return ({t: _nhwc(x) for t, x in zip(self.tasks, x_hats)},
                 {k: _nhwc(v) for k, v in liks.items()})
+
+    def latent_shapes(self, batch):
+        """NHWC shapes {"y", "z"} of the latents of `batch`: every conv
+        pads k // 2, so a stride-s conv takes an extent n to ceil(n / s)."""
+        b, h, w, _ = batch[self.tasks[0]].shape
+
+        def through(layers, h, w):
+            for layer in layers:
+                if isinstance(layer, Conv):
+                    h, w = -(-h // layer.stride), -(-w // layer.stride)
+            return h, w
+
+        comp = self.model.compressor
+        yh, yw = through(comp.g_a, *through(self.model.input_heads[0], h, w))
+        zh, zw = through(comp.h_a, yh, yw)
+        return {"y": (b, yh, yw, self.latent_channels),
+                "z": (b, zh, zw, self.conv_channels * self.n_tasks)}
+
+    def draw_noise(self, batch, generator: torch.Generator):
+        """U(-1/2, 1/2) noise {"z", "y"} for a training forward of `batch`,
+        drawn from `generator` (on the model's device), z first."""
+        shapes = self.latent_shapes(batch)
+        return {k: uniform_noise(shapes[k], generator, self.device)
+                for k in ("z", "y")}
+
+    def loss_and_logs(self, batch, training: bool = True, noise=None):
+        """-> (loss, (logs, x_hats, likelihoods)); loss = lmbda * rec +
+        rate (codecs.py:295-309). The logs are 0-d tensors on the device."""
+        batch = self.to_device(batch)
+        x_hats, likelihoods = self.forward(batch, training, noise)
+        rec, rec_logs = L.multitask_reconstruction_loss(
+            batch, x_hats, self.tasks, self.loss_types)
+        comp, comp_logs = L.compression_loss_mixed(likelihoods, x_hats,
+                                                   self.tasks)
+        loss = self.lmbda * rec + comp
+        logs = {"rec_loss": rec, "compression_loss": comp, "loss": loss,
+                **rec_logs, **comp_logs}
+        return loss, (logs, x_hats, likelihoods)
+
+    def aux_loss(self):
+        """The entropy bottleneck's quantile loss (trains `quantiles` only)."""
+        return self.model.aux_loss()
 
     # real coding ---------------------------------------------------------
 
@@ -308,7 +382,7 @@ def build_model(model, tasks, latent_channels, conv_channels, **kwargs):
     """Construct a codec from the task registry (mmnc_tpu build_model).
 
     Only model 1 (SingleTaskCompressor) is ported so far; kwargs go to the
-    constructor (device, seed, legacy_broadcast).
+    constructor (lmbda, learning rates, device, seed, legacy_broadcast).
     """
     cls = MODEL_NUMBER.get(model) if isinstance(model, int) \
         else MODEL_NAME.get(model)

@@ -1,7 +1,8 @@
 """Bound ops with pass-through-inward gradients (mmnc_tpu/ops/bound.py).
 
 The gradient passes where the value is inside the bound OR where the
-upstream gradient pushes it back toward the feasible set.
+upstream gradient pushes it back toward the feasible set. `abs_` is |x|
+with JAX's gradient at 0.
 """
 
 import torch
@@ -41,3 +42,9 @@ def lower_bound(x, bound: float):
 
 def upper_bound(x, bound: float):
     return _UpperBound.apply(x, bound)
+
+
+def abs_(x):
+    """|x| with the gradient jnp.abs has: +g at x = 0, where torch.abs's
+    gradient is 0 (JAX's rule is select(x >= 0, g, -g))."""
+    return torch.where(x >= 0, x, -x)

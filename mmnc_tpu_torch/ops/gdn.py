@@ -19,9 +19,9 @@ design.
 `gdn(x, gamma, beta, inverse)` mirrors `gdn_pallas`: x is NHWC (or any
 channels-last tensor), gamma (C, C) in [out, in] layout, beta (C,). It is
 an autograd Function whose backward is the closed form of
-gdn_pallas.py:85-101, written in torch (a backward kernel comes with
-training). A CPU tensor takes the plain version `gdn_plain`; a CUDA tensor
-launches the kernel or raises.
+gdn_pallas.py:85-101, written in torch (as the JAX package computes it
+outside its kernel). A CPU tensor takes the plain version `gdn_plain`; a
+CUDA tensor launches the kernel or raises.
 """
 
 import ctypes
@@ -235,6 +235,7 @@ class GDNFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """g may be strided (any layout the next layer's backward gives)."""
         x, gamma, beta = ctx.saved_tensors
         x2 = x * x
         norm = x2 @ gamma.t() + beta

@@ -7,7 +7,9 @@ CUDA kernel has no interpret mode). On a host with an H100:
 Tolerance: float32 sums over up to 25*300 products taken in another order
 than cuBLAS/cuDNN, so 1e-4 relative to the largest output. The model
 tests at the end hold the card's integers (symbols, indexes, stream
-bytes) exactly equal to the CPU port's.
+bytes) exactly equal to the CPU port's, and a train step on the card
+to the CPU port's (logs within rtol 1e-4, each gradient within 1e-3 x
+max|g_cpu| of its tensor, as chip_smoke.py's phase 7).
 """
 
 import numpy as np
@@ -19,8 +21,10 @@ from mmnc_tpu_torch.models.streaming import stream_roundtrip
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
                                             deconv_igdn_plain, launch_plan,
                                             tile_shape)
-from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNPlan, gdn, gdn_cuda,
-                                   gdn_plain, gdn_plan)
+from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNFunction, GDNPlan, gdn,
+                                   gdn_cuda, gdn_plain, gdn_plan)
+from mmnc_tpu_torch.train import (create_train_state, make_eval_step,
+                                  make_train_step)
 from mmnc_tpu_torch.weights import scale_conv_kernels
 
 pytestmark = pytest.mark.cuda
@@ -333,3 +337,78 @@ def test_card_stream_equals_its_compress(device, impl):
         assert n_bytes == n_ref
         ref = card.decompress(ans)["rgb"]
         assert (x_hats["rgb"] - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("c", [3, 50, 100])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_backward_on_card_matches_cpu_closed_form(device, c, inverse):
+    """GDNFunction on the card (the kernel forward, the closed-form
+    backward in torch) against the CPU's plain forward and closed form."""
+    x, gamma, beta = _gdn_inputs(torch.device("cpu"), 4099, c, c)
+    w = torch.randn(4099, c, generator=torch.Generator().manual_seed(c))
+    grads = []
+    for dev in ("cpu", device):
+        args = [a.detach().to(dev).requires_grad_(True) for a in (x, gamma, beta)]
+        before = gdn_cuda.launches
+        out = GDNFunction.apply(*args, inverse)
+        assert gdn_cuda.launches == before + (str(dev) != "cpu")
+        torch.sum(torch.sin(out) * w.to(dev)).backward()
+        grads.append([a.grad.cpu() for a in args])
+    for got, want in zip(grads[1], grads[0]):
+        _close(got, want)
+
+
+def _train_models(device):
+    """The c=4, m=8 codec from one seed on the CPU and on the card, conv
+    kernels scaled (non-trivial y and z), lmbda 1e-2."""
+    return [scale_conv_kernels(build_model(
+        1, ["rgb"], latent_channels=8, conv_channels=4, lmbda=1e-2,
+        device=dev, seed=3)) for dev in ("cpu", device)]
+
+
+def _train_inputs(model, device):
+    rng = np.random.default_rng(6)
+    batch = {"rgb": torch.from_numpy(rng.random(
+        (2, 256, 256, 3), dtype=np.float32)).to(device)}
+    noise = {k: torch.from_numpy(rng.uniform(-0.5, 0.5, s).astype(
+        np.float32)).to(device) for k, s in model.latent_shapes(batch).items()}
+    return batch, noise
+
+
+def test_train_step_on_card_matches_cpu_port(device):
+    got = []
+    for model in _train_models(device):
+        batch, noise = _train_inputs(model, model.device)
+        state = create_train_state(model, 10, 1e-4, 1e-3)
+        _, logs = make_train_step(model, clip_norm=5.0)(state, batch,
+                                                        noise=noise)
+        got.append(({k: v.item() for k, v in logs.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (logs_c, grads_c), (logs_g, grads_g) = got
+    assert set(logs_g) == set(logs_c)
+    for key, want in logs_c.items():
+        np.testing.assert_allclose(logs_g[key], want, rtol=1e-4, err_msg=key)
+    for name, want in grads_c.items():
+        err = (grads_g[name] - want).abs().max().item()
+        assert err <= 1e-3 * want.abs().max().item(), (name, err)
+
+
+def test_train_remat_and_eval_launch_counts(device):
+    """18 GDN launches and no deconv+IGDN a train step (the forward runs
+    unfused under grad), 36 with remat (the backward recomputes the
+    forward), 11 GDN and 7 deconv+IGDN an eval step (decode fused)."""
+    _, model = _train_models(device)
+    batch, noise = _train_inputs(model, device)
+    state = create_train_state(model, 10, 1e-4, 1e-3)
+    for remat, want in ((False, 18), (True, 36)):
+        step = make_train_step(model, remat=remat)
+        gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
+        step(state, batch, noise=noise)
+        torch.cuda.synchronize()
+        assert (gdn_cuda.launches - gdn0, deconv_igdn_cuda.launches - dec0) \
+            == (want, 0)
+    gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
+    logs = make_eval_step(model)(batch)
+    assert (gdn_cuda.launches - gdn0, deconv_igdn_cuda.launches - dec0) \
+        == (11, 7)
+    assert all(torch.isfinite(v).item() for v in logs.values())
