@@ -18,8 +18,11 @@ Phases, each of which exits non-zero on failure:
      everywhere; for deconv+IGDN check the split kernel at extra shapes
      and that two of its launches are bitwise equal, and the tiled kernel
      too where the plan is the split one; for both, every launch shape of
-     phase 6's models too, and for GDN every launch shape of phase 7's
-     train step (batch 16, the IGDNs of g_s and the decoder head unfused);
+     phase 6's and phase 8's models too, and for GDN every launch shape of
+     phase 7's train step (batch 16, the IGDNs of g_s and the decoder head
+     unfused) and of phase 8's shared4 train step (batch 2: C = 1, 10 and
+     17 among them). Each distinct shape is timed once; the kernels line
+     sums its times over the launches of an rgb and a shared4 round trip;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -55,13 +58,31 @@ Phases, each of which exits non-zero on failure:
          (cuDNN deterministic for both): loss and parameters within 1e-5
          relative, 36 GDN launches;
      (d) the eval step: finite logs, 11 GDN and 7 deconv+IGDN launches;
-  8. print a {"kernels": [...]} line and, last,
-     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+  8. multitask, the paper's configs (scripts/rd_paper_sweep.py:39-53) from
+     seed 0, conv kernels scaled, random inputs in valid ranges. shared4
+     (model 4; rgb, depth, normal, semantic; latent 300, conv 42), the main
+     path: the non-zero share of y and z symbols (none may be all 0);
+     compress -> decompress on 3 batches of 8, decode vs eval forward
+     (atol 1e-5), 27 GDN a compress and 8 GDN + 28 deconv+IGDN a
+     decompress, MP/s, and one profiled round trip's device time and busy
+     share; compress_partial -> decompress_tasks(["rgb"]) (2 + 7 launches)
+     and (["semantic", "depth_euclidean"]) (4 + 14) against the full
+     decode; the container (partial and full) written, read back and
+     decoded as without the file; the card against the CPU plain path on
+     one image; one train step at batch 2 against the CPU's (phase 7's
+     tolerances; 63 GDN launches). Then mixed (model 2, latent 300, conv
+     32) and disjoint (model 3, latent 300, conv 42), one batch of 8 each:
+     round trip, launch counts (21 GDN a compress; 6 GDN + 15 and 21
+     deconv+IGDN a decompress), card against CPU;
+  9. print a {"kernels": [...]} line (launches: the shared4 run; times
+     summed over a shared4 round trip, the rgb path's beside them) and,
+     last, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+     "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--profile DIR` also writes torch.profiler summaries
-of one round trip, of each layout's streamed run and of one train step to
-DIR.
+of one round trip, of each layout's streamed run, of one train step and
+of a shared4 round trip to DIR.
 """
 
 import argparse
@@ -102,6 +123,26 @@ TRAIN_BATCH, TRAIN_STEPS, LMBDA, LR_MAIN, LR_AUX, CLIP = (
 TRAIN_LAUNCHES = {"train": {"gdn": 18, "deconv_igdn": 0},
                   "remat": {"gdn": 36, "deconv_igdn": 0},
                   "eval": {"gdn": 11, "deconv_igdn": 7}}
+# phase 8: the paper's configs (scripts/rd_paper_sweep.py:39-53), name ->
+# (model number, tasks, latent M, conv C); shared4 is the main path
+TASKS3 = ("rgb", "depth_euclidean", "normal")
+PAPER = {"shared4": (4, TASKS3 + ("semantic",), 300, 42),
+         "mixed": (2, TASKS3, 300, 32),
+         "disjoint": (3, TASKS3, 300, 42)}
+MT_TRAIN_BATCH = 2
+# launches (GDN, deconv+IGDN) per call: compress runs every encoder-head
+# GDN and g_a's; decompress the decoder heads' two conv3 IGDNs a task and
+# every deconv->IGDN pair fused (mixed: g_s's 3 and 4 a head; disjoint and
+# shared: an upsample stack's 3 and 4 a head); decompress_tasks(["rgb"])
+# one task's head; a train step runs every (I)GDN of the forward unfused
+MT_LAUNCHES = {
+    "shared4": {"compress": (27, 0), "decompress": (8, 28),
+                "decompress_tasks_rgb": (2, 7),
+                "decompress_tasks_semantic_depth": (4, 14),
+                "train": (63, 0)},
+    "mixed": {"compress": (21, 0), "decompress": (6, 15)},
+    "disjoint": {"compress": (21, 0), "decompress": (6, 21)},
+}
 
 
 def bound_ms(n_bytes, flops):
@@ -240,6 +281,70 @@ def deconv_path_shapes(b, conv=CONV):
             (b, 64, 64, conv // 2, 3, "igdn"), (b, 128, 128, 3, 3, "igdn")]
 
 
+def paper_layout(number, tasks, latent, conv):
+    """The widths a codec of `build_model(number, tasks, latent, conv)`
+    runs: its variant, the latent after `_adjust_latent`, the y block of a
+    task, the upsample stacks' width and each task's output width."""
+    from mmnc_tpu_torch.data.task_configs import task_parameters
+
+    variant = {1: "mixed", 2: "mixed", 3: "disjoint", 4: "shared"}[number]
+    n = len(tasks)
+    blocks = {"mixed": 1, "disjoint": n, "shared": n + 1}[variant]
+    return {"variant": variant, "n": n, "conv": conv, "total": conv * n,
+            "latent": latent // blocks * blocks, "block": latent // blocks,
+            "cc": conv // n,
+            "outs": [task_parameters[t]["out_channels"] for t in tasks]}
+
+
+def mt_gdn_shapes(lay, b, train=False):
+    """(rows, C, inverse) of every GDN launch, in order, of one compress ->
+    decompress of b images at 256 px by a codec of layout `lay`, or with
+    train=True of one train step's forward (every IGDN unfused: mixed g_s
+    at 2x2-8x8, else each task's upsample stack, then the heads' six)."""
+    c, total = lay["conv"], lay["total"]
+    head = [(b * IMAGE ** 2, c // 2)] + [
+        (b * (IMAGE >> s) ** 2, c) for s in range(1, 6)]
+    enc = head * lay["n"] + [(b * (IMAGE >> s) ** 2, total) for s in (6, 7, 8)]
+    mixed = lay["variant"] == "mixed"
+    mid = (total if mixed else c) // 2
+    if not train:
+        dec = [(b * 32 ** 2, mid), (b * 64 ** 2, mid)] * lay["n"]
+    else:
+        def front(width):
+            return [(b * (IMAGE >> s) ** 2, width) for s in (7, 6, 5)]
+
+        dec = front(total) if mixed else []
+        for oc in lay["outs"]:
+            dec += [] if mixed else front(lay["cc"])
+            dec += ([(b * 32 ** 2, mid)] * 2 + [(b * 64 ** 2, mid)] * 2
+                    + [(b * 128 ** 2, oc), (b * IMAGE ** 2, oc)])
+    return ([(n, ch, False) for n, ch in enc]
+            + [(n, ch, True) for n, ch in dec])
+
+
+def mt_deconv_shapes(lay, b):
+    """(B, H, W, Cin, Cout, mode) of every deconv+IGDN launch, in order, of
+    one decompress of b images by a codec of layout `lay`: mixed g_s's
+    three, or each task's upsample stack's three, then its head's four."""
+    c, total = lay["conv"], lay["total"]
+    mixed = lay["variant"] == "mixed"
+    head_in = total if mixed else c
+    mid = head_in // 2
+
+    def front(cin, width):
+        return [(b, 1, 1, cin, width, "igdn"), (b, 2, 2, width, width, "igdn"),
+                (b, 4, 4, width, width, "igdn")]
+
+    shapes = front(lay["latent"], total) if mixed else []
+    width = lay["block"] * (2 if lay["variant"] == "shared" else 1)
+    for oc in lay["outs"]:
+        shapes += [] if mixed else front(width, lay["cc"])
+        shapes += [(b, 16, 16, head_in, mid, "igdn"),
+                   (b, 32, 32, mid, mid, "igdn"), (b, 64, 64, mid, oc, "igdn"),
+                   (b, 128, 128, oc, oc, "igdn")]
+    return shapes
+
+
 def gdn_extra_shapes(path):
     """(rows, C, inverse) beyond the path: the other direction at three
     path shapes, ragged row counts, C = 3 and C = 128 (padded to 4, and
@@ -283,14 +388,41 @@ def check_gdn_launch(torch, x, gamma, beta, inverse, plan, tol_rel):
     return err, scale
 
 
+def shape_cases(groups):
+    """[(shapes, count key or None)] -> {shape: {count key: launches}}, in
+    first-seen order: each distinct shape is checked and timed once and
+    its times summed into every key by its launches there."""
+    cases = {}
+    for shapes, key in groups:
+        for shape in shapes:
+            uses = cases.setdefault(tuple(shape), {})
+            if key:
+                uses[key] = uses.get(key, 0) + 1
+    return cases
+
+
+def add_times(totals, uses, times, by):
+    """Add launches x (device ms, ...) of one shape into each key's sums."""
+    for key, k in uses.items():
+        tot = totals.setdefault(key, {"launches": 0, "by": {}})
+        tot["launches"] += k
+        for name, t in times.items():
+            tot[name] = tot.get(name, 0.0) + k * t
+        tot["by"][by] = tot["by"].get(by, 0.0) + k * times["bound_ms"]
+
+
 def check_gdn(torch, b, gen):
     """Every path shape, every launch shape of phase 7's train step (batch
-    TRAIN_BATCH) and the extra shapes under their launch plan, and first
-    every plan variant forced at one large and one small path shape: each
-    against the plain version and bitwise repeatable; then device time of
-    the plan's launch, the plain version's and the bound. Returns the sums
-    over a round trip ("ms", ...) and over a train step's forward
-    launches ("train_ms", ...), the bound's kind and the tolerance."""
+    TRAIN_BATCH) and of phase 8's codecs (round trips at batch b, shared4's
+    train step at MT_TRAIN_BATCH) and the extra shapes under their launch
+    plan, and first every plan variant forced at one large and one small
+    path shape: each against the plain version and bitwise repeatable;
+    then device time of the plan's launch, the plain version's and the
+    bound. Returns the sums ({"ms", "plain_ms", "bound_ms", "host_ms",
+    "launches", "by"}) over an rgb round trip ("trip"), an rgb train step's
+    forward ("train"), a shared4 round trip ("shared4") and a shared4
+    train step's forward ("shared4_train"); the largest error; the
+    tolerance."""
     from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
 
     tol_rel = 1e-4
@@ -307,17 +439,18 @@ def check_gdn(torch, b, gen):
                   f"{tuple(plan)} max_abs_err={err:.3e} bitwise_repeat=ok "
                   f"ms={ms:.5f} host_ms={host:.5f}")
         del x, gamma, beta
-    totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "train_ms": 0.0, "train_plain_ms": 0.0, "train_bound_ms": 0.0,
-              "err": 0.0}
-    bound_by = {}
-    per_step = {}
-    for shape in gdn_train_shapes(TRAIN_BATCH):
-        per_step[shape] = per_step.get(shape, 0) + 1
-    cases = ([(*s, per_trip, 0) for *s, per_trip in path]
-             + [(*s, 0, k) for s, k in per_step.items()]
-             + [(*s, 0, 0) for s in gdn_extra_shapes(path)])
-    for n, c, inverse, per_trip, per_train_step in cases:
+    shared4 = paper_layout(*PAPER["shared4"])
+    cases = shape_cases(
+        [([s[:3] for s in path], "trip"),
+         (gdn_train_shapes(TRAIN_BATCH), "train"),
+         (mt_gdn_shapes(shared4, b), "shared4"),
+         (mt_gdn_shapes(shared4, MT_TRAIN_BATCH, train=True),
+          "shared4_train")]
+        + [(mt_gdn_shapes(paper_layout(*PAPER[name]), b), None)
+           for name in ("mixed", "disjoint")]
+        + [(gdn_extra_shapes(path), None)])
+    totals, max_err_seen = {}, 0.0
+    for (n, c, inverse), uses in cases.items():
         x, gamma, beta = gdn_case(torch, gen, n, c)
         plan = gdn_plan(n, c)
         err, scale = check_gdn_launch(torch, x, gamma, beta, inverse, plan,
@@ -326,25 +459,18 @@ def check_gdn(torch, b, gen):
         plain, plain_host = time_ms(
             torch, lambda: gdn_plain(x, gamma, beta, inverse))
         bms, by = bound_ms(*gdn_cost(n, c))
-        print(f"kernel gdn rows={n} C={c} inverse={inverse} per_round_trip="
-              f"{per_trip} per_train_step={per_train_step} plan="
+        print(f"kernel gdn rows={n} C={c} inverse={inverse} launches="
+              f"{json.dumps(uses, separators=(',', ':'))} plan="
               f"{tuple(plan)} max_abs_err={err:.3e} "
               f"(|ref|max {scale:.3g}) bitwise_repeat=ok "
               f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
               f"plain_host_ms={plain_host:.5f} bound_ms={bms:.5f} "
               f"bound_by={by}")
-        totals["err"] = max(totals["err"], err)
-        if per_trip:
-            totals["ms"] += per_trip * ms
-            totals["host_ms"] += per_trip * host
-            totals["plain_ms"] += per_trip * plain
-            totals["bound_ms"] += per_trip * bms
-            bound_by[by] = bound_by.get(by, 0.0) + bms
-        totals["train_ms"] += per_train_step * ms
-        totals["train_plain_ms"] += per_train_step * plain
-        totals["train_bound_ms"] += per_train_step * bms
+        max_err_seen = max(max_err_seen, err)
+        add_times(totals, uses, {"ms": ms, "host_ms": host,
+                                   "plain_ms": plain, "bound_ms": bms}, by)
         del x, gamma, beta
-    return totals, max(bound_by, key=bound_by.get), tol_rel
+    return totals, max_err_seen, tol_rel
 
 
 def split_extra_shapes():
@@ -380,11 +506,13 @@ def deconv_case(torch, gen, bb, h, w, cin, cout):
 
 
 def check_deconv(torch, b, gen):
-    """Every path shape, g_s's last deconv (no epilogue) and the extra
+    """Every path shape, g_s's last deconv (no epilogue), every launch
+    shape of phase 8's codecs (a decompress of b images) and the extra
     split shapes against the plain version. Where the launch plan is the
     split kernel it also checks that two launches are bitwise equal and
     that the tiled kernel, forced at the same shape, agrees too (its only
-    check there)."""
+    check there). Returns the sums as check_gdn does ("trip": an rgb round
+    trip, "shared4": a shared4 one), the largest error, the tolerance."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -392,13 +520,15 @@ def check_deconv(torch, b, gen):
                                                 launch_plan, tile_shape)
 
     tol_rel = 1e-4
-    cases = [(s, 1) for s in deconv_path_shapes(b)]
-    cases.append(((b, 8, 8, CONV, CONV, None), 0))  # g_s's last deconv, no epilogue
-    cases += [(s, 0) for s in split_extra_shapes() + wide_deconv_shapes()]
-    totals = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0, "err": 0.0}
-    bound_by = {}
-    for (bb, h, w, cin, cout, mode), per_trip in cases:
+    cases = shape_cases(
+        [(deconv_path_shapes(b), "trip"),
+         (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), b), "shared4"),
+         ([(b, 8, 8, CONV, CONV, None)], None)]  # g_s's last deconv
+        + [(mt_deconv_shapes(paper_layout(*PAPER[name]), b), None)
+           for name in ("mixed", "disjoint")]
+        + [(split_extra_shapes() + wide_deconv_shapes(), None)])
+    totals, max_err_seen = {}, 0.0
+    for (bb, h, w, cin, cout, mode), uses in cases.items():
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
                                                      cin, cout)
         plan = launch_plan(bb, h, w, cin, cout)
@@ -430,22 +560,19 @@ def check_deconv(torch, b, gen):
             x_nchw, wt, bias, stride=2, padding=2, output_padding=1))
         bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode))
         print(f"kernel deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
-              f"mode={mode} plan={plan} per_round_trip={per_trip} "
+              f"mode={mode} plan={plan} launches="
+              f"{json.dumps(uses, separators=(',', ':'))} "
               f"max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
               f"{'bitwise_repeat=ok ' if plan[0] == 'split' else ''}"
               f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
               f"plain_host_ms={plain_host:.5f} library_ms={lib:.5f} "
               f"library_host_ms={lib_host:.5f} bound_ms={bms:.5f} "
               f"bound_by={by}")
-        totals["err"] = max(totals["err"], err)
-        if per_trip:
-            totals["ms"] += ms
-            totals["host_ms"] += host
-            totals["plain_ms"] += plain
-            totals["library_ms"] += lib
-            totals["bound_ms"] += bms
-            bound_by[by] = bound_by.get(by, 0.0) + bms
-    return totals, max(bound_by, key=bound_by.get), tol_rel
+        max_err_seen = max(max_err_seen, err)
+        add_times(totals, uses, {"ms": ms, "host_ms": host,
+                                   "plain_ms": plain, "library_ms": lib,
+                                   "bound_ms": bms}, by)
+    return totals, max_err_seen, tol_rel
 
 
 def counts():
@@ -544,32 +671,38 @@ def run_model(torch, profile_dir):
           f"{images * IMAGE * IMAGE / 1e6 / seconds:.3f} MP/s, "
           f"{n_bytes / images:.2f} bytes/image, decode vs eval forward max "
           f"abs err {dec_err:.3e}")
-    check_against_cpu(torch, model, batches[0]["rgb"][:1])
+    check_against_cpu(torch, model, seeded_model("cpu", SEED),
+                      {"rgb": batches[0]["rgb"][:1]}, f"conv {CONV}")
     if profile_dir:
         profile_round_trip(torch, model, batches[0], profile_dir)
     return launches, model, batches
 
 
-def check_against_cpu(torch, model, x, conv=CONV):
+def check_against_cpu(torch, model, cpu, batch, what):
     """The card's path (kernels) against the port's CPU plain path on one
-    image, same seed so the same weights. Tolerance: float32 sums in
-    another order through ~20 layers, rtol 1e-3 / atol 1e-4 as
-    tests/test_torch_import.py, relative to the largest value."""
-    cpu = seeded_model("cpu", SEED, conv)
+    image: `cpu` is the same codec on the CPU (same seed, so the same
+    weights), `batch` {task: NHWC, one image on the card}. y and z from
+    the encoder, and each task's decode of the CPU's rounded y.
+    Tolerance: float32 sums in another order through ~20 layers, rtol
+    1e-3 / atol 1e-4 as tests/test_torch_import.py, relative to the
+    largest value."""
     with torch.no_grad():
-        y_g, z_g = model.model.analyze([x.permute(0, 3, 1, 2)])
-        y_c, z_c = cpu.model.analyze([x.cpu().permute(0, 3, 1, 2)])
+        y_g, z_g = model.model.analyze(model._inputs(batch))
+        y_c, z_c = cpu.model.analyze(cpu._inputs(
+            {t: x.cpu() for t, x in batch.items()}))
         y_hat = torch.round(y_c)
-        r_g = model.model.synthesize_from_y(y_hat.cuda())[0]
-        r_c = cpu.model.synthesize_from_y(y_hat)[0]
-    for name, g, c in (("y", y_g, y_c), ("z", z_g, z_c), ("x_hat", r_g, r_c)):
+        r_g = model.model.synthesize_from_y(y_hat.cuda())
+        r_c = cpu.model.synthesize_from_y(y_hat)
+    for name, g, c in ([("y", y_g, y_c), ("z", z_g, z_c)]
+                       + [(f"x_hat {t}", g, c)
+                          for t, g, c in zip(model.tasks, r_g, r_c)]):
         err = (g.cpu() - c).abs().max().item()
         scale = max(1.0, c.abs().max().item())
-        print(f"card vs cpu plain path, conv {conv}: {name} max abs err "
+        print(f"card vs cpu plain path, {what}: {name} max abs err "
               f"{err:.3e} "
               f"(|cpu|max {c.abs().max().item():.3g})")
         if not err <= 1e-4 + 1e-3 * scale:
-            raise RuntimeError(f"card vs cpu: {name} err {err}")
+            raise RuntimeError(f"card vs cpu, {what}: {name} err {err}")
 
 
 class SpanTimer:
@@ -748,7 +881,8 @@ def run_widths(torch):
         print(f"width conv={conv} latent={LATENT} {IMAGE}px batch={BATCH}: "
               f"{n_bytes / BATCH:.2f} bytes/image, decode vs eval forward "
               f"max abs err {err:.3e} (|ref|max {scale:.3g})")
-        check_against_cpu(torch, model, batch["rgb"][:1], conv)
+        check_against_cpu(torch, model, seeded_model("cpu", SEED, conv),
+                          {"rgb": batch["rgb"][:1]}, f"conv {conv}")
         del model
 
 
@@ -792,40 +926,52 @@ def rel_err(got, want):
     return err / scale if scale else (float("inf") if err else 0.0)
 
 
-def check_train_against_cpu(torch, x):
-    """(a) One step of a fresh state on the card and on the port's CPU
-    plain path, same weights, same numpy noise, one image."""
+def check_train_against_cpu(torch, build, batch, what):
+    """One step of a fresh state on the card and on the port's CPU plain
+    path: the codec from build(device) (same weights on both), the same
+    numpy noise, `batch` {task: NHWC}. Every log within rtol 1e-4 (a log
+    of 0 equal), each gradient within 1e-3 x max|g_cpu| of its tensor.
+    Returns the card step's launches."""
     got = {}
     for device in ("cpu", "cuda"):
-        model = train_model(device)
+        model = build(device)
         state, step = train_setup(model)
-        batch = {"rgb": x.to(device)}
+        inputs = {t: x.to(device) for t, x in batch.items()}
         rng = np.random.default_rng(SEED + 2)
         noise = {k: torch.from_numpy(rng.uniform(-0.5, 0.5, s).astype(
-            np.float32)).to(device) for k, s in model.latent_shapes(batch).items()}
-        _, logs = step(state, batch, noise=noise)
+            np.float32)).to(device)
+            for k, s in model.latent_shapes(inputs).items()}
+        reset_counts()
+        _, logs = step(state, inputs, noise=noise)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = counts()
         got[device] = ({k: v.item() for k, v in logs.items()},
                        {n: p.grad.cpu() for n, p in model.named_parameters()})
+        del model, state, step
     (logs_c, grads_c), (logs_g, grads_g) = got["cpu"], got["cuda"]
     if set(logs_c) != set(logs_g):
         raise RuntimeError(f"train logs: {sorted(logs_g)} vs {sorted(logs_c)}")
     log_err = 0.0
     for k, want in logs_c.items():
-        rel = abs(logs_g[k] - want) / abs(want)
-        if not rel <= 1e-4:
-            raise RuntimeError(f"train step card vs cpu: {k} {logs_g[k]} vs "
-                               f"{want}")
-        log_err = max(log_err, rel)
+        err = abs(logs_g[k] - want)
+        if not err <= 1e-4 * abs(want):
+            raise RuntimeError(f"train step card vs cpu, {what}: {k} "
+                               f"{logs_g[k]} vs {want}")
+        log_err = max(log_err, err / abs(want) if want else 0.0)
     grad_err = 0.0
     for name, want in grads_c.items():
         err = rel_err(grads_g[name], want)
         if not err <= 1e-3:
-            raise RuntimeError(f"train step card vs cpu: grad {name} max abs "
-                               f"err {err} x max|g_cpu|, over 1e-3")
+            raise RuntimeError(f"train step card vs cpu, {what}: grad {name} "
+                               f"max abs err {err} x max|g_cpu|, over 1e-3")
         grad_err = max(grad_err, err)
-    print(f"train card vs cpu plain path (1 image): logs max rel err "
+    print(f"train card vs cpu plain path ({what}, batch "
+          f"{len(next(iter(batch.values())))}): logs max rel err "
           f"{log_err:.3e}, grads max err {grad_err:.3e} x max|g_cpu| over "
-          f"{len(grads_c)} tensors; loss {logs_c['train/loss']:.6g}")
+          f"{len(grads_c)} tensors; loss {logs_c['train/loss']:.6g}; card "
+          f"launches {launches}")
+    return launches
 
 
 def launched_in_spans(events, match):
@@ -920,7 +1066,8 @@ def run_train(torch, profile_dir):
     rng = np.random.default_rng(SEED + 1)
     batch = {"rgb": torch.from_numpy(rng.random(
         (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
-    check_train_against_cpu(torch, batch["rgb"][:1])
+    check_train_against_cpu(torch, train_model, {"rgb": batch["rgb"][:1]},
+                            "rgb")
 
     # (c) first, from a fresh state: a plain and a remat step, same noise
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1012,6 +1159,223 @@ def run_train(torch, profile_dir):
                 launches=measured)
 
 
+def paper_model(name, device, seed=SEED):
+    """Phase 8's codec `name` (PAPER) from `seed`, its conv kernels scaled
+    as `seeded_model`'s (at the init scale y rounds to 0), lmbda and
+    learning rates of phase 7, coding tables built."""
+    from mmnc_tpu_torch import build_model
+    from mmnc_tpu_torch.weights import scale_conv_kernels
+
+    number, tasks, latent, conv = PAPER[name]
+    model = scale_conv_kernels(build_model(
+        number, tasks, latent, conv, lmbda=LMBDA, learning_rate_main=LR_MAIN,
+        learning_rate_aux=LR_AUX, device=device, seed=seed))
+    model.update_bottleneck_values()
+    return model
+
+
+def paper_batches(torch, model, n, seed):
+    """n batches of BATCH random 256x256 images of every task on the card,
+    in valid ranges (`example_batch`: semantic labels 0..16)."""
+    return [{t: torch.from_numpy(x).cuda() for t, x in model.example_batch(
+        BATCH, IMAGE, seed=seed + k).items()} for k in range(n)]
+
+
+def launched(torch, fn):
+    """(fn(), launches): the counts set to 0 just before fn and read just
+    after it, on a synchronised card."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counts()
+
+
+def want_launches(name, call, got):
+    gdn, dec = MT_LAUNCHES[name][call]
+    if got != {"gdn": gdn, "deconv_igdn": dec}:
+        raise RuntimeError(f"{name} {call}: launches {got}, want {gdn} GDN "
+                           f"and {dec} deconv+IGDN")
+
+
+def task_err(got, want, tasks):
+    """Max abs difference of the reconstructions of `tasks`."""
+    if sorted(got) != sorted(tasks):
+        raise RuntimeError(f"decoded {sorted(got)}, want {sorted(tasks)}")
+    return max((got[t] - want[t]).abs().max().item() for t in tasks)
+
+
+def kernel_kind(name):
+    """The port's kernel a device record belongs to, by its name, or
+    "other" (cuDNN, cuBLAS, elementwise, copies)."""
+    if "deconv_igdn" in name:
+        return "deconv_igdn"
+    return "gdn" if "gdn_kernel" in name else "other"
+
+
+def profile_device(torch, fn, trace=None):
+    """One call of fn under torch.profiler -> {wall_ms, device_ms (the sum
+    of its device records), busy_ms (their union), records, by_kernel (ms
+    of the device records of each `kernel_kind`)}; the chrome trace goes
+    to `trace` if given."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in DEVICE_WORK]
+    by_kernel = {}
+    for e in events:
+        kind = kernel_kind(e["name"])
+        by_kernel[kind] = by_kernel.get(kind, 0.0) + e["dur"] / 1e3
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(e["dur"] for e in events) / 1e3,
+            "busy_ms": busy_us(events) / 1e3, "records": len(events),
+            "by_kernel": by_kernel}
+
+
+def run_multitask(torch, profile_dir):
+    """Phase 8: the paper's shared4 end to end (round trips, partial
+    decode, the container, launch counts, card vs CPU, one train step),
+    then the mixed and disjoint configs' round trip. Decodes of the same
+    y_hat agree within atol 1e-5 (cuDNN's transposed conv may sum in
+    another order from call to call, as phase 4 says)."""
+    from mmnc_tpu_torch import bitstream
+
+    name = "shared4"
+    model = paper_model(name, "cuda")
+    tasks = list(model.tasks)
+    batches = paper_batches(torch, model, BATCHES, SEED)
+    refs = []
+    for batch in batches:
+        x_hats, liks = model(batch)
+        for t, oc in zip(tasks, model.output_channels):
+            if x_hats[t].shape != (BATCH, IMAGE, IMAGE, oc) or \
+                    not torch.isfinite(x_hats[t]).all():
+                raise RuntimeError(f"{name} eval forward {t}: shape "
+                                   f"{tuple(x_hats[t].shape)} or non-finite")
+        if not ((liks["y"] > 0).all() and (liks["z"] > 0).all()):
+            raise RuntimeError(f"{name} eval forward: likelihood <= 0")
+        refs.append(x_hats)
+    y_sym, z_sym, _ = model._compress_device(batches[0])
+    y_nz = (y_sym != 0).float().mean().item()
+    z_nz = (z_sym != 0).float().mean().item()
+    print(f"{name}: non-zero symbols y {y_nz:.4f} of {y_sym.numel()}, z "
+          f"{z_nz:.4f} of {z_sym.numel()}")
+    if not (y_nz > 0 and z_nz > 0):
+        raise RuntimeError(f"{name}: all y or all z symbols are 0, the "
+                           f"coder would code nothing")
+
+    model.decompress(model.compress(batches[0])[0])  # warm-up
+    torch.cuda.synchronize()
+    total = {"gdn": 0, "deconv_igdn": 0}
+    outs, answers, n_bytes = [], [], 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        (ans, nb), enc = launched(torch, lambda: model.compress(batch))
+        out, dec = launched(torch, lambda: model.decompress(ans))
+        want_launches(name, "compress", enc)
+        want_launches(name, "decompress", dec)
+        for k in total:
+            total[k] += enc[k] + dec[k]
+        outs.append(out)
+        answers.append(ans)
+        n_bytes += nb
+    seconds = time.perf_counter() - t0
+    dec_err = max(task_err(o, r, tasks) for o, r in zip(outs, refs))
+    if not dec_err <= 1e-5:
+        raise RuntimeError(f"{name} decode vs eval forward: max abs err "
+                           f"{dec_err}")
+    trace = None
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(profile_dir, "shared4_round_trip_trace.json")
+    prof = profile_device(
+        torch, lambda: model.decompress(model.compress(batches[0])[0]), trace)
+    images = BATCH * BATCHES
+    mps = images * IMAGE * IMAGE / 1e6 / seconds
+    print(f"{name} {PAPER[name]} {IMAGE}px batch={BATCH} batches={BATCHES}: "
+          f"round trip {seconds:.4f} s, {mps:.3f} MP/s, "
+          f"{n_bytes / images:.2f} bytes/image, launches {total}, decode vs "
+          f"eval forward max abs err {dec_err:.3e}; profiled round trip: "
+          f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms "
+          f"in {prof['records']} records (ms by kernel "
+          f"{json.dumps(prof['by_kernel'])}), busy {prof['busy_ms']:.3f} ms "
+          f"({prof['busy_ms'] / prof['wall_ms']:.3f} of wall)")
+
+    # partial coding: one task, then two, from the per-slice streams
+    ans_p, bytes_p = model.compress_partial(batches[0])
+    for call, subset in (("decompress_tasks_rgb", ["rgb"]),
+                         ("decompress_tasks_semantic_depth",
+                          ["semantic", "depth_euclidean"])):
+        got, n = launched(torch, lambda: model.decompress_tasks(ans_p, subset))
+        want_launches(name, call, n)
+        err = task_err(got, outs[0], subset)
+        if not err <= 1e-5:
+            raise RuntimeError(f"{name} {call} vs full decode: {err}")
+        print(f"{name} {call}: launches {n}, vs full decode max abs err "
+              f"{err:.3e} ({bytes_p} bytes in {len(ans_p['task_streams'])} "
+              f"slice streams + z)")
+
+    # the container, partial and full layouts
+    with tempfile.TemporaryDirectory() as tmp:
+        for partial, ans in ((True, ans_p), (False, answers[0])):
+            path = os.path.join(tmp, f"{name}_{partial}.mmnc")
+            bitstream.save_bitstream(path, ans, model.hyper_parameters,
+                                     partial)
+            if bitstream.load_bitstream(path)[0] != ans:
+                raise RuntimeError(f"container (partial={partial}): loaded "
+                                   f"streams differ from the written")
+            err = task_err(bitstream.decompress_file(path, model), outs[0],
+                           tasks)
+            if partial:
+                err = max(err, task_err(bitstream.decompress_file(
+                    path, model, ["normal"]), outs[0], ["normal"]))
+            if not err <= 1e-5:
+                raise RuntimeError(f"container (partial={partial}) decode "
+                                   f"vs decode without the file: {err}")
+            print(f"{name} container partial={partial}: "
+                  f"{os.path.getsize(path)} bytes, decode vs decode without "
+                  f"the file max abs err {err:.3e}")
+
+    check_against_cpu(torch, model, paper_model(name, "cpu"),
+                      {t: x[:1] for t, x in batches[0].items()}, name)
+    train = check_train_against_cpu(
+        torch, lambda device: paper_model(name, device),
+        {t: x[:MT_TRAIN_BATCH] for t, x in batches[0].items()}, name)
+    want_launches(name, "train", train)
+    del model, batches, refs, outs
+
+    for other in ("mixed", "disjoint"):
+        m = paper_model(other, "cuda")
+        batch = paper_batches(torch, m, 1, SEED + 10)[0]
+        ref = m(batch)[0]
+        (ans, nb), enc = launched(torch, lambda: m.compress(batch))
+        out, dec = launched(torch, lambda: m.decompress(ans))
+        want_launches(other, "compress", enc)
+        want_launches(other, "decompress", dec)
+        err = task_err(out, ref, list(m.tasks))
+        if not err <= 1e-5:
+            raise RuntimeError(f"{other} decode vs eval forward: {err}")
+        print(f"{other} {PAPER[other]} batch={BATCH}: {nb / BATCH:.2f} "
+              f"bytes/image, launches compress {enc} decompress {dec}, "
+              f"decode vs eval forward max abs err {err:.3e}")
+        check_against_cpu(torch, m, paper_model(other, "cpu"),
+                          {t: x[:1] for t, x in batch.items()}, other)
+        del m
+    return {"launches": total, "mps": mps, "seconds": seconds,
+            "bytes_per_image": n_bytes / images, "y_nonzero": y_nz,
+            "z_nonzero": z_nz, "train_launches": train, **prof}
+
+
 def profile_round_trip(torch, model, batch, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1067,53 +1431,76 @@ def main(argv=None):
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(SEED)
-    gdn_tot, gdn_by, gdn_tol = check_gdn(torch, BATCH, gen)
-    dec_tot, dec_by, dec_tol = check_deconv(torch, BATCH, gen)
+    gdn_tot, gdn_err, gdn_tol = check_gdn(torch, BATCH, gen)
+    dec_tot, dec_err, dec_tol = check_deconv(torch, BATCH, gen)
 
     launches, model, batches = run_model(torch, args.profile)
     for name, n in launches.items():
         if n == 0:
-            raise RuntimeError(f"kernel {name} never launched on the main path")
+            raise RuntimeError(f"kernel {name} never launched on the rgb path")
     run_streaming(torch, model, batches, args.profile)
     del model, batches
     run_widths(torch)
     train = run_train(torch, args.profile)
+    mt = run_multitask(torch, args.profile)
+    for name, n in mt["launches"].items():
+        # phase 3 summed its times over the launches its shape lists give
+        per_trip = dec_tot if name == "deconv_igdn" else gdn_tot
+        if n == 0 or n != BATCHES * per_trip["shared4"]["launches"]:
+            raise RuntimeError(f"kernel {name}: {n} launches on the shared4 "
+                               f"path, phase 3 reckoned "
+                               f"{per_trip['shared4']['launches']} a round "
+                               f"trip")
 
-    per_trip = (f"sum over one round trip of a batch of {BATCH}; ms, "
-                f"plain_ms, library_ms: device time (torch.profiler); "
-                f"host_ms: CUDA events over back-to-back calls; "
-                f"train_*: phase 7, batch {TRAIN_BATCH}; train_launches_per_step "
-                f"measured; train_step_ms, train_backward_ms: in one "
-                f"profiled step; train_isolated_ms, train_plain_ms: phase 3 "
-                f"at the step's shapes, summed over its launches")
+    def sums(tot, key, library):
+        t = tot[key]
+        return {"launches_per_round_trip": t["launches"], "ms": t["ms"],
+                "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": max(t["by"], key=t["by"].get),
+                "library_ms": t["library_ms"] if library else None}
+
+    times = (f"launches: phase 8's shared4 run ({BATCHES} round trips of a "
+             f"batch of {BATCH}); ms, host_ms, plain_ms, bound_ms, "
+             f"library_ms: phase 3, summed over one shared4 round trip's "
+             f"launches (device time, torch.profiler; host_ms: CUDA events "
+             f"over back-to-back calls); rgb: the same for phase 4's bench "
+             f"config (launches over its {BATCHES} round trips); train_*: "
+             f"phase 7, batch {TRAIN_BATCH}; train_step_ms, "
+             f"train_backward_ms: in one profiled step; train_isolated_ms, "
+             f"train_plain_ms: phase 3 at the step's shapes; "
+             f"shared4_train_*: phase 8's step at batch {MT_TRAIN_BATCH}")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
-         "launches": launches["gdn"], "max_abs_err": gdn_tot["err"],
+         "launches": mt["launches"]["gdn"], "max_abs_err": gdn_err,
          "tolerance": f"{gdn_tol} x max(1, |plain|max)",
-         "ms": gdn_tot["ms"], "host_ms": gdn_tot["host_ms"],
-         "plain_ms": gdn_tot["plain_ms"],
-         "bound_ms": gdn_tot["bound_ms"], "bound_by": gdn_by,
-         "library_ms": None, "times": per_trip,
+         **sums(gdn_tot, "shared4", False), "times": times,
+         "rgb": dict(sums(gdn_tot, "trip", False), launches=launches["gdn"]),
          "train_launches_per_step": {
              k: v["gdn"] for k, v in train["launches"].items()},
          "train_step_ms": train["gdn_ms"],
-         "train_isolated_ms": gdn_tot["train_ms"],
-         "train_plain_ms": gdn_tot["train_plain_ms"],
+         "train_isolated_ms": gdn_tot["train"]["ms"],
+         "train_plain_ms": gdn_tot["train"]["plain_ms"],
          "train_bound_ms": train["bound_ms"],
          "train_backward_ms": train["gdn_backward_ms"],
-         "train_backward_bound_ms": train["backward_bound_ms"]},
+         "train_backward_bound_ms": train["backward_bound_ms"],
+         "shared4_train_launches_per_step": mt["train_launches"]["gdn"],
+         "shared4_train_isolated_ms": gdn_tot["shared4_train"]["ms"],
+         "shared4_train_plain_ms": gdn_tot["shared4_train"]["plain_ms"],
+         "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"]},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
-         "launches": launches["deconv_igdn"], "max_abs_err": dec_tot["err"],
+         "launches": mt["launches"]["deconv_igdn"], "max_abs_err": dec_err,
          "tolerance": f"{dec_tol} x max(1, |plain|max)",
-         "ms": dec_tot["ms"], "host_ms": dec_tot["host_ms"],
-         "plain_ms": dec_tot["plain_ms"],
-         "bound_ms": dec_tot["bound_ms"], "bound_by": dec_by,
-         "library_ms": dec_tot["library_ms"], "times": per_trip,
+         **sums(dec_tot, "shared4", True), "times": times,
+         "rgb": dict(sums(dec_tot, "trip", True),
+                     launches=launches["deconv_igdn"]),
          "train_launches_per_step": {
-             k: v["deconv_igdn"] for k, v in train["launches"].items()}},
+             k: v["deconv_igdn"] for k, v in train["launches"].items()},
+         "shared4_train_launches_per_step":
+             mt["train_launches"]["deconv_igdn"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

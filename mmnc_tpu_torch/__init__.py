@@ -5,11 +5,20 @@ codec on an NVIDIA H100 with PyTorch and two hand-written CUDA kernels
 (`ops/gdn.py`, `ops/deconv_igdn.py`). Entry points run on CUDA unless the
 caller passes `device="cpu"`; with no card and no device they raise.
 
-Public surface (this slice): `build_model` / `SingleTaskCompressor` with
-eval `forward`, `update_bottleneck_values`, `compress` and `decompress`,
-and `weights.state_dict_from_jax` to carry JAX params over.
+Public surface: `build_model` (models 1-4: the single-task, mixed,
+disjoint and shared codecs) with eval `forward`,
+`update_bottleneck_values`, `compress`, `decompress`, partial coding
+(`compress_partial`, `decompress_tasks`) and the training side;
+`bitstream` (the container); `train` (the train and eval steps);
+`weights.state_dict_from_jax` to carry JAX params over.
 """
 
-from .models.codecs import SingleTaskCompressor, build_model
+from .models.codecs import (MultiTaskDisjointLatentCompressor,
+                            MultiTaskMixedLatentCompressor,
+                            MultiTaskSharedLatentCompressor,
+                            SingleTaskCompressor, build_model)
 
-__all__ = ["SingleTaskCompressor", "build_model"]
+__all__ = ["MultiTaskDisjointLatentCompressor",
+           "MultiTaskMixedLatentCompressor",
+           "MultiTaskSharedLatentCompressor", "SingleTaskCompressor",
+           "build_model"]

@@ -1,5 +1,11 @@
 """Codec models of the port."""
 
-from .codecs import SingleTaskCompressor, build_model
+from .codecs import (MultiTaskDisjointLatentCompressor,
+                     MultiTaskMixedLatentCompressor,
+                     MultiTaskSharedLatentCompressor, SingleTaskCompressor,
+                     build_model)
 
-__all__ = ["SingleTaskCompressor", "build_model"]
+__all__ = ["MultiTaskDisjointLatentCompressor",
+           "MultiTaskMixedLatentCompressor",
+           "MultiTaskSharedLatentCompressor", "SingleTaskCompressor",
+           "build_model"]

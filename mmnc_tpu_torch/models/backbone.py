@@ -3,13 +3,16 @@
 * g_a: 4x [conv5x5 s2 (+ GDN except last)], N -> N -> N -> N -> M
 * g_s: 4x [deconv5x5 s2 (+ IGDN except last)], M -> N -> N -> N -> N;
   under no-grad its 3 deconv->IGDN pairs are fused deconv_igdn launches
-  and the last deconv stays a plain conv_transpose2d
+  and the last deconv stays a plain conv_transpose2d. Built only with
+  `use_gs` (the mixed variant); without it synthesis returns y_hat
 * h_a (applied to |y|): conv3x3 s1 -> ReLU -> conv5x5 s2 -> ReLU -> conv5x5 s2
 * h_s: deconv s2 -> ReLU -> deconv s2 -> ReLU -> conv3x3 s1 -> ReLU
 
-`legacy_broadcast=True` keeps the reference's as-built likelihood
-geometry, where h_s's scales (B,M,4,4) broadcast against y (B,M,1,1) at
-256 px; False corner-crops the scales to y. The coding path always uses
+`forward(..., legacy_broadcast=True)` keeps the reference's as-built
+likelihood geometry, where h_s's scales (B,M,4,4) broadcast against y
+(B,M,1,1) at 256 px; False corner-crops the scales to y. It is an
+argument, not a module attribute, so a codec and its corrected-geometry
+twin share one set of modules. The coding path always uses
 the same top-left corner crop (codecs.py `_compress_device`).
 """
 
@@ -56,12 +59,13 @@ class HyperSynthesis(nn.Sequential):
 class ScaleHyperprior(nn.Module):
     """in_channels -> latent y (M channels) with a hyperprior over scales."""
 
-    def __init__(self, in_channels, latent_channels, legacy_broadcast=True):
+    def __init__(self, in_channels, latent_channels, use_gs=True):
         super().__init__()
         n, m = in_channels, latent_channels
-        self.legacy_broadcast = legacy_broadcast
+        self.use_gs = use_gs
         self.g_a = AnalysisTransform(n, m)
-        self.g_s = SynthesisTransform(m, n, n)
+        if use_gs:
+            self.g_s = SynthesisTransform(m, n, n)
         self.h_a = HyperAnalysis(m, n)
         self.h_s = HyperSynthesis(n, m)
         self.entropy_bottleneck = EntropyBottleneck(n)
@@ -75,9 +79,10 @@ class ScaleHyperprior(nn.Module):
         return self.h_s(z_hat)
 
     def synthesize(self, y_hat):
-        return self.g_s(y_hat)
+        return self.g_s(y_hat) if self.use_gs else y_hat
 
-    def forward(self, x, training: bool = False, noise=None):
+    def forward(self, x, training: bool = False, noise=None,
+                legacy_broadcast: bool = True):
         """-> dict(x_hat, likelihoods={y, z}, y_hat, z_hat).
 
         Training quantizes by additive noise: `noise` is {"z": .., "y": ..}
@@ -87,11 +92,12 @@ class ScaleHyperprior(nn.Module):
         y, z = self.analyze(x)
         z_hat, z_lik = self.entropy_bottleneck(z, training, noise.get("z"))
         scales = self.h_s(z_hat)
-        if not self.legacy_broadcast:
+        if not legacy_broadcast:
             scales = scales[:, :, :y.shape[2], :y.shape[3]]
         y_hat = gc.quantize(y, noise.get("y"), training)
         y_lik = gc.likelihood(y_hat, scales)
-        return {"x_hat": self.g_s(y_hat), "likelihoods": {"y": y_lik, "z": z_lik},
+        return {"x_hat": self.synthesize(y_hat),
+                "likelihoods": {"y": y_lik, "z": z_lik},
                 "y_hat": y_hat, "z_hat": z_hat}
 
     def aux_loss(self):

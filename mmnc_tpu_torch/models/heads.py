@@ -1,4 +1,4 @@
-"""Task-specific encoder/decoder heads (mmnc_tpu/models/heads.py:26-61).
+"""Task-specific encoder/decoder heads (mmnc_tpu/models/heads.py:26-79).
 
 Both are `nn.Sequential`s so their state_dict names are the reference's
 `{seq}.weight` / `{seq}.beta` layout (mmnc_tpu/utils/torch_import.py:4-16).
@@ -9,6 +9,13 @@ Both are `nn.Sequential`s so their state_dict names are the reference's
   conv3x3+IGDN, deconv(-> out)+IGDN, deconv(out -> out)+IGDN, conv3x3 —
   upsamples 16x. Under no-grad its 4 deconv->IGDN pairs run as fused
   deconv_igdn launches.
+* UpsampleStack (disjoint/shared only, in place of the absent g_s):
+  3x [deconv(-> cc) + IGDN], then deconv(cc -> conv_channels), with
+  cc = conv_channels // n_tasks — another 16x; its 3 pairs fuse too.
+* UpsampledDecoderHead: a disjoint/shared output head, the upsample
+  stack's 7 layers at indices 0-6 and a DecoderHead(conv_channels) at 7,
+  the reference's `model.output_heads.{t}` layout
+  (mmnc_tpu/utils/torch_import.py:147-157).
 """
 
 import torch.nn as nn
@@ -45,3 +52,25 @@ class DecoderHead(nn.Sequential):
 
     def forward(self, x):
         return run_layers(self, x)
+
+
+class UpsampleStack(nn.Sequential):
+    def __init__(self, in_channels, conv_channels, n_tasks):
+        cc = conv_channels // n_tasks
+        if cc < 1:
+            raise ValueError(
+                f"conv_channels ({conv_channels}) must be >= n_tasks "
+                f"({n_tasks}) for the disjoint upsample stack")
+        super().__init__(Deconv(in_channels, cc), GDN(cc, inverse=True),
+                         Deconv(cc, cc), GDN(cc, inverse=True),
+                         Deconv(cc, cc), GDN(cc, inverse=True),
+                         Deconv(cc, conv_channels))
+
+    def forward(self, x):
+        return run_layers(self, x)
+
+
+class UpsampledDecoderHead(UpsampleStack):
+    def __init__(self, in_channels, conv_channels, n_tasks, out_channels):
+        super().__init__(in_channels, conv_channels, n_tasks)
+        self.append(DecoderHead(conv_channels, out_channels))

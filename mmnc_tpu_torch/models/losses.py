@@ -54,8 +54,11 @@ def multitask_reconstruction_loss(
         logs[f"{task}/{lt}"] = task_losses[task]
     if log_vars is None:
         return sum(task_losses.values()), logs
+    # a copy: the parameter changes in place at the optimizer's step, and
+    # the logs hold the values this loss was computed with
+    logged = log_vars.detach().clone()
     for i, task in enumerate(tasks):
-        logs[f"uncertainty-weight/{task}"] = log_vars[i]
+        logs[f"uncertainty-weight/{task}"] = logged[i]
     return uncertainty_weighted_sum(task_losses, log_vars), logs
 
 

@@ -27,6 +27,7 @@ _DEC_HEAD = _layout(["deconv", "gdn", "conv", "gdn", "deconv", "gdn",
                      "conv", "gdn", "deconv", "gdn", "deconv", "gdn", "conv"])
 _G_A = _layout(["conv", "gdn", "conv", "gdn", "conv", "gdn", "conv"])
 _G_S = _layout(["deconv", "gdn", "deconv", "gdn", "deconv", "gdn", "deconv"])
+_UPSAMPLE = _G_S  # a disjoint/shared head's upsample stack: the same layers
 _H_A = {0: "conv", 2: "conv", 4: "conv"}
 _H_S = {0: "deconv", 2: "deconv", 4: "conv"}
 _FLAX_NAME = {"conv": "Conv", "deconv": "Deconv", "gdn": "GDN"}
@@ -81,19 +82,28 @@ def scale_conv_kernels(model):
 
 
 def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """JAX params (without the {"params": ...} wrapper) of a single-task
-    mixed codec -> the port's state_dict (float32 CPU tensors)."""
+    """JAX params (without the {"params": ...} wrapper) of any of the four
+    codecs -> the port's state_dict (float32 CPU tensors).
+
+    A disjoint/shared output head is `upsamples_{t}` (-> output_heads.{t}
+    .0-6) then `output_heads_{t}` (-> output_heads.{t}.7.*); g_s only
+    where the params hold one (mixed); `log_vars` -> loss_balancer.log_vars.
+    """
     sd: Dict = {}
     n_tasks = sum(1 for k in params if k.startswith("input_heads_"))
     for t in range(n_tasks):
         _sequential(f"model.input_heads.{t}", params[f"input_heads_{t}"],
                     _ENC_HEAD, sd)
-        _sequential(f"model.output_heads.{t}", params[f"output_heads_{t}"],
-                    _DEC_HEAD, sd)
+        head = f"model.output_heads.{t}"
+        if f"upsamples_{t}" in params:
+            _sequential(head, params[f"upsamples_{t}"], _UPSAMPLE, sd)
+            head += ".7"
+        _sequential(head, params[f"output_heads_{t}"], _DEC_HEAD, sd)
     comp = params["compressor"]
     for name, layout in (("g_a", _G_A), ("g_s", _G_S), ("h_a", _H_A),
                          ("h_s", _H_S)):
-        _sequential(f"model.compressor.{name}", comp[name], layout, sd)
+        if name in comp:
+            _sequential(f"model.compressor.{name}", comp[name], layout, sd)
     eb = comp["entropy_bottleneck"]
     prefix = "model.compressor.entropy_bottleneck"
     for key, value in eb.items():
@@ -102,4 +112,6 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         else:
             kind, k = key.rsplit("_", 1)
             sd[f"{prefix}._{kind}{k}"] = value
+    if "log_vars" in params:
+        sd["loss_balancer.log_vars"] = params["log_vars"]
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -7,6 +7,8 @@ atol 1e-4); symbols, indexes and stream bytes are exactly equal; the
 port's decode equals its own eval forward at tests/test_models.py's
 atol 1e-5."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -141,7 +143,28 @@ def test_compress_needs_tables():
         port.compress({"rgb": np.zeros((1, 256, 256, 3), np.float32)})
 
 
+# sha256 over (name, float32 bytes) of every state_dict entry, in order, of
+# build_model(1, ["rgb"], m, c, seed=0), taken on the tree before the
+# four-variant codecs: the single-task model still draws these weights
+SEED0_SHA256 = {
+    (8, 4): "a8353dae390a78ae79d1e9ff91299f9faac5eaecc5dd776aaf6234bd2bb66718",
+    (128, 100): "19f40059ff4e1d27213df83e02c28e63137bdfda5e6762ddfc963aa970b5cdaf",
+}
+
+
+def _state_sha256(model):
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def test_same_seed_same_weights_and_unported_models_raise():
+    """The same seed draws the same weights and another seed others; the
+    single-task model from seed 0 draws the weights it drew before the
+    multi-task variants came in; an unknown model number or name raises,
+    as do two tasks for the single-task model."""
     a = build_model(1, ["rgb"], 8, 4, device="cpu", seed=5)
     b = build_model(1, ["rgb"], 8, 4, device="cpu", seed=5)
     c = build_model(1, ["rgb"], 8, 4, device="cpu", seed=6)
@@ -149,8 +172,12 @@ def test_same_seed_same_weights_and_unported_models_raise():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["model.input_heads.0.0.weight"],
                            sc["model.input_heads.0.0.weight"])
-    with pytest.raises(NotImplementedError):
-        build_model(2, ["rgb"], 8, 4, device="cpu")
+    for (m, conv), want in SEED0_SHA256.items():
+        assert _state_sha256(build_model(1, ["rgb"], m, conv, device="cpu",
+                                         seed=0)) == want
+    for unknown in (5, 0, "MultiTaskUnknownCompressor"):
+        with pytest.raises(ValueError, match="unknown model"):
+            build_model(unknown, ["rgb"], 8, 4, device="cpu")
     with pytest.raises(ValueError):
         build_model(1, ["rgb", "rgb"], 8, 4, device="cpu")
 

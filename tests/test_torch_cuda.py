@@ -412,3 +412,88 @@ def test_train_remat_and_eval_launch_counts(device):
     assert (gdn_cuda.launches - gdn0, deconv_igdn_cuda.launches - dec0) \
         == (11, 7)
     assert all(torch.isfinite(v).item() for v in logs.values())
+
+
+# the multi-task codecs' new widths: GDN at the upsample stacks' 10, the
+# heads' 21 and 42 (shared4: conv 42, four tasks), one-channel depth and
+# the 17 semantic logits (unfused in a train step)
+@pytest.mark.parametrize("n", [5, 4099, 32768, 524288])
+@pytest.mark.parametrize("c", [1, 10, 17, 21, 42])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_multitask_widths_match_plain(device, n, c, inverse):
+    x, gamma, beta = _gdn_inputs(device, n, c, n + c)
+    got = gdn_cuda(x, gamma, beta, inverse)
+    again = gdn_cuda(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    _close(got, gdn_plain(x, gamma, beta, inverse))
+    assert torch.equal(got, again)
+
+
+# deconv+IGDN at the multi-task decode's new shapes: depth's Cin = Cout =
+# 1, semantic's 21 -> 17 logits, shared4's first upsample stage (120 -> 10
+# at 1x1, one 1x1 tile a block) and the mixed paper config's g_s (300 ->
+# 96, split), its 16x16 head stage on 2x4 tiles
+@pytest.mark.parametrize("shape,cout", [((8, 128, 128, 1), 1),
+                                        ((8, 64, 64, 21), 17),
+                                        ((8, 128, 128, 17), 17),
+                                        ((8, 1, 1, 120), 10),
+                                        ((8, 4, 4, 10), 10),
+                                        ((8, 1, 1, 300), 96),
+                                        ((8, 4, 4, 96), 96),
+                                        ((8, 16, 16, 96), 48)])
+@pytest.mark.parametrize("mode", ["igdn", None])
+def test_deconv_igdn_multitask_shapes_match_plain(device, shape, cout, mode):
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, mode)
+    torch.cuda.synchronize()
+    _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
+    if launch_plan(*shape, cout)[0] == "split":
+        assert torch.equal(got, deconv_igdn_cuda(x, w, b, gamma, beta, mode))
+
+
+@pytest.mark.parametrize("lo,hi", [(60, 120), (240, 300), (0, 60)])
+def test_deconv_igdn_takes_a_channel_slice_of_channels_last(device, lo, hi):
+    """A disjoint head's input: a channel slice of y_hat (NCHW in
+    channels_last memory), seen as NHWC, is not contiguous; the wrapper
+    copies it before the launch."""
+    y = torch.randn(8, 300, 1, 1, generator=torch.Generator().manual_seed(lo)
+                    ).to(device).contiguous(memory_format=torch.channels_last)
+    x = y[:, lo:hi].permute(0, 2, 3, 1)
+    assert not x.is_contiguous()
+    _, w, b, gamma, beta = _deconv_inputs(device, (8, 1, 1, hi - lo), 10, 1)
+    before = deconv_igdn_cuda.launches
+    got = deconv_igdn_cuda(x, w, b, gamma, beta, "igdn")
+    torch.cuda.synchronize()
+    assert deconv_igdn_cuda.launches == before + 1
+    _close(got, deconv_igdn_plain(x.contiguous(), w, b, gamma, beta, "igdn"))
+
+
+def test_shared4_card_integers_and_stream_equal_the_cpu_port(device):
+    """The paper's shared4 (model 4, four tasks, latent 300, conv 42) on
+    one 256 px image from one seed, conv kernels scaled: the card's
+    symbols, indexes and packed stream bytes (full and per slice) equal
+    the CPU port's, and its partial decode is within rtol 1e-3 / atol
+    1e-4 of the CPU's."""
+    tasks = ["rgb", "depth_euclidean", "normal", "semantic"]
+    models = []
+    for dev in ("cpu", device):
+        model = scale_conv_kernels(build_model(4, tasks, 300, 42, device=dev,
+                                               seed=0))
+        model.update_bottleneck_values()
+        models.append(model)
+    cpu, card = models
+    batch = cpu.example_batch(1, seed=2)
+    want = [t.numpy() for t in cpu._compress_device(batch)]
+    got = [t.cpu().numpy() for t in card._compress_device(batch)]
+    for name, g, w in zip(("y", "z", "indexes"), got, want):
+        mismatches = int((g != w).sum())
+        assert mismatches == 0, f"{name}: {mismatches} of {w.size} differ"
+    assert (want[0] != 0).any() and (want[1] != 0).any()
+    assert card.compress(batch)[0] == cpu.compress(batch)[0]
+    ans_card, _ = card.compress_partial(batch)
+    assert ans_card == cpu.compress_partial(batch)[0]
+    got = card.decompress_tasks(ans_card, ["semantic", "depth_euclidean"])
+    want = cpu.decompress_tasks(ans_card, ["semantic", "depth_euclidean"])
+    for task in want:
+        np.testing.assert_allclose(got[task].cpu().numpy(),
+                                   want[task].numpy(), rtol=1e-3, atol=1e-4)
