@@ -21,8 +21,10 @@ Phases, each of which exits non-zero on failure:
      phase 6's and phase 8's models too, and for GDN every launch shape of
      phase 7's train step (batch 16, the IGDNs of g_s and the decoder head
      unfused) and of phase 8's shared4 train step (batch 2: C = 1, 10 and
-     17 among them). Each distinct shape is timed once; the kernels line
-     sums its times over the launches of an rgb and a shared4 round trip;
+     17 among them); for both, every launch shape of phase 9 (shared4's
+     train step and eval forward at batch 16, its eval forward at 4).
+     Each distinct shape is timed once; the kernels line sums its times
+     over the launches of an rgb and a shared4 round trip;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images; check the decode equals the eval
@@ -74,21 +76,41 @@ Phases, each of which exits non-zero on failure:
      32) and disjoint (model 3, latent 300, conv 42), one batch of 8 each:
      round trip, launch counts (21 GDN a compress; 6 GDN + 15 and 21
      deconv+IGDN a decompress), card against CPU;
-  9. print a {"kernels": [...]} line (launches: the shared4 run; times
-     summed over a shared4 round trip, the rgb path's beside them) and,
-     last, {"ok": true, "device": {"platform": "gpu", "kind": ...,
-     "count": ...}}.
+  9. cli, the user's flow at shared4 (all files in a temporary
+     directory): CLI_TRAIN_SIZE + CLI_VAL_SIZE CLEVR-style synthetic scenes
+     prerendered through the train CLI's `get_loaders`; `python -m
+     mmnc_tpu_torch.cli.train` (called as `main`) for CLI_EPOCHS epochs at
+     batch CLI_BATCH with validation, image grids, a checkpoint and the
+     profiler over steps 5-10: finite, falling losses, 63 GDN launches a
+     train step and the eval forward's 35 GDN + 28 deconv+IGDN a
+     validation step (MT_LAUNCHES), steps/s and images/s (StepTimer p50),
+     the loader's wait a step, the profiled steps' device time and busy
+     share, peak memory, checkpoint save ms; `fit` to the middle and
+     resumed, against an uninterrupted run (deterministic cuDNN;
+     parameters and Adam moments within 1e-6 x max|p|), and a resume with
+     more epochs keeping the saved horizon (restore ms); the training set
+     as a DeviceResidentDataset (batches bitwise equal to the CPU port's,
+     4 fit steps without the prefetch queue); every prefetched batch
+     bitwise equal to its host batch; the compress CLI on the checkpoint
+     (2 batches: finite bpps > 0, MP/s, launches), and its bytes on a batch
+     of CLI_COMPARE_BATCH equal to the CPU port's;
+ 10. print a {"kernels": [...]} line (launches: the shared4 run; times
+     summed over a shared4 round trip, the rgb path's beside them; cli_*:
+     phase 9's launches and phase 3's times at its train and validation
+     steps' shapes) and, last, {"ok": true, "device": {"platform": "gpu",
+     "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--profile DIR` also writes torch.profiler summaries
-of one round trip, of each layout's streamed run, of one train step and
-of a shared4 round trip to DIR.
+of one round trip, of each layout's streamed run, of one train step, of
+a shared4 round trip and phase 9's trace of the CLI's steps 5-10 to DIR.
 """
 
 import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -130,8 +152,16 @@ PAPER = {"shared4": (4, TASKS3 + ("semantic",), 300, 42),
          "mixed": (2, TASKS3, 300, 32),
          "disjoint": (3, TASKS3, 300, 42)}
 MT_TRAIN_BATCH = 2
+# phase 9: the train and compress CLIs at shared4 on CLEVR-style synthetic
+# scenes: 2 epochs of 8 batches of 16 (mmnc_tpu/cli/train.py's batch),
+# validation on one batch; the compress CLI's bytes held against the CPU
+# port's on a batch of 4
+CLI_TRAIN_SIZE, CLI_VAL_SIZE, CLI_BATCH, CLI_EPOCHS = 128, 16, 16, 2
+CLI_COMPARE_BATCH = 4
+CLI_DEVICE = "cuda"
 # launches (GDN, deconv+IGDN) per call: compress runs every encoder-head
-# GDN and g_a's; decompress the decoder heads' two conv3 IGDNs a task and
+# GDN and g_a's; the eval forward (a validation step) compress's and
+# decompress's; decompress the decoder heads' two conv3 IGDNs a task and
 # every deconv->IGDN pair fused (mixed: g_s's 3 and 4 a head; disjoint and
 # shared: an upsample stack's 3 and 4 a head); decompress_tasks(["rgb"])
 # one task's head; a train step runs every (I)GDN of the forward unfused
@@ -139,7 +169,7 @@ MT_LAUNCHES = {
     "shared4": {"compress": (27, 0), "decompress": (8, 28),
                 "decompress_tasks_rgb": (2, 7),
                 "decompress_tasks_semantic_depth": (4, 14),
-                "train": (63, 0)},
+                "train": (63, 0), "eval": (35, 28)},
     "mixed": {"compress": (21, 0), "decompress": (6, 15)},
     "disjoint": {"compress": (21, 0), "decompress": (6, 21)},
 }
@@ -420,9 +450,10 @@ def check_gdn(torch, b, gen):
     then device time of the plan's launch, the plain version's and the
     bound. Returns the sums ({"ms", "plain_ms", "bound_ms", "host_ms",
     "launches", "by"}) over an rgb round trip ("trip"), an rgb train step's
-    forward ("train"), a shared4 round trip ("shared4") and a shared4
-    train step's forward ("shared4_train"); the largest error; the
-    tolerance."""
+    forward ("train"), a shared4 round trip ("shared4"), a shared4
+    train step's forward ("shared4_train"), and phase 9's train step and
+    validation step at CLI_BATCH ("cli_train", "cli_val"); the largest
+    error; the tolerance."""
     from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
 
     tol_rel = 1e-4
@@ -445,7 +476,10 @@ def check_gdn(torch, b, gen):
          (gdn_train_shapes(TRAIN_BATCH), "train"),
          (mt_gdn_shapes(shared4, b), "shared4"),
          (mt_gdn_shapes(shared4, MT_TRAIN_BATCH, train=True),
-          "shared4_train")]
+          "shared4_train"),
+         (mt_gdn_shapes(shared4, CLI_BATCH, train=True), "cli_train"),
+         (mt_gdn_shapes(shared4, CLI_BATCH), "cli_val"),
+         (mt_gdn_shapes(shared4, CLI_COMPARE_BATCH), None)]
         + [(mt_gdn_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
         + [(gdn_extra_shapes(path), None)])
@@ -511,8 +545,10 @@ def check_deconv(torch, b, gen):
     split shapes against the plain version. Where the launch plan is the
     split kernel it also checks that two launches are bitwise equal and
     that the tiled kernel, forced at the same shape, agrees too (its only
-    check there). Returns the sums as check_gdn does ("trip": an rgb round
-    trip, "shared4": a shared4 one), the largest error, the tolerance."""
+    check there). Also every launch shape of phase 9's eval forwards
+    (CLI_BATCH and CLI_COMPARE_BATCH). Returns the sums as check_gdn does
+    ("trip": an rgb round trip, "shared4": a shared4 one, "cli_val": phase
+    9's validation step), the largest error, the tolerance."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -523,6 +559,10 @@ def check_deconv(torch, b, gen):
     cases = shape_cases(
         [(deconv_path_shapes(b), "trip"),
          (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), b), "shared4"),
+         (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), CLI_BATCH),
+          "cli_val"),
+         (mt_deconv_shapes(paper_layout(*PAPER["shared4"]),
+                           CLI_COMPARE_BATCH), None),
          ([(b, 8, 8, CONV, CONV, None)], None)]  # g_s's last deconv
         + [(mt_deconv_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
@@ -1376,6 +1416,368 @@ def run_multitask(torch, profile_dir):
             "z_nonzero": z_nz, "train_launches": train, **prof}
 
 
+def cli_argv(tmp, *extra):
+    """The train CLI's flags for phase 9: shared4 (PAPER) on CLEVR-style
+    synthetic scenes, prerendered into `tmp`."""
+    number, tasks, latent, conv = PAPER["shared4"]
+    return ["-d", "synthetic", "--data-style", "clevr", "-t", *tasks,
+            "-m", str(number), "-l", str(latent), "-c", str(conv),
+            "-w", "cli", "--lmbda", str(LMBDA), "-lrm", str(LR_MAIN),
+            "-lra", str(LR_AUX), "--batch-size", str(CLI_BATCH),
+            "--train-size", str(CLI_TRAIN_SIZE),
+            "--val-size", str(CLI_VAL_SIZE), "--out-dir",
+            os.path.join(tmp, "runs"), "--data-cache-dir",
+            os.path.join(tmp, "cache"), "--device", CLI_DEVICE, *extra]
+
+
+@contextlib.contextmanager
+def counted_steps(torch, per_step):
+    """Wrap the train loop's train and eval steps so each appends its
+    launches ("train" or "eval", counts) to `per_step`: the counts read
+    just before the step and just after it, on a synchronised card, and
+    subtracted (the run's totals keep counting). The steps themselves are
+    unchanged."""
+    from mmnc_tpu_torch.train import loop
+
+    make_train, make_eval = loop.make_train_step, loop.make_eval_step
+
+    def wrap(make, kind):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(*a, **k):
+                torch.cuda.synchronize()
+                before = counts()
+                out = step(*a, **k)
+                torch.cuda.synchronize()
+                after = counts()
+                per_step.append((kind, {n: after[n] - before[n]
+                                        for n in after}))
+                return out
+            return counted
+        return made
+
+    loop.make_train_step = wrap(make_train, "train")
+    loop.make_eval_step = wrap(make_eval, "eval")
+    try:
+        yield
+    finally:
+        loop.make_train_step, loop.make_eval_step = make_train, make_eval
+
+
+def trace_summary(path):
+    """A profiler trace of the loop's steps 5-10 -> (device ms, busy ms,
+    wall ms: the span of every record in it)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if "dur" in e and "ts" in e]
+    device = [e for e in events if e.get("cat") in DEVICE_WORK]
+    wall = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    return (sum(e["dur"] for e in device) / 1e3, busy_us(device) / 1e3,
+            wall / 1e3)
+
+
+def cli_model(device):
+    from mmnc_tpu_torch import build_model
+
+    number, tasks, latent, conv = PAPER["shared4"]
+    return build_model(number, tasks, latent, conv, lmbda=LMBDA,
+                       learning_rate_main=LR_MAIN, learning_rate_aux=LR_AUX,
+                       device=device, seed=SEED)
+
+
+def max_rel_diff(a, b):
+    """max |a - b| over max |b| of one tensor (0 where both are all 0)."""
+    err, scale = (a - b).abs().max().item(), b.abs().max().item()
+    return err / scale if scale else (float("inf") if err else 0.0)
+
+
+def check_resume(torch, train_set, tmp):
+    """Phase 9 (3): under deterministic cuDNN, CLI_EPOCHS // 2 epochs with
+    the horizon set to the whole run, resumed to the end, against an
+    uninterrupted run: parameters and Adam's moments within 1e-6 x max|p|
+    per tensor. Then a resume with more --epochs keeps the saved
+    horizon. Returns (save ms, restore ms)."""
+    from mmnc_tpu_torch.data import BatchLoader
+    from mmnc_tpu_torch.train import fit
+
+    steps = CLI_EPOCHS * (CLI_TRAIN_SIZE // CLI_BATCH)
+    runs, stats = {}, {}
+
+    def run(name, epochs, **kw):
+        model = cli_model(CLI_DEVICE)
+        st = stats.setdefault(name, {})
+        state, _ = fit(model, BatchLoader(train_set, CLI_BATCH), epochs=epochs,
+                       run_name=name, out_dir=os.path.join(tmp, "resume"),
+                       log_images=False, compute_metrics=False, log_every=4,
+                       stats=st, **kw)
+        runs[name] = (model, state)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run("cut", CLI_EPOCHS // 2, schedule_total_steps=steps)
+        run("cut", CLI_EPOCHS, resume=True)
+        run("whole", CLI_EPOCHS)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m_r, s_r), (m_w, s_w) = runs["cut"], runs["whole"]
+    if not (s_r.step == s_w.step == steps
+            and s_r.total_steps == s_w.total_steps == steps):
+        raise RuntimeError(f"resume: steps {s_r.step}/{s_w.step}, horizons "
+                           f"{s_r.total_steps}/{s_w.total_steps}, want {steps}")
+    worst = 0.0
+    for (name, p), q in zip(m_w.named_parameters(), m_r.parameters()):
+        worst = max(worst, max_rel_diff(q.detach(), p.detach()))
+        adam_w, adam_r = (s.optimizer.state[t] for s, t in ((s_w, p),
+                                                            (s_r, q)))
+        for k in ("exp_avg", "exp_avg_sq"):
+            worst = max(worst, max_rel_diff(adam_r[k], adam_w[k]))
+    if not worst <= 1e-6:
+        raise RuntimeError(f"resumed run vs uninterrupted: max rel diff "
+                           f"{worst} over 1e-6")
+    # a resume asking for more epochs keeps the saved horizon (one step)
+    run("cut", CLI_EPOCHS + 1, resume=True, max_steps=steps + 1)
+    if runs["cut"][1].total_steps != steps:
+        raise RuntimeError(f"resume with --epochs {CLI_EPOCHS + 1}: horizon "
+                           f"{runs['cut'][1].total_steps}, want {steps}")
+    save_ms = stats["cut"]["save_ms"] + stats["whole"]["save_ms"]
+    print(f"cli resume: {steps // 2} steps + resumed {steps // 2} vs "
+          f"{steps} uninterrupted (deterministic cuDNN): max rel diff of "
+          f"parameters and Adam moments {worst:.3e}; a resume with --epochs "
+          f"{CLI_EPOCHS + 1} kept the horizon {steps}; checkpoint save ms "
+          f"{json.dumps([round(t, 3) for t in save_ms])}, restore ms "
+          f"{stats['cut']['restore_ms']:.3f}")
+    return save_ms, stats["cut"]["restore_ms"]
+
+
+def check_device_cache(torch, train_set, tmp):
+    """Phase 9 (4): the training set as a DeviceResidentDataset on the
+    card: gathered batches bitwise equal to the CPU port's and within half
+    a quantization step (plus a few float32 ulps) of the host arrays;
+    four fit steps from it take the no-prefetch path."""
+    from mmnc_tpu_torch.data import BatchLoader, DeviceResidentDataset
+    from mmnc_tpu_torch.train import fit
+
+    t0 = time.perf_counter()
+    cache = DeviceResidentDataset(train_set.arrays, device=CLI_DEVICE)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    n_bytes = sum(x.numel() * x.element_size() for x in cache._dev.values())
+    cpu = DeviceResidentDataset(train_set.arrays, device="cpu")
+    worst = 0.0
+    rng = np.random.default_rng(SEED)
+    for _ in range(2):
+        idx = rng.permutation(len(cache))[:CLI_BATCH]
+        got, want = cache.get_batch(idx), cpu.get_batch(idx)
+        for t in cache.tasks:
+            if not torch.equal(got[t].cpu(), want[t]):
+                raise RuntimeError(f"device cache {t}: card batch differs "
+                                   f"from the CPU port's")
+            lo, hi = cache._scales[t]
+            err = np.abs(want[t].numpy() - train_set.arrays[t][idx]).max()
+            ulps = 4 * np.finfo(np.float32).eps * max(abs(lo), abs(hi))
+            if not err <= (hi - lo) / 65535 / 2 + ulps:
+                raise RuntimeError(f"device cache {t}: {err} from the host "
+                                   f"data, over half a step")
+            worst = max(worst, err / ((hi - lo) / 65535))
+    stats = {}
+    state, _ = fit(cli_model(CLI_DEVICE), BatchLoader(cache, CLI_BATCH),
+                   max_steps=4, out_dir=os.path.join(tmp, "cache_fit"),
+                   log_images=False, compute_metrics=False, stats=stats)
+    if state.step != 4 or stats["loader"].get("batches", 0) != 0:
+        raise RuntimeError(f"device-cache fit: {state.step} steps, "
+                           f"{stats['loader']} through the prefetch queue")
+    print(f"cli device cache: {n_bytes / 1e6:.1f} MB of 16-bit data on the "
+          f"card (upload + quantize {upload:.3f} s); card batches equal the "
+          f"CPU port's bitwise, at most {worst:.4f} steps from the host "
+          f"data; 4 fit steps without the prefetch queue")
+
+
+def check_prefetch(torch, train_set):
+    """Phase 9 (5): every batch prefetch_to_device yields on the card is
+    bitwise equal to its host batch, with the consumer's stream kept busy
+    (a matmul chain) while the next copies are in flight."""
+    from mmnc_tpu_torch.data import BatchLoader, prefetch_to_device
+
+    loader = BatchLoader(train_set, CLI_BATCH)
+    a = torch.randn(2048, 2048, device=CLI_DEVICE)
+    n, stats = 0, {}
+    for host, dev in zip(loader.epoch(0), prefetch_to_device(
+            loader.epoch(0), device=CLI_DEVICE, stats=stats)):
+        for _ in range(8):
+            a = torch.tanh(a @ a / 2048.0)
+        for t, x in host.items():
+            if not torch.equal(dev[t].cpu(), torch.from_numpy(x)):
+                raise RuntimeError(f"prefetch batch {n} {t} differs from "
+                                   f"the host batch")
+        n += 1
+    print(f"cli prefetch: {n} batches of {CLI_BATCH} bitwise equal to the "
+          f"host batches (consumer wait {stats['wait_s'] * 1e3:.3f} ms)")
+
+
+def run_cli(torch, profile_dir, card):
+    """Phase 9: the train CLI (prerendered CLEVR-style scenes, validation,
+    image grids, checkpoints, the profiler over steps 5-10), resume, the
+    device cache, prefetch, and the compress CLI on the checkpoint.
+    `card` is nvidia-smi's name and power limit, printed beside the
+    timings. Returns the launches of the train CLI's run and per step, and
+    the timings."""
+    from mmnc_tpu_torch.cli import compress as compress_cli
+    from mmnc_tpu_torch.cli import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        train_loader, _ = train_cli.get_loaders(
+            train_cli.parse_args(cli_argv(tmp)))
+        train_set = train_loader.dataset
+        print(f"cli data: {CLI_TRAIN_SIZE} + {CLI_VAL_SIZE} CLEVR-style "
+              f"scenes at {IMAGE} px rendered in "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        # (2) the train CLI
+        prof_dir = profile_dir or os.path.join(tmp, "profile")
+        per_step, stats = [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_steps(torch, per_step):
+            state = train_cli.main(cli_argv(
+                tmp, "--epochs", str(CLI_EPOCHS), "--log-every", "1",
+                "--profile-dir", prof_dir), stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps = CLI_EPOCHS * (CLI_TRAIN_SIZE // CLI_BATCH)
+        if state.step != steps:
+            raise RuntimeError(f"train CLI: {state.step} steps, want {steps}")
+        want = {k: {"gdn": g, "deconv_igdn": d}
+                for k, (g, d) in MT_LAUNCHES["shared4"].items()}
+        kinds = [k for k, _ in per_step]
+        if kinds.count("train") != steps or kinds.count("eval") != \
+                CLI_EPOCHS * (CLI_VAL_SIZE // CLI_BATCH):
+            raise RuntimeError(f"train CLI ran {kinds}")
+        for kind, got in per_step:
+            if got != want[kind]:
+                raise RuntimeError(f"train CLI {kind} step: launches {got}, "
+                                   f"want {want[kind]}")
+        run_dir = os.path.join(tmp, "runs", "cli")
+        with open(os.path.join(run_dir, "cli.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["train/loss"] for r in recs if "train/loss" in r]
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            raise RuntimeError(f"train CLI losses: {losses}")
+        if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            raise RuntimeError(f"train CLI: losses did not fall: {losses}")
+        if not any("val/loss" in r for r in recs):
+            raise RuntimeError("train CLI: no val record")
+        ckpt = os.path.join(run_dir, "checkpoints", f"step_{steps}")
+        for f in ("hyper_parameters.json", "state.pt"):
+            if not os.path.exists(os.path.join(ckpt, f)):
+                raise RuntimeError(f"train CLI: no {f} in {ckpt}")
+        tasks = PAPER["shared4"][1]
+        grids = [os.path.join(run_dir, f"samples_epoch{e}_{s}", f"{t}.png")
+                 for e in range(CLI_EPOCHS) for s in ("val", "train")
+                 for t in tasks]
+        missing = [g for g in grids if not os.path.exists(g)]
+        if missing:
+            raise RuntimeError(f"train CLI: missing image grids {missing}")
+        launches = counts()
+        grid_evals = 2 * CLI_EPOCHS  # one val and one train batch an epoch
+        for k in launches:
+            expect = sum(c[k] for _, c in per_step) \
+                + grid_evals * want["eval"][k]
+            if launches[k] == 0 or launches[k] != expect:
+                raise RuntimeError(f"train CLI: {launches[k]} {k} launches, "
+                                   f"want {expect}")
+        timer = stats["step_timer"]
+        waits = stats["loader"]["waits_s"]
+        wait = stats["loader"]["wait_s"] / max(stats["loader"]["batches"], 1)
+        per_epoch = CLI_TRAIN_SIZE // CLI_BATCH
+        firsts = [w for i, w in enumerate(waits) if i % per_epoch == 0]
+        rest = [w for i, w in enumerate(waits) if i % per_epoch]
+        ckpt_mb = os.path.getsize(os.path.join(ckpt, "state.pt")) / 1e6
+        dev_ms, busy_ms, wall_ms = trace_summary(stats["trace"])
+        print(f"cli train {PAPER['shared4']} batch={CLI_BATCH} "
+              f"{CLI_EPOCHS} epochs ({card}): {steps} steps in "
+              f"{seconds:.3f} s "
+              f"(with validation, image grids, checkpoints and the "
+              f"profiler); step p50 {timer['p50_s'] * 1e3:.4f} ms over steps "
+              f"3-{steps} ({timer['steps']}): {1 / timer['p50_s']:.4f} "
+              f"steps/s, {CLI_BATCH / timer['p50_s']:.3f} images/s; loader "
+              f"wait {wait * 1e3:.4f} ms a step (an epoch's first batch "
+              f"{json.dumps([round(w * 1e3, 3) for w in firsts])} ms, the "
+              f"others' median {np.median(rest) * 1e3:.4f} ms); launches a "
+              f"train step "
+              f"{want['train']}, a val step {want['eval']}, run {launches}; "
+              f"peak memory {peak / 2 ** 30:.3f} GiB; checkpoint "
+              f"({ckpt_mb:.3f} MB) save ms "
+              f"{json.dumps([round(t, 3) for t in stats['save_ms']])}")
+        print(f"cli profiled steps 5-10: device {dev_ms:.3f} ms "
+              f"({dev_ms / 6:.3f} a step), busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms ({busy_ms / wall_ms:.3f})")
+        print(f"cli losses: {json.dumps(losses)}")
+
+        save_ms, restore_ms = check_resume(torch, train_set, tmp)
+        check_device_cache(torch, train_set, tmp)
+        check_prefetch(torch, train_set)
+
+        # (6) the compress CLI on the checkpoint
+        out = os.path.join(tmp, "first_batch.bin")
+        n_batches = 2
+        reset_counts()
+        t0 = time.perf_counter()
+        bpp, est = compress_cli.main(
+            ["-p", ckpt, "-d", "synthetic", "--batch-size", str(CLI_BATCH),
+             "--num-batches", str(n_batches), "--out", out, "--device",
+             CLI_DEVICE])
+        torch.cuda.synchronize()
+        c_seconds = time.perf_counter() - t0
+        c_launches = counts()
+        # a batch: compress, and the eval forward of the model and its twin
+        expect = {k: n_batches * (MT_LAUNCHES["shared4"]["compress"][i]
+                                  + 2 * MT_LAUNCHES["shared4"]["eval"][i])
+                  for i, k in enumerate(("gdn", "deconv_igdn"))}
+        if c_launches != expect:
+            raise RuntimeError(f"compress CLI: launches {c_launches}, want "
+                               f"{expect}")
+        if not (np.isfinite(bpp) and bpp > 0 and np.isfinite(est)
+                and est > 0):
+            raise RuntimeError(f"compress CLI: bpp {bpp}, estimate {est}")
+        small = {}
+        for device in (CLI_DEVICE, "cpu"):
+            path = os.path.join(tmp, f"batch_of_{CLI_COMPARE_BATCH}_"
+                                f"{device}.bin")
+            compress_cli.main(["-p", ckpt, "-d", "synthetic", "--batch-size",
+                               str(CLI_COMPARE_BATCH), "--num-batches", "1",
+                               "--out", path, "--device", device])
+            with open(path, "rb") as f:
+                small[device] = f.read()
+        if small[CLI_DEVICE] != small["cpu"]:
+            raise RuntimeError(f"compress CLI, a batch of "
+                               f"{CLI_COMPARE_BATCH}: the card's bytes differ "
+                               f"from the CPU port's")
+        images = n_batches * CLI_BATCH
+        print(f"cli compress ({card}): {images} images in "
+              f"{c_seconds:.3f} s (the "
+              f"CLI's wall: rebuild, load, tables, render, coding and both "
+              f"estimates), {images * IMAGE * IMAGE / 1e6 / c_seconds:.4f} "
+              f"MP/s; actual bpp {bpp:.6f}, estimated (corrected geometry) "
+              f"{est:.6f}; launches {c_launches}; first batch "
+              f"{os.path.getsize(out)} bytes; a batch of {CLI_COMPARE_BATCH}: "
+              f"{len(small['cpu'])} bytes, card equal to the CPU port's")
+        return {"launches": launches, "per_step": want, "timer": timer,
+                "wait_ms": wait * 1e3, "device_ms": dev_ms,
+                "busy": busy_ms / wall_ms, "peak": peak,
+                "save_ms": save_ms, "restore_ms": restore_ms,
+                "compress_launches": c_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_round_trip(torch, model, batch, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1401,6 +1803,26 @@ def profile_round_trip(torch, model, batch, out_dir):
     print(f"profile: wall {wall * 1e3:.3f} ms, device kernel time "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / (wall * 1e3):.3f} of wall)"
           f", {len(events)} device events -> {out_dir}")
+
+
+def cli_sums(cli, tot, kernel, steps):
+    """The kernels line's phase 9 entries of `kernel`: launches over the
+    train CLI's run and a step's, phase 3's times at a step's shapes."""
+    out = {"cli_launches": cli["launches"][kernel]}
+    for step in steps:
+        count = cli["per_step"]["train" if step == "train" else "eval"]
+        key = f"cli_{step}"
+        if tot[key]["launches"] != count[kernel]:
+            raise RuntimeError(f"{kernel}: phase 3 reckoned "
+                               f"{tot[key]['launches']} launches a {step} "
+                               f"step, phase 9 counted {count[kernel]}")
+        out.update({f"{key}_launches_per_step": count[kernel],
+                    f"{key}_isolated_ms": tot[key]["ms"],
+                    f"{key}_plain_ms": tot[key]["plain_ms"],
+                    f"{key}_bound_ms": tot[key]["bound_ms"]})
+        if "library_ms" in tot[key]:
+            out[f"{key}_library_ms"] = tot[key]["library_ms"]
+    return out
 
 
 def main(argv=None):
@@ -1443,6 +1865,7 @@ def main(argv=None):
     run_widths(torch)
     train = run_train(torch, args.profile)
     mt = run_multitask(torch, args.profile)
+    cli = run_cli(torch, args.profile, card)
     for name, n in mt["launches"].items():
         # phase 3 summed its times over the launches its shape lists give
         per_trip = dec_tot if name == "deconv_igdn" else gdn_tot
@@ -1451,6 +1874,10 @@ def main(argv=None):
                                f"path, phase 3 reckoned "
                                f"{per_trip['shared4']['launches']} a round "
                                f"trip")
+
+    for name, n in cli["launches"].items():
+        if n == 0:
+            raise RuntimeError(f"kernel {name} never launched by the CLIs")
 
     def sums(tot, key, library):
         t = tot[key]
@@ -1469,7 +1896,11 @@ def main(argv=None):
              f"phase 7, batch {TRAIN_BATCH}; train_step_ms, "
              f"train_backward_ms: in one profiled step; train_isolated_ms, "
              f"train_plain_ms: phase 3 at the step's shapes; "
-             f"shared4_train_*: phase 8's step at batch {MT_TRAIN_BATCH}")
+             f"shared4_train_*: phase 8's step at batch {MT_TRAIN_BATCH}; "
+             f"cli_*: phase 9 (the train CLI at shared4, batch {CLI_BATCH}): "
+             f"cli_launches over its run, *_per_step a train and a "
+             f"validation step, cli_*_isolated_ms and cli_*_plain_ms phase 3 "
+             f"at those steps' shapes")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -1488,7 +1919,8 @@ def main(argv=None):
          "shared4_train_launches_per_step": mt["train_launches"]["gdn"],
          "shared4_train_isolated_ms": gdn_tot["shared4_train"]["ms"],
          "shared4_train_plain_ms": gdn_tot["shared4_train"]["plain_ms"],
-         "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"]},
+         "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"],
+         **cli_sums(cli, gdn_tot, "gdn", ("train", "val"))},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -1500,7 +1932,8 @@ def main(argv=None):
          "train_launches_per_step": {
              k: v["deconv_igdn"] for k, v in train["launches"].items()},
          "shared4_train_launches_per_step":
-             mt["train_launches"]["deconv_igdn"]},
+             mt["train_launches"]["deconv_igdn"],
+         **cli_sums(cli, dec_tot, "deconv_igdn", ("val",))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,12 @@ Public surface: `build_model` (models 1-4: the single-task, mixed,
 disjoint and shared codecs) with eval `forward`,
 `update_bottleneck_values`, `compress`, `decompress`, partial coding
 (`compress_partial`, `decompress_tasks`) and the training side;
-`bitstream` (the container); `train` (the train and eval steps);
+`bitstream` (the container); `data` (synthetic scenes, the CLEVR
+contract, prerender, `BatchLoader` with `prefetch_to_device`, the
+device-resident dataset); `train` (the train and eval steps, and
+`train.fit`: the epoch loop with validation, checkpoints and resume);
+`utils` (checkpoints, the metric sink, profiling); the CLIs `python -m
+mmnc_tpu_torch.cli.train` and `python -m mmnc_tpu_torch.cli.compress`;
 `weights.state_dict_from_jax` to carry JAX params over.
 """
 

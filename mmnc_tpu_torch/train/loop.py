@@ -1,0 +1,281 @@
+"""Experiment harness: the epoch loop with validation, checkpointing,
+resume, qualitative dumps and optional profiling (mmnc_tpu/train/loop.py).
+
+Per-epoch validation, a checkpoint every N epochs carrying the model's
+hyper_parameters and the schedule's horizon, auto-resume from the latest
+local checkpoint, image grids per validation epoch and torch.profiler
+traces on request, with batches staged onto the device ahead of use by
+`prefetch_to_device`.
+
+Where it differs from the JAX loop, and why:
+* the model already holds its weights (the port's constructor draws them
+  from a seed), so `fit` does not initialise it;
+* the step's noise comes from a generator on the model's device reseeded
+  from (seed + 1, step) before every step, as the JAX step folds the step
+  into its key: a resumed run draws the noise of an uninterrupted one;
+* `n_devices > 1` (data parallelism) and `steps_per_call > 1` (several
+  steps in one dispatch) are not ported yet and raise.
+"""
+
+import json
+import os
+import signal
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import prefetch_to_device
+from ..utils.checkpoint import (find_last_checkpoint, restore_checkpoint,
+                                save_checkpoint)
+from ..utils.logging import MetricLogger, save_image_grid
+from ..utils.profiling import StepTimer, start_trace, stop_trace
+from .state import create_train_state
+from .step import make_eval_step, make_train_step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The noise generator's seed for `step` of a run seeded `seed`."""
+    return ((seed + 1) << 32) + step
+
+
+def check_ported(n_devices: Optional[int], steps_per_call: int):
+    """Raise for the options the port does not have yet."""
+    if n_devices is not None and n_devices > 1:
+        raise NotImplementedError(
+            "data parallelism is not ported yet (ROADMAP.md section 1, "
+            "item 11: DDP)")
+    if steps_per_call > 1:
+        raise NotImplementedError(
+            "steps_per_call > 1 is not ported yet (ROADMAP.md section 2, "
+            "item 4: the multi-step as CUDA graphs)")
+
+
+def _host_values(logs: dict) -> dict:
+    """{name: 0-d device tensor} -> {name: float}, with one host sync."""
+    keys = list(logs)
+    values = torch.stack([logs[k].detach().reshape(()).double()
+                          for k in keys]).cpu().tolist()
+    return dict(zip(keys, values))
+
+
+def _numpy(batch: dict) -> dict:
+    return {t: np.asarray(torch.as_tensor(x).cpu()) for t, x in batch.items()}
+
+
+def fit(
+    model,
+    train_loader,
+    val_loader=None,
+    epochs: int = 1,
+    run_name: str = "run",
+    out_dir: str = "runs",
+    seed: int = 21,
+    resume: bool = False,
+    checkpoint_every_epochs: int = 100,
+    compute_metrics: bool = True,
+    train_metrics: Optional[bool] = None,
+    log_images: bool = True,
+    use_wandb: bool = False,
+    n_devices: Optional[int] = None,
+    profile_dir: Optional[str] = None,
+    max_steps: Optional[int] = None,
+    log_every: int = 10,
+    steps_per_call: int = 1,
+    val_every_epochs: int = 1,
+    extend_schedule: bool = False,
+    clip_norm: Optional[float] = None,
+    remat: bool = False,
+    schedule_total_steps: Optional[int] = None,
+    stats: Optional[dict] = None,
+):
+    """Train `model` (in place); returns (state, last_val_logs).
+
+    `stats`, if given, is filled with the run's timings: "step_timer"
+    (StepTimer.stats() over the train steps, the first two left out),
+    "loader" (seconds the loop waited for prefetched batches and how many
+    it took), "save_ms" (one entry per checkpoint written), "restore_ms"
+    (the resume's load, if any) and "trace" (the profiler's file, if
+    any)."""
+    check_ported(n_devices, steps_per_call)
+    stats = {} if stats is None else stats
+    run_dir = os.path.join(out_dir, run_name)
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    logger = MetricLogger(run_dir, run_name, use_wandb=use_wandb)
+    device = model.device
+
+    steps_per_epoch = len(train_loader)
+    total_steps = min(epochs * steps_per_epoch, max_steps or 10 ** 12)
+    if schedule_total_steps is not None:
+        # the LR horizon decoupled from this invocation's stop point: a
+        # staged run re-horizons the cosine once to the final target, so
+        # later stages resume on the same schedule
+        total_steps = max(total_steps, schedule_total_steps)
+
+    # a resumed run keeps the horizon saved with its checkpoints unless
+    # asked to extend it (deriving it from this invocation's --epochs
+    # would reshape the LR schedule mid-run)
+    last = find_last_checkpoint(ckpt_dir) if resume else None
+    if last is not None:
+        with open(os.path.join(last, "hyper_parameters.json")) as f:
+            saved_total = json.load(f).get("total_steps")
+        if saved_total is not None and saved_total != total_steps:
+            if extend_schedule and total_steps > saved_total:
+                print(f"resume: extending the LR-schedule horizon "
+                      f"{saved_total} -> {total_steps} steps")
+            else:
+                print(f"resume: keeping the original LR-schedule horizon "
+                      f"({saved_total} steps, this invocation implies "
+                      f"{total_steps})")
+                total_steps = saved_total
+
+    state = create_train_state(model, total_steps)
+    start_epoch = 0
+    if last is not None:
+        t0 = time.perf_counter()
+        payload, _ = restore_checkpoint(last, device)
+        model.load_state_dict(payload["model"])
+        state.load_state_dict(payload["optimizer"])
+        state.total_steps = total_steps
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stats["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        start_epoch = state.step // steps_per_epoch
+        print(f"resumed from {last} (step {state.step})")
+
+    tm = compute_metrics if train_metrics is None else train_metrics
+    train_step = make_train_step(model, compute_metrics=tm,
+                                 clip_norm=clip_norm, remat=remat)
+    eval_step = make_eval_step(model, compute_metrics=compute_metrics)
+
+    generator = torch.Generator(device=device)
+    timer = StepTimer()
+    loader_stats = stats.setdefault("loader", {})
+    stats.setdefault("save_ms", [])
+    last_val_logs = {}
+    t_start = time.time()
+    done = False
+    last_saved_step = -1
+    diverged_checks = 0
+    warned_no_loss_key = False
+    tracing = None  # the profiler's handle while steps 5-10 run
+
+    def _save():
+        nonlocal last_saved_step
+        if state.step != last_saved_step:
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt_dir, state.step, model, state,
+                            {**model.hyper_parameters,
+                             "total_steps": int(total_steps)})
+            stats["save_ms"].append((time.perf_counter() - t0) * 1e3)
+            last_saved_step = state.step
+
+    # SIGTERM (scheduler preemption, `timeout`) -> SystemExit, so the
+    # interrupt-save below fires; the previous handler comes back on exit
+    def _sigterm(*_):
+        raise SystemExit(143)
+
+    prev_handler = None
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:
+        pass  # not the main thread
+
+    # a device-resident dataset gathers its batches on the device already
+    def _staged(loader, epoch, count=False):
+        if getattr(getattr(loader, "dataset", None), "device_resident",
+                   False):
+            return loader.epoch(epoch)
+        return prefetch_to_device(loader.epoch(epoch), device=device,
+                                  stats=loader_stats if count else None)
+
+    try:
+        for epoch in range(start_epoch, epochs):
+            if done:
+                break
+            for batch in _staged(train_loader, epoch, count=True):
+                step_no = state.step
+                if profile_dir and step_no == 5:
+                    tracing = start_trace(profile_dir)
+                generator.manual_seed(step_seed(seed, step_no))
+                state, logs = train_step(state, batch, generator)
+                if tracing and step_no == 10:
+                    stats["trace"] = stop_trace(tracing)
+                    tracing = None
+                # pull logs every log_every steps only, with one host sync:
+                # in between, steps are queued without waiting for the card
+                if step_no % log_every == 0:
+                    host_logs = _host_values(logs)
+                    logger.log(step_no, host_logs)
+                    # divergence guard: a blown-up run never recovers, so
+                    # abort after three consecutive bad checks
+                    if ("train/loss" not in host_logs
+                            and "loss" not in host_logs
+                            and not warned_no_loss_key):
+                        warned_no_loss_key = True
+                        print("WARNING: divergence guard found neither "
+                              "'train/loss' nor 'loss' in logs — the "
+                              "guard is inert for this run")
+                    loss_now = float(host_logs.get(
+                        "train/loss", host_logs.get("loss", 0.0)) or 0.0)
+                    if not np.isfinite(loss_now) or abs(loss_now) > 1e12:
+                        diverged_checks += 1
+                        if diverged_checks >= 3:
+                            raise RuntimeError(
+                                f"diverged: train loss {loss_now:.3g} at "
+                                f"step {step_no} (3 consecutive checks)")
+                    else:
+                        diverged_checks = 0
+                timer.tick()
+                if max_steps is not None and state.step >= max_steps:
+                    done = True
+                    break
+
+            run_val = (val_loader is not None
+                       and ((epoch + 1) % val_every_epochs == 0
+                            or epoch == epochs - 1 or done))
+            if run_val:
+                rows, keys = [], None
+                for batch in _staged(val_loader, 0):
+                    logs = eval_step(batch)
+                    keys = keys or list(logs)
+                    rows.append(torch.stack([logs[k].reshape(()).double()
+                                             for k in keys]))
+                if rows:
+                    table = torch.stack(rows).cpu().numpy()
+                    last_val_logs = {k: float(np.mean(table[:, i].tolist()))
+                                     for i, k in enumerate(keys)}
+                    logger.log(state.step, last_val_logs)
+
+                if log_images:
+                    # one val batch and one train batch per val epoch, as
+                    # the reference callback does
+                    for split, loader in (("val", val_loader),
+                                          ("train", train_loader)):
+                        batch = next(iter(loader.epoch(0)))
+                        x_hats, _ = model(batch)
+                        save_image_grid(
+                            os.path.join(run_dir,
+                                         f"samples_epoch{epoch}_{split}"),
+                            _numpy(x_hats), _numpy(batch))
+
+            if ((epoch + 1) % checkpoint_every_epochs == 0
+                    or epoch == epochs - 1 or done):
+                _save()
+    except (KeyboardInterrupt, SystemExit):
+        # interrupt safety: persist the latest weights before exiting
+        print("interrupted — saving checkpoint")
+        _save()
+        raise
+    finally:
+        if tracing:
+            stats["trace"] = stop_trace(tracing)
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+        stats["step_timer"] = timer.stats()
+        dt = time.time() - t_start
+        print(f"training done: {state.step} steps in {dt:.1f}s "
+              f"({state.step / max(dt, 1e-9):.2f} steps/s)")
+        logger.close()
+    return state, last_val_logs

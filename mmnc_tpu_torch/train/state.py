@@ -62,6 +62,24 @@ class TrainState:
         self.step += 1
         return self
 
+    def state_dict(self) -> dict:
+        """What a checkpoint keeps: the step count, the schedule's horizon
+        and rates, and Adam's state (moments, counts, parameter groups)."""
+        return {"step": self.step, "total_steps": self.total_steps,
+                "learning_rate_main": self.learning_rate_main,
+                "eta_min": self.eta_min,
+                "adam": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        """Restore `state_dict()`'s contents (Adam's tensors land beside
+        the parameters they belong to)."""
+        self.step = int(state["step"])
+        self.total_steps = int(state["total_steps"])
+        self.learning_rate_main = float(state["learning_rate_main"])
+        self.eta_min = float(state["eta_min"])
+        self.optimizer.load_state_dict(state["adam"])
+        return self
+
 
 def create_train_state(model, total_steps: int,
                        learning_rate_main: Optional[float] = None,

@@ -497,3 +497,78 @@ def test_shared4_card_integers_and_stream_equal_the_cpu_port(device):
     for task in want:
         np.testing.assert_allclose(got[task].cpu().numpy(),
                                    want[task].numpy(), rtol=1e-3, atol=1e-4)
+
+
+# --- the data pipeline and the loop on the card ---------------------------
+
+def _scenes(n, image_size=256):
+    from mmnc_tpu_torch.data import SyntheticMultiTaskDataset, prerender
+
+    return prerender(SyntheticMultiTaskDataset(
+        ["rgb", "semantic"], size=n, image_size=image_size, style="clevr"))
+
+
+def test_prefetched_batches_equal_the_host_batches(device):
+    from mmnc_tpu_torch.data import BatchLoader, prefetch_to_device
+
+    loader = BatchLoader(_scenes(24, 128), 4)
+    a = torch.randn(1024, 1024, device=device)
+    n = 0
+    for host, dev in zip(loader.epoch(0), prefetch_to_device(
+            loader.epoch(0), size=3, device=device)):
+        for _ in range(4):  # keep the consumer's stream busy
+            a = torch.tanh(a @ a / 1024.0)
+        for t, x in host.items():
+            assert dev[t].is_cuda
+            assert torch.equal(dev[t].cpu(), torch.from_numpy(x)), (n, t)
+        n += 1
+    assert n == 6
+
+
+def test_device_cache_gather_equals_the_cpu_port(device):
+    from mmnc_tpu_torch.data import DeviceResidentDataset
+
+    rng = np.random.default_rng(0)
+    arrays = {"rgb": rng.random((16, 32, 32, 3), dtype=np.float32),
+              "signed": rng.random((16, 32, 32, 3), dtype=np.float32) * 2 - 1,
+              "semantic": np.floor(rng.random((16, 32, 32, 1),
+                                              dtype=np.float32) * 16.99)}
+    card = DeviceResidentDataset(arrays, device=device)
+    cpu = DeviceResidentDataset(arrays, device="cpu")
+    assert card._scales == cpu._scales
+    for idx in ([0, 3, 15, 3], list(range(16))):
+        got, want = card.get_batch(idx), cpu.get_batch(idx)
+        for t in arrays:
+            assert got[t].is_cuda
+            assert torch.equal(got[t].cpu(), want[t]), t
+
+
+def test_resumed_fit_on_card_equals_uninterrupted(device, tmp_path):
+    from mmnc_tpu_torch.data import BatchLoader
+    from mmnc_tpu_torch.train import fit
+
+    data = _scenes(4)
+
+    def run(out, epochs, **kw):
+        model = build_model(1, ["rgb"], latent_channels=8, conv_channels=4,
+                            lmbda=1e-2, learning_rate_main=1e-4,
+                            device=device)
+        state, _ = fit(model, BatchLoader(data, 2), epochs=epochs,
+                       out_dir=str(out), log_images=False,
+                       compute_metrics=False, log_every=1, **kw)
+        return model, state
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run(tmp_path / "a", 1, schedule_total_steps=4)
+        resumed, s_r = run(tmp_path / "a", 2, resume=True)
+        whole, s_w = run(tmp_path / "b", 2)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert s_r.step == s_w.step == 4 and s_r.total_steps == 4
+    for (name, p), q in zip(whole.named_parameters(), resumed.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(s_w.optimizer.state[p][k],
+                               s_r.optimizer.state[q][k]), (name, k)
