@@ -22,7 +22,9 @@ Phases, each of which exits non-zero on failure:
      phase 7's train step (batch 16, the IGDNs of g_s and the decoder head
      unfused) and of phase 8's shared4 train step (batch 2: C = 1, 10 and
      17 among them); for both, every launch shape of phase 9 (shared4's
-     train step and eval forward at batch 16, its eval forward at 4).
+     train step and eval forward at batch 16, its eval forward at 4), and
+     of phase 10 (shared4's train step at a rank's batch of 8, and the
+     encode and decode halves of its eval forward at 16 and 4).
      Each distinct shape is timed once; the kernels line sums its times
      over the launches of an rgb and a shared4 round trip;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
@@ -94,14 +96,35 @@ Phases, each of which exits non-zero on failure:
      bitwise equal to its host batch; the compress CLI on the checkpoint
      (2 batches: finite bpps > 0, MP/s, launches), and its bytes on a batch
      of CLI_COMPARE_BATCH equal to the CPU port's;
- 10. print a {"kernels": [...]} line (launches: the shared4 run; times
+ 10. analysis, the RD sweep and data parallelism at shared4 (all files in
+     a temporary directory): (a) `cli.rd_sweep`'s sweep over RD_LMBDAS,
+     one epoch of 4 steps of 16 on CLEVR-style scenes with validation:
+     a point per lambda with bpp > 0 and finite per-task PSNR and
+     MS-SSIM, rd_points.json, 63 GDN launches a train step and 35 + 28 a
+     validation step; (b) on the first checkpoint `check_bpp`,
+     `encode_eval`, `channel_bpp`, `swap_latent_slices` and
+     `average_channels` on a batch of 4, card against the CPU plain path
+     (bytes and symbols equal, floats within rtol 1e-3 / atol 1e-4, each
+     call's launches), then `learned_baseline_rd` over both checkpoints
+     (32 held-out scenes each; its points and wall); (c) `fit` on 2 ranks
+     on cuda:0 over gloo (NCCL takes one rank per card) against one
+     process, 4 steps at a global batch of 16 from the same seed weights
+     and scenes, deterministic cuDNN (losses rtol 1e-4, parameters rtol
+     2e-4 / atol 2e-6, the ranks' bitwise equal), and one step over NCCL
+     at world size 1 (its loss the single process's first within rtol
+     1e-4); each run's step p50, the gradient all-reduce's
+     share of a profiled step and its busy share;
+ 11. print a {"kernels": [...]} line (launches: the shared4 run; times
      summed over a shared4 round trip, the rgb path's beside them; cli_*:
      phase 9's launches and phase 3's times at its train and validation
-     steps' shapes) and, last, {"ok": true, "device": {"platform": "gpu",
-     "kind": ..., "count": ...}}.
+     steps' shapes; p10_*: phase 10's launches, every process's, and phase
+     3's times summed over them) and, last, {"ok": true, "device":
+     {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
-and prints no result. `--profile DIR` also writes torch.profiler summaries
+and prints no result. `--dp-cards N` runs only phase 10 (c) across N
+cards (one NCCL rank a card, DP_BATCH rows each) against one process at
+the global batch, on a machine with N cards. `--profile DIR` also writes torch.profiler summaries
 of one round trip, of each layout's streamed run, of one train step, of
 a shared4 round trip and phase 9's trace of the CLI's steps 5-10 to DIR.
 """
@@ -159,6 +182,17 @@ MT_TRAIN_BATCH = 2
 CLI_TRAIN_SIZE, CLI_VAL_SIZE, CLI_BATCH, CLI_EPOCHS = 128, 16, 16, 2
 CLI_COMPARE_BATCH = 4
 CLI_DEVICE = "cuda"
+# phase 10: rd_sweep's sweep at shared4 on CLEVR-style scenes (two lambdas,
+# one epoch of 4 steps of 16, validation on one batch), the analysis on
+# its checkpoints (a batch of ANALYSIS_BATCH on the card and on the CPU;
+# learned_baseline_rd over BASELINE_IMAGES held-out images a checkpoint),
+# and data parallelism on the one card: DP_RANKS ranks of fit over gloo
+# against one process, DP_STEPS steps at a global batch of DP_BATCH, then
+# one step over NCCL at world size 1
+RD_LMBDAS, RD_TRAIN_SIZE, RD_VAL_SIZE, RD_BATCH = (0.01, 0.001), 64, 16, 16
+ANALYSIS_BATCH, BASELINE_IMAGES = 4, 32
+DP_RANKS, DP_STEPS, DP_BATCH, DP_TIMED_STEPS = 2, 4, 16, 5
+DP_CARD = "cuda:0"  # the card every gloo rank of phase 10 (c) shares
 # launches (GDN, deconv+IGDN) per call: compress runs every encoder-head
 # GDN and g_a's; the eval forward (a validation step) compress's and
 # decompress's; decompress the decoder heads' two conv3 IGDNs a task and
@@ -480,6 +514,7 @@ def check_gdn(torch, b, gen):
          (mt_gdn_shapes(shared4, CLI_BATCH, train=True), "cli_train"),
          (mt_gdn_shapes(shared4, CLI_BATCH), "cli_val"),
          (mt_gdn_shapes(shared4, CLI_COMPARE_BATCH), None)]
+        + p10_gdn_groups(shared4)
         + [(mt_gdn_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
         + [(gdn_extra_shapes(path), None)])
@@ -505,6 +540,21 @@ def check_gdn(torch, b, gen):
                                    "plain_ms": plain, "bound_ms": bms}, by)
         del x, gamma, beta
     return totals, max_err_seen, tol_rel
+
+
+def p10_gdn_groups(lay):
+    """Phase 10's GDN launch shapes by group: a train step's at each batch
+    it trains at (the sweep's, the single process's and a rank's), and the
+    encode (compress's analysis) and decode halves of an eval forward at
+    the sweep's and the analysis' batches."""
+    n_enc = MT_LAUNCHES["shared4"]["compress"][0]
+    groups = [(mt_gdn_shapes(lay, b, train=True), f"train{b}")
+              for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
+    for b in sorted({RD_BATCH, ANALYSIS_BATCH}):
+        shapes = mt_gdn_shapes(lay, b)
+        groups += [(shapes[:n_enc], f"encode{b}"),
+                   (shapes[n_enc:], f"decode{b}")]
+    return groups
 
 
 def split_extra_shapes():
@@ -563,6 +613,8 @@ def check_deconv(torch, b, gen):
           "cli_val"),
          (mt_deconv_shapes(paper_layout(*PAPER["shared4"]),
                            CLI_COMPARE_BATCH), None),
+         *((mt_deconv_shapes(paper_layout(*PAPER["shared4"]), bb),
+            f"decode{bb}") for bb in sorted({RD_BATCH, ANALYSIS_BATCH})),
          ([(b, 8, 8, CONV, CONV, None)], None)]  # g_s's last deconv
         + [(mt_deconv_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
@@ -1778,6 +1830,544 @@ def run_cli(torch, profile_dir, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def sweep_argv(tmp):
+    """rd_sweep's flags for phase 10 (a): shared4 (PAPER) on CLEVR-style
+    scenes rendered by the loader, the phase's lambdas, one epoch."""
+    number, tasks, latent, conv = PAPER["shared4"]
+    return ["-d", "synthetic", "--data-style", "clevr", "-t", *tasks,
+            "-m", str(number), "-l", str(latent), "-c", str(conv),
+            "-w", "sweep", "--lmbdas", *map(str, RD_LMBDAS), "--epochs", "1",
+            "--batch-size", str(RD_BATCH), "--train-size", str(RD_TRAIN_SIZE),
+            "--val-size", str(RD_VAL_SIZE), "-lrm", str(LR_MAIN),
+            "-lra", str(LR_AUX), "--out-dir", os.path.join(tmp, "runs"),
+            "--device", CLI_DEVICE]
+
+
+def run_sweep(torch, tmp, card):
+    """Phase 10 (a): rd_sweep's sweep on the card: a point per lambda with
+    bpp > 0 and finite per-task PSNR and MS-SSIM, rd_points.json written,
+    63 GDN and 0 deconv+IGDN launches a train step and 35 + 28 a
+    validation step. Returns the checkpoints, the launches and the steps
+    taken."""
+    from mmnc_tpu_torch.cli import rd_sweep
+
+    tasks = PAPER["shared4"][1]
+    args = rd_sweep.parse_args(sweep_argv(tmp))
+    per_step = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_steps(torch, per_step):
+        points = rd_sweep.sweep(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    want = {k: {"gdn": g, "deconv_igdn": d}
+            for k, (g, d) in MT_LAUNCHES["shared4"].items()}
+    n = {"train": len(RD_LMBDAS) * (RD_TRAIN_SIZE // RD_BATCH),
+         "eval": len(RD_LMBDAS) * (RD_VAL_SIZE // RD_BATCH)}
+    kinds = [k for k, _ in per_step]
+    if {k: kinds.count(k) for k in n} != n or len(kinds) != sum(n.values()):
+        raise RuntimeError(f"sweep ran {kinds}, want {n}")
+    for kind, got in per_step:
+        if got != want[kind]:
+            raise RuntimeError(f"sweep {kind} step: launches {got}, want "
+                               f"{want[kind]}")
+    for k in launches:
+        if launches[k] != sum(c[k] for _, c in per_step):
+            raise RuntimeError(f"sweep: {launches[k]} {k} launches outside "
+                               f"its steps' {per_step}")
+    if [p["lmbda"] for p in points] != list(RD_LMBDAS):
+        raise RuntimeError(f"sweep points {points}")
+    for p in points:
+        values = [p[f"{t}/{m}"] for t in tasks for m in ("psnr", "ms-ssim")]
+        if not (p["bpp"] > 0 and np.isfinite(p["bpp"])
+                and np.all(np.isfinite(values))):
+            raise RuntimeError(f"sweep point {p}")
+    with open(os.path.join(tmp, "runs", "sweep", "rd_points.json")) as f:
+        if json.load(f) != points:
+            raise RuntimeError("sweep: rd_points.json differs from the "
+                               "returned points")
+    steps = RD_TRAIN_SIZE // RD_BATCH
+    ckpts = [os.path.join(tmp, "runs", f"sweep-l{lmbda:g}", "checkpoints",
+                          f"step_{steps}") for lmbda in RD_LMBDAS]
+    missing = [c for c in ckpts if not os.path.exists(
+        os.path.join(c, "state.pt"))]
+    if missing:
+        raise RuntimeError(f"sweep: no checkpoint {missing}")
+    print(f"p10 sweep {PAPER['shared4']} lambdas {list(RD_LMBDAS)}, "
+          f"{n['train'] // len(RD_LMBDAS)} steps of {RD_BATCH} and "
+          f"{n['eval'] // len(RD_LMBDAS)} validation step each ({card}): "
+          f"{seconds:.3f} s (rendering, model builds, train steps with "
+          f"metrics, validation, checkpoints); launches {launches}, a "
+          f"train step {want['train']}, a val step {want['eval']}")
+    for p in points:
+        print(f"p10 sweep point: {json.dumps(p)}")
+    return {"ckpts": ckpts, "launches": launches, "n": n,
+            "seconds": seconds}
+
+
+def restored(path, device):
+    """The codec of a checkpoint, loaded on `device`, tables built."""
+    from mmnc_tpu_torch.utils.checkpoint import (
+        rebuild_model_from_checkpoint, restore_checkpoint)
+
+    model, _ = rebuild_model_from_checkpoint(path, device)
+    payload, _ = restore_checkpoint(path, model.device)
+    model.load_state_dict(payload["model"])
+    model.update_bottleneck_values()
+    return model
+
+
+def close_or_raise(got, want, what, rtol=1e-3, atol=1e-4):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=rtol,
+                                                  atol=atol):
+        raise RuntimeError(f"{what}: card {got.ravel()[:8]} vs CPU "
+                           f"{want.ravel()[:8]} (rtol {rtol}, atol {atol})")
+
+
+# launches (GDN, deconv+IGDN) of each analysis call on a shared4 batch:
+# check_bpp compresses and runs the eval forward of the model and its
+# twin; encode_eval is compress's analysis; channel_bpp one eval forward;
+# swap_latent_slices two encodes and a decode; average_channels one of
+# each. As phase 3's keys: encodes and decodes of the batch
+ANALYSIS_CALLS = {"check_bpp": {"encode": 3, "decode": 2},
+                  "encode_eval": {"encode": 1},
+                  "channel_bpp": {"encode": 1, "decode": 1},
+                  "swap_latent_slices": {"encode": 2, "decode": 1},
+                  "average_channels": {"encode": 1, "decode": 1}}
+
+
+def part_launches(calls):
+    """{"encode": n, "decode": m} -> (GDN, deconv+IGDN) launches."""
+    enc = MT_LAUNCHES["shared4"]["compress"]
+    dec = tuple(e - c for e, c in zip(MT_LAUNCHES["shared4"]["eval"], enc))
+    return {k: calls.get("encode", 0) * enc[i] + calls.get("decode", 0)
+            * dec[i] for i, k in enumerate(("gdn", "deconv_igdn"))}
+
+
+def run_analysis(torch, ckpt, card):
+    """Phase 10 (b): check_bpp, encode_eval, channel_bpp,
+    swap_latent_slices and average_channels on a batch of ANALYSIS_BATCH
+    CLEVR-style held-out scenes, on the card and on the port's CPU plain
+    path from the same checkpoint: bytes and symbols equal, floats within
+    rtol 1e-3 / atol 1e-4, each call's launches on the card. Four steps
+    from the init scale leave every y at 0, so both copies get the conv
+    kernel gains of `seeded_model` first: the symbols, the swapped and
+    averaged slices and the decodes are then not all zeros."""
+    from mmnc_tpu_torch import analysis
+    from mmnc_tpu_torch.data import BatchLoader, SyntheticMultiTaskDataset
+    from mmnc_tpu_torch.weights import scale_conv_kernels
+
+    tasks = PAPER["shared4"][1]
+    scenes = SyntheticMultiTaskDataset(tasks, size=2 * ANALYSIS_BATCH,
+                                       image_size=IMAGE, seed=10 ** 6 + 1,
+                                       style="clevr")
+    batch_a, batch_b = BatchLoader(scenes, ANALYSIS_BATCH,
+                                   shuffle=False).epoch(0)
+    block = restored(ckpt, "cpu").channels_per_task
+    calls = {
+        "check_bpp": lambda m: analysis.check_bpp(m, batch_a),
+        "encode_eval": lambda m: m.encode_eval(batch_a),
+        "channel_bpp": lambda m: analysis.channel_bpp(m, batch_a),
+        "swap_latent_slices": lambda m: analysis.swap_latent_slices(
+            m, batch_a, batch_b, range(block)),
+        "average_channels": lambda m: analysis.average_channels(
+            m, batch_a, range(block, 2 * block))}
+    out, seconds, launches = {}, {}, {}
+    for where, device in (("card", CLI_DEVICE), ("cpu", "cpu")):
+        model = scale_conv_kernels(restored(ckpt, device))
+        model.update_bottleneck_values()
+        for name, call in calls.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = call(model)
+            torch.cuda.synchronize()
+            seconds[where, name] = time.perf_counter() - t0
+            launches[where, name] = counts()
+            out[where, name] = got
+    total = {"gdn": 0, "deconv_igdn": 0}
+    for name, parts in ANALYSIS_CALLS.items():
+        want = part_launches(parts)
+        if launches["card", name] != want or any(
+                launches["cpu", name].values()):
+            raise RuntimeError(f"analysis {name}: launches card "
+                               f"{launches['card', name]} CPU "
+                               f"{launches['cpu', name]}, want {want} on "
+                               f"the card")
+        for k in total:
+            total[k] += want[k]
+    card_bpp, cpu_bpp = out["card", "check_bpp"], out["cpu", "check_bpp"]
+    if (card_bpp["bytes"], card_bpp["actual_bpp"]) != (
+            cpu_bpp["bytes"], cpu_bpp["actual_bpp"]) or card_bpp["bytes"] <= 0:
+        raise RuntimeError(f"check_bpp: card {card_bpp}, CPU {cpu_bpp}")
+    for k in ("estimated_bpp", "estimated_bpp_legacy"):
+        close_or_raise(card_bpp[k], cpu_bpp[k], f"check_bpp {k}")
+    for i, name in enumerate(("y", "z")):
+        sym = out["card", "encode_eval"][i].cpu()
+        if not torch.equal(sym, out["cpu", "encode_eval"][i]):
+            raise RuntimeError(f"encode_eval {name}: card symbols differ "
+                               f"from the CPU port's")
+        close_or_raise(out["card", "channel_bpp"][name],
+                       out["cpu", "channel_bpp"][name], f"channel_bpp {name}")
+    y_nz = float((out["cpu", "encode_eval"][0] != 0).float().mean())
+    for name in ("swap_latent_slices", "average_channels"):
+        for t in tasks:
+            close_or_raise(out["card", name][t].cpu(), out["cpu", name][t],
+                           f"{name} {t}")
+    card_ms = {n: round(seconds["card", n] * 1e3, 3) for n in calls}
+    card_s = sum(v for (d, _), v in seconds.items() if d == "card")
+    cpu_s = sum(v for (d, _), v in seconds.items() if d == "cpu")
+    print(f"p10 analysis on a batch of {ANALYSIS_BATCH} ({card}): card "
+          f"equal to the CPU port (bytes {card_bpp['bytes']}, symbols; "
+          f"floats rtol 1e-3 / atol 1e-4); actual bpp "
+          f"{card_bpp['actual_bpp']:.6f}, estimated "
+          f"{card_bpp['estimated_bpp']:.6f} (legacy "
+          f"{card_bpp['estimated_bpp_legacy']:.6f}); y non-zero {y_nz:.4f}; "
+          f"card ms {json.dumps(card_ms)} ({card_s:.3f} s), CPU "
+          f"{cpu_s:.3f} s; launches {total}")
+    return {"launches": total, "card_s": card_s}
+
+
+def run_baseline(torch, ckpts, card):
+    """Phase 10 (b): learned_baseline_rd over each checkpoint, on
+    BASELINE_IMAGES CLEVR-style held-out scenes in batches of RD_BATCH:
+    finite points with actual bpp > 0, the launches of check_bpp and an
+    eval forward a batch, each point's wall time."""
+    from mmnc_tpu_torch import analysis
+
+    tasks = PAPER["shared4"][1]
+    per_batch = {"encode": ANALYSIS_CALLS["check_bpp"]["encode"] + 1,
+                 "decode": ANALYSIS_CALLS["check_bpp"]["decode"] + 1}
+    batches = BASELINE_IMAGES // RD_BATCH
+    want = {k: v * batches for k, v in part_launches(per_batch).items()}
+    total = {"gdn": 0, "deconv_igdn": 0}
+    for path in ckpts:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        (point,) = analysis.learned_baseline_rd(
+            [path], batch_size=RD_BATCH, n_images=BASELINE_IMAGES,
+            data_style="clevr", device=CLI_DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        if got != want:
+            raise RuntimeError(f"learned_baseline_rd: launches {got}, want "
+                               f"{want}")
+        for k in total:
+            total[k] += got[k]
+        values = [point[k] for k in point if "/" in k] + [
+            point["estimated_bpp"], point["estimated_bpp_legacy"]]
+        if not (point["bpp"] > 0 and point["n_images"] == BASELINE_IMAGES
+                and np.all(np.isfinite(values))):
+            raise RuntimeError(f"learned_baseline_rd point {point}")
+        print(f"p10 learned_baseline_rd lambda {point['lmbda']:g} "
+              f"({BASELINE_IMAGES} images, {card}): wall {seconds:.3f} s "
+              f"(rebuild, load, tables, render, coding, forwards); actual "
+              f"bpp {point['actual_bpp']:.6f}, estimated "
+              f"{point['estimated_bpp']:.6f} (legacy "
+              f"{point['estimated_bpp_legacy']:.6f}); "
+              + ", ".join(f"{t} PSNR {point[f'{t}/psnr']:.4f} MS-SSIM "
+                          f"{point[f'{t}/ms-ssim']:.5f}" for t in tasks))
+    return {"launches": total, "batches": batches * len(ckpts),
+            "per_batch": per_batch}
+
+
+def profile_dp_step(torch, step, state, batch, gen):
+    """torch.profiler over one train step -> wall ms, device busy ms and
+    the host ms of the gradient all-reduce's record_function span (and of
+    any NCCL kernel on the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_WORK]
+    spans = [e["dur"] for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "all_reduce_gradients"]
+    nccl = [e["dur"] for e in device if "nccl" in e["name"].lower()]
+    return {"wall_ms": wall, "busy_ms": busy_us(device) / 1e3,
+            "all_reduce_ms": sum(spans) / 1e3, "all_reduce_spans": len(spans),
+            "nccl_kernel_ms": sum(nccl) / 1e3}
+
+
+def dp_fit(mesh, cache_dir, out_dir, steps, batch_size):
+    """Phase 10 (c): `steps` steps of fit at shared4 from seed-0 weights at
+    the init scale on `batch_size` scenes a step (under a mesh the rank's
+    rows of them), deterministic cuDNN, train metrics on; then DP_TIMED_STEPS
+    synchronised steps and one profiled step. A rank of `parallel.launch`,
+    or (mesh None) the single process. -> {"trace": rank 0's train losses,
+    "params": the parameters after fit, "launches": fit's, "all_launches":
+    with the timed and profiled steps', "step_ms", "profile"}."""
+    import torch
+
+    from mmnc_tpu_torch.data import (BatchLoader, SyntheticMultiTaskDataset,
+                                     prerender)
+    from mmnc_tpu_torch.device import resolve_device
+    from mmnc_tpu_torch.train import fit, make_train_step
+    from mmnc_tpu_torch.train.loop import step_seed
+
+    device = mesh.device if mesh is not None else resolve_device(CLI_DEVICE)
+    tasks = PAPER["shared4"][1]
+    data = prerender(SyntheticMultiTaskDataset(
+        tasks, size=DP_STEPS * batch_size, image_size=IMAGE, seed=0,
+        style="clevr"), cache_dir)
+    name = "single" if mesh is None else f"ranks{mesh.world_size}"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = cli_model(device)
+        torch.cuda.synchronize(device)
+        reset_counts()
+        state, _ = fit(model, BatchLoader(data, batch_size), epochs=1,
+                       max_steps=steps,
+                       run_name=name, out_dir=out_dir, log_every=1,
+                       log_images=False,
+                       n_devices=None if mesh is None else mesh.world_size)
+        torch.cuda.synchronize(device)
+        launches = counts()
+        params = {k: v.detach().cpu().numpy()
+                  for k, v in model.state_dict().items()}
+        trace = []
+        if mesh is None or mesh.lead:
+            with open(os.path.join(out_dir, name,
+                                   f"{name}.metrics.jsonl")) as f:
+                trace = [r["train/loss"] for r in map(json.loads, f)
+                         if "train/loss" in r]
+        step = make_train_step(model, mesh=mesh)
+        rows = slice(None) if mesh is None else mesh.rows(batch_size)
+        batch = model.to_device(next(BatchLoader(data, batch_size).epoch(
+            0, rows)))
+        gen = torch.Generator(device=device)
+        walls = []
+        for _ in range(DP_TIMED_STEPS):
+            gen.manual_seed(step_seed(21, state.step))
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            step(state, batch, gen)
+            torch.cuda.synchronize(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        gen.manual_seed(step_seed(21, state.step))
+        prof = profile_dp_step(torch, step, state, batch, gen)
+        torch.cuda.synchronize(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"trace": trace, "params": params, "launches": launches,
+            "all_launches": counts(), "step_ms": float(np.median(walls)),
+            "profile": prof}
+
+
+def dp_scenes(tmp, n):
+    """Render n CLEVR-style shared4 scenes into a cache under `tmp` (the
+    ranks load it) -> (cache dir, seconds)."""
+    from mmnc_tpu_torch.data import SyntheticMultiTaskDataset, prerender
+
+    cache = os.path.join(tmp, "dp_cache")
+    t0 = time.perf_counter()
+    prerender(SyntheticMultiTaskDataset(
+        PAPER["shared4"][1], size=n, image_size=IMAGE, seed=0,
+        style="clevr"), cache)
+    return cache, time.perf_counter() - t0
+
+
+def check_dp(single, ranks, steps, what):
+    """The ranks' fit against the single process's: each run's launches
+    (`steps` train steps of 63 GDN), the loss trace within rtol 1e-4, the
+    parameters within rtol 2e-4 / atol 2e-6 (tests/test_train.py:95-103),
+    every rank's bitwise equal. Returns the largest parameter diff."""
+    train = MT_LAUNCHES["shared4"]["train"]
+    want = {"gdn": steps * train[0], "deconv_igdn": steps * train[1]}
+    for name, run in [("single", single), *((f"rank {r}", run)
+                                            for r, run in enumerate(ranks))]:
+        if run["launches"] != want:
+            raise RuntimeError(f"{what} {name}: launches {run['launches']}, "
+                               f"want {want}")
+    lead = ranks[0]
+    if len(single["trace"]) != steps or len(lead["trace"]) != steps \
+            or not np.all(np.isfinite(single["trace"])):
+        raise RuntimeError(f"{what} traces {single['trace']} {lead['trace']}")
+    if not np.allclose(lead["trace"], single["trace"], rtol=1e-4, atol=0):
+        raise RuntimeError(f"{what} loss trace: {len(ranks)} ranks "
+                           f"{lead['trace']} vs one process "
+                           f"{single['trace']} (rtol 1e-4)")
+    worst = 0.0
+    for k, p in single["params"].items():
+        for rank in ranks[1:]:
+            if not np.array_equal(rank["params"][k], lead["params"][k]):
+                raise RuntimeError(f"{what}: ranks' {k} differ")
+        q = lead["params"][k]
+        if not np.allclose(q, p, rtol=2e-4, atol=2e-6):
+            raise RuntimeError(f"{what}: {k} max |diff| "
+                               f"{np.abs(q - p).max()} (rtol 2e-4, "
+                               f"atol 2e-6)")
+        worst = max(worst, float(np.abs(q - p).max()))
+    return worst
+
+
+def print_dp_run(prefix, name, run, batch, card):
+    """A run's step p50 (images/s of its global batch), the all-reduce's
+    share of a profiled step and its busy share."""
+    prof = run["profile"]
+    print(f"{prefix} {name} ({card}): step p50 {run['step_ms']:.3f} ms "
+          f"(median of {DP_TIMED_STEPS} synchronised steps; "
+          f"{batch / run['step_ms'] * 1e3:.3f} images/s at a global batch "
+          f"of {batch}); profiled step wall {prof['wall_ms']:.3f} ms, "
+          f"all-reduce span {prof['all_reduce_ms']:.3f} ms "
+          f"({prof['all_reduce_ms'] / prof['wall_ms']:.4f} of the step; "
+          f"NCCL kernels {prof['nccl_kernel_ms']:.3f} ms), busy "
+          f"{prof['busy_ms']:.3f} ms "
+          f"({prof['busy_ms'] / prof['wall_ms']:.4f})")
+
+
+def run_parallel(torch, tmp, card):
+    """Phase 10 (c): fit on DP_RANKS ranks on one card (DP_CARD) over gloo
+    (NCCL takes one rank per card) against one process, the same seed
+    weights and scenes under deterministic cuDNN (`check_dp`). Then one
+    fit step over NCCL at world size 1. Prints each run's step p50, the
+    all-reduce's share of a profiled step and its busy share."""
+    from mmnc_tpu_torch.parallel import launch
+
+    cache, render_s = dp_scenes(tmp, DP_STEPS * DP_BATCH)
+    out = os.path.join(tmp, "dp")
+    runs = {"single": dp_fit(None, cache, out, DP_STEPS, DP_BATCH)}
+    t0 = time.perf_counter()
+    ranks = launch(dp_fit, DP_RANKS, DP_CARD, cache, out, DP_STEPS,
+                   DP_BATCH, backend="gloo", timeout=600)
+    gloo_s = time.perf_counter() - t0
+    runs["gloo"] = ranks[0]
+    t0 = time.perf_counter()
+    (runs["nccl"],) = launch(dp_fit, 1, CLI_DEVICE, cache, out, 1, DP_BATCH,
+                             timeout=600)
+    nccl_s = time.perf_counter() - t0
+    worst = check_dp(runs["single"], ranks, DP_STEPS, "dp")
+    nccl, train = runs["nccl"], MT_LAUNCHES["shared4"]["train"]
+    if nccl["launches"] != {"gdn": train[0], "deconv_igdn": train[1]} or \
+            len(nccl["trace"]) != 1 or not np.allclose(
+                nccl["trace"], runs["single"]["trace"][:1], rtol=1e-4):
+        raise RuntimeError(f"dp nccl: launches {nccl['launches']}, loss "
+                           f"{nccl['trace']} against the single process's "
+                           f"first {runs['single']['trace'][:1]}")
+    print(f"p10 data parallel ({card}): {DP_STEPS} fit steps at a global "
+          f"batch of {DP_BATCH}, {DP_RANKS} gloo ranks on {DP_CARD} "
+          f"({DP_BATCH // DP_RANKS} rows each) vs one process, deterministic "
+          f"cuDNN: losses {json.dumps(runs['gloo']['trace'])} vs "
+          f"{json.dumps(runs['single']['trace'])}, parameters max |diff| "
+          f"{worst:.3e}, ranks bitwise equal; NCCL at world size 1: loss "
+          f"{nccl['trace'][0]:.6f} (the single process's first "
+          f"{runs['single']['trace'][0]:.6f}); scenes rendered in "
+          f"{render_s:.3f} s; launch walls (spawn, CUDA init, fit, timing) "
+          f"gloo {gloo_s:.3f} s, nccl {nccl_s:.3f} s")
+    for name in ("single", "gloo", "nccl"):
+        print_dp_run("p10 dp", name, runs[name], DP_BATCH, card)
+    # every run's train steps (fit's, the timed and the profiled ones) and
+    # its launches, counted in its process
+    extra = DP_TIMED_STEPS + 1
+    calls = {f"train{DP_BATCH}": DP_STEPS + extra + 1 + extra}
+    calls[f"train{DP_BATCH // DP_RANKS}"] = DP_RANKS * (DP_STEPS + extra)
+    launches = {k: sum(r["all_launches"][k] for r in
+                       [runs["single"], runs["nccl"], *ranks])
+                for k in ("gdn", "deconv_igdn")}
+    return {"calls": calls, "launches": launches}
+
+
+def run_cards(torch, n, card):
+    """`--dp-cards n`: phase 10 (c) across n cards, one rank a card over
+    NCCL, DP_BATCH rows a rank (a global batch of n x DP_BATCH), against
+    one process at the global batch (`check_dp`), with each run's step
+    p50, all-reduce share and busy share."""
+    from mmnc_tpu_torch.parallel import launch
+
+    batch = n * DP_BATCH
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        cache, _ = dp_scenes(tmp, DP_STEPS * batch)
+        out = os.path.join(tmp, "dp")
+        single = dp_fit(None, cache, out, DP_STEPS, batch)
+        t0 = time.perf_counter()
+        ranks = launch(dp_fit, n, "cuda", cache, out, DP_STEPS, batch,
+                       timeout=600)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = check_dp(single, ranks, DP_STEPS, f"{n} cards")
+    print(f"cards: {DP_STEPS} fit steps at a global batch of {batch}, {n} "
+          f"NCCL ranks, one a card ({DP_BATCH} rows each), vs one process "
+          f"({card} each), deterministic cuDNN: losses "
+          f"{json.dumps(ranks[0]['trace'])} vs {json.dumps(single['trace'])}"
+          f", parameters max |diff| {worst:.3e}, ranks bitwise equal; "
+          f"launch wall {seconds:.3f} s")
+    print_dp_run("cards", "single", single, batch, card)
+    for r, run in enumerate(ranks):
+        print_dp_run("cards", f"rank {r}", run, batch, card)
+
+
+def run_phase10(torch, card):
+    """Phase 10: the sweep, the analysis on its checkpoints and data
+    parallelism. Returns the launches and the calls of each of phase 3's
+    shape groups they came from."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p10_")
+    try:
+        t0 = time.perf_counter()
+        sweep = run_sweep(torch, tmp, card)
+        analysis = run_analysis(torch, sweep["ckpts"][0], card)
+        baseline = run_baseline(torch, sweep["ckpts"], card)
+        dp = run_parallel(torch, tmp, card)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    calls = {}
+    for key, n in [(f"train{RD_BATCH}", sweep["n"]["train"]),
+                   (f"encode{RD_BATCH}", sweep["n"]["eval"]),
+                   (f"decode{RD_BATCH}", sweep["n"]["eval"]),
+                   *((f"{part}{ANALYSIS_BATCH}", c.get(part, 0))
+                     for c in ANALYSIS_CALLS.values()
+                     for part in ("encode", "decode")),
+                   *((f"{part}{RD_BATCH}", baseline["batches"] * n)
+                     for part, n in baseline["per_batch"].items()),
+                   *dp["calls"].items()]:
+        calls[key] = calls.get(key, 0) + n
+    launches = {k: sum(part["launches"][k] for part in
+                       (sweep, analysis, baseline, dp))
+                for k in ("gdn", "deconv_igdn")}
+    for k, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"kernel {k} never launched in phase 10")
+    print(f"p10 ({card}): {seconds:.3f} s; launches {launches}")
+    return {"launches": launches, "calls": calls}
+
+
+def p10_sums(p10, tot, kernel):
+    """The kernels line's phase 10 entries of `kernel`: its launches, and
+    phase 3's times summed over them (each shape group's sums times the
+    calls of it); the two counts must agree."""
+    out = {"p10_launches": p10["launches"][kernel], "p10_ms": 0.0,
+           "p10_plain_ms": 0.0, "p10_bound_ms": 0.0}
+    reckoned = 0
+    for key, n in p10["calls"].items():
+        if key not in tot:  # deconv+IGDN: no train or encode launches
+            continue
+        reckoned += n * tot[key]["launches"]
+        for field in ("ms", "plain_ms", "bound_ms"):
+            out[f"p10_{field}"] += n * tot[key][field]
+    if reckoned != p10["launches"][kernel]:
+        raise RuntimeError(f"{kernel}: phase 3 reckoned {reckoned} launches "
+                           f"in phase 10, it counted "
+                           f"{p10['launches'][kernel]}")
+    return out
+
+
 def profile_round_trip(torch, model, batch, out_dir):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1829,6 +2419,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--profile", default=None,
                         help="write a profiler summary of one round trip here")
+    parser.add_argument("--dp-cards", type=int, default=None,
+                        help="run only phase 10 (c) across this many cards "
+                             "(one NCCL rank a card) against one process")
     args = parser.parse_args(argv)
 
     import torch
@@ -1851,6 +2444,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    if args.dp_cards:
+        run_cards(torch, args.dp_cards, "; ".join(card.splitlines()))
+        print_ok(torch)
+        return 0
 
     gen = torch.Generator().manual_seed(SEED)
     gdn_tot, gdn_err, gdn_tol = check_gdn(torch, BATCH, gen)
@@ -1866,6 +2463,7 @@ def main(argv=None):
     train = run_train(torch, args.profile)
     mt = run_multitask(torch, args.profile)
     cli = run_cli(torch, args.profile, card)
+    p10 = run_phase10(torch, card)
     for name, n in mt["launches"].items():
         # phase 3 summed its times over the launches its shape lists give
         per_trip = dec_tot if name == "deconv_igdn" else gdn_tot
@@ -1900,7 +2498,10 @@ def main(argv=None):
              f"cli_*: phase 9 (the train CLI at shared4, batch {CLI_BATCH}): "
              f"cli_launches over its run, *_per_step a train and a "
              f"validation step, cli_*_isolated_ms and cli_*_plain_ms phase 3 "
-             f"at those steps' shapes")
+             f"at those steps' shapes; p10_*: phase 10 (the sweep, the "
+             f"analysis and data parallelism at shared4): p10_launches "
+             f"counted over it, every process's, p10_ms, p10_plain_ms and "
+             f"p10_bound_ms phase 3's sums over those launches")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -1920,7 +2521,8 @@ def main(argv=None):
          "shared4_train_isolated_ms": gdn_tot["shared4_train"]["ms"],
          "shared4_train_plain_ms": gdn_tot["shared4_train"]["plain_ms"],
          "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"],
-         **cli_sums(cli, gdn_tot, "gdn", ("train", "val"))},
+         **cli_sums(cli, gdn_tot, "gdn", ("train", "val")),
+         **p10_sums(p10, gdn_tot, "gdn")},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -1933,13 +2535,18 @@ def main(argv=None):
              k: v["deconv_igdn"] for k, v in train["launches"].items()},
          "shared4_train_launches_per_step":
              mt["train_launches"]["deconv_igdn"],
-         **cli_sums(cli, dec_tot, "deconv_igdn", ("val",))},
+         **cli_sums(cli, dec_tot, "deconv_igdn", ("val",)),
+         **p10_sums(p10, dec_tot, "deconv_igdn")},
     ]
     print(json.dumps({"kernels": kernels}))
+    print_ok(torch)
+    return 0
+
+
+def print_ok(torch):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

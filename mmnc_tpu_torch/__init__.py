@@ -13,9 +13,13 @@ disjoint and shared codecs) with eval `forward`,
 contract, prerender, `BatchLoader` with `prefetch_to_device`, the
 device-resident dataset); `train` (the train and eval steps, and
 `train.fit`: the epoch loop with validation, checkpoints and resume);
-`utils` (checkpoints, the metric sink, profiling); the CLIs `python -m
-mmnc_tpu_torch.cli.train` and `python -m mmnc_tpu_torch.cli.compress`;
-`weights.state_dict_from_jax` to carry JAX params over.
+`utils` (checkpoints, the metric sink, profiling); `analysis` (RD
+points, check_bpp, per-channel bpp, latent probing, learned and classical
+baselines); `parallel` (data parallelism, one process per device:
+`launch`, `make_mesh`); the CLIs `python -m mmnc_tpu_torch.cli.train`
+(`-g N` on N devices), `python -m mmnc_tpu_torch.cli.compress` and
+`python -m mmnc_tpu_torch.cli.rd_sweep`; `weights.state_dict_from_jax`
+to carry JAX params over.
 """
 
 from .models.codecs import (MultiTaskDisjointLatentCompressor,

@@ -5,8 +5,10 @@ plus --device.
         -m 2 -l 300 -c 32 -w myrun --lmbda 1e-2 --epochs 10 --batch-size 16
 
 Runs on the CUDA device unless --device names another (--device cpu);
-with no card and no --device it raises. --devices > 1 and
---steps-per-call > 1 are not ported yet and raise.
+with no card and no --device it raises. `-g N` trains data-parallel on N
+ranks, one process each (`parallel.launch`): rank r on card r, or N CPU
+ranks with --device cpu; --batch-size is the global batch, which the
+ranks split. --steps-per-call > 1 is not ported yet and raises.
 """
 
 import argparse
@@ -17,6 +19,7 @@ from ..data import (SyntheticMultiTaskDataset, CLEVRDataset, BatchLoader,
                     task_parameters)
 from ..data.mnist import MNISTMonoDataset
 from ..models import build_model
+from ..parallel import launch
 from ..train.loop import check_ported, fit
 
 DATASET_ROOTS = {
@@ -45,8 +48,8 @@ def parse_args(argv):
     p.add_argument("--lmbda", type=float, default=1e-2)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("-g", "--devices", default=1, type=int,
-                   help="devices in the data-parallel mesh (only 1 is "
-                        "ported; more raise)")
+                   help="devices in the data-parallel mesh: one process "
+                        "per device")
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: the CUDA "
                         "device; 'cpu' to run on the CPU)")
@@ -132,14 +135,11 @@ def get_loaders(args):
                         num_workers=workers))
 
 
-def main(argv=None, stats=None):
-    """Parse argv, build the model and the loaders, and train. `stats` is
-    handed to `fit` (the run's timings). Returns the train state."""
-    args = parse_args(argv if argv is not None else sys.argv[1:])
+def train(args, device=None, n_devices=None, stats=None):
+    """Build the model and the loaders from `args` and train; returns
+    (state, val_logs)."""
     resume = args.resume or (
         args.continue_run_id not in (None, "", "none", "None"))
-    check_ported(args.devices, args.steps_per_call)
-
     model = build_model(
         args.model, args.tasks,
         latent_channels=args.latent_channels,
@@ -148,24 +148,44 @@ def main(argv=None, stats=None):
         learning_rate_main=args.learning_rate_main,
         learning_rate_aux=args.learning_rate_aux,
         legacy_broadcast=args.legacy_broadcast,
-        device=args.device,
+        device=device if device is not None else args.device,
     )
     print(f"model: {model.get_model_name()} tasks={model.tasks} "
           f"M={model.latent_channels} C={model.conv_channels} "
           f"device={model.device}")
 
     train_loader, val_loader = get_loaders(args)
-    state, val_logs = fit(
+    return fit(
         model, train_loader, val_loader,
         epochs=args.epochs, run_name=args.run_name, out_dir=args.out_dir,
         resume=resume, use_wandb=args.wandb,
         compute_metrics=not args.no_metrics,
-        n_devices=args.devices if args.devices > 1 else None,
+        n_devices=n_devices,
         profile_dir=args.profile_dir, max_steps=args.max_steps,
         log_every=args.log_every,
         steps_per_call=args.steps_per_call,
         stats=stats,
     )
+
+
+def _train_rank(mesh, args):
+    """One rank of `-g N`: its own model and loaders on its device."""
+    stats = {}
+    state, val_logs = train(args, mesh.device, mesh.world_size, stats)
+    return {"step": state.step, "val_logs": val_logs, "stats": stats}
+
+
+def main(argv=None, stats=None):
+    """Parse argv, build the model and the loaders, and train. `stats` is
+    handed to `fit` (the run's timings). Returns the train state; with
+    `-g N > 1`, each rank's {"step", "val_logs", "stats"} in rank order."""
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    check_ported(args.steps_per_call)
+    if args.devices > 1:
+        if args.prerender:
+            get_loaders(args)  # render the cache once, before the ranks read it
+        return launch(_train_rank, args.devices, args.device, args)
+    state, val_logs = train(args, stats=stats)
     for k in sorted(val_logs):
         print(f"  {k}: {val_logs[k]:.5g}")
     return state

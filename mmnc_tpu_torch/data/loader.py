@@ -27,6 +27,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class BatchLoader:
     """Iterates {task: (B, H, W, C) np.float32} batches.
@@ -84,12 +86,16 @@ class BatchLoader:
         return {t: np.stack([s[t] for s in samples])
                 for t in samples[0].keys()}
 
-    def epoch(self, epoch: int = 0) -> Iterator[dict]:
+    def epoch(self, epoch: int = 0, rows: slice = slice(None)
+              ) -> Iterator[dict]:
+        """The batches of `epoch`. `rows` fetches only those rows of each
+        batch (a data-parallel rank's share): the order of the samples
+        and the members of each batch stay the whole loader's."""
         order = self._epoch_order(epoch)
         n_batches = len(self)
         for b in range(n_batches):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield self._fetch(idx)
+            yield self._fetch(idx[rows])
 
     def __iter__(self):
         epoch = 0
@@ -117,41 +123,49 @@ def _to_device(batch, device, stream):
 def prefetch_to_device(iterator, size: int = 2, device=None,
                        stats: Optional[dict] = None):
     """Wrap a host batch iterator ({task: array}) so batches arrive as
-    tensors on `device` ahead of use.
+    tensors on `device` (CUDA unless given; raises with no card and no
+    device, as every entry point of the port) ahead of use.
 
     On a CUDA device a background thread stages up to `size` batches
     (pinned copy, side stream, event; see the module docstring). On the
-    CPU (device None or "cpu") it yields the batches as torch tensors
-    sharing the host arrays' memory: no thread and no copy.
+    CPU (device "cpu") it yields the batches as torch tensors sharing the
+    host arrays' memory: no thread and no copy.
 
     `stats`, if given, gains "wait_s" (seconds the consumer waited for
     its batches, summed: on the queue, or on the host iterator where
     there is no thread), "waits_s" (each batch's wait, in order) and
     "batches" (batches handed out)."""
+    device = resolve_device(device)
     if stats is not None:
         stats.setdefault("wait_s", 0.0)
         stats.setdefault("waits_s", [])
         stats.setdefault("batches", 0)
+    if device.type != "cuda":
+        return _host_batches(iterator, stats)
+    return _prefetched(iterator, size, device, stats)
 
-    def handed_out(t0):
-        if stats is not None:
-            waited = time.perf_counter() - t0
-            stats["wait_s"] += waited
-            stats["waits_s"].append(waited)
-            stats["batches"] += 1
 
-    device = torch.device(device) if device is not None else None
-    if device is None or device.type != "cuda":
-        iterator = iter(iterator)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(iterator, None)
-            if batch is None:
-                return
-            batch = {t: torch.as_tensor(x) for t, x in batch.items()}
-            handed_out(t0)
-            yield batch
+def _handed_out(stats, t0):
+    if stats is not None:
+        waited = time.perf_counter() - t0
+        stats["wait_s"] += waited
+        stats["waits_s"].append(waited)
+        stats["batches"] += 1
 
+
+def _host_batches(iterator, stats):
+    iterator = iter(iterator)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(iterator, None)
+        if batch is None:
+            return
+        batch = {t: torch.as_tensor(x) for t, x in batch.items()}
+        _handed_out(stats, t0)
+        yield batch
+
+
+def _prefetched(iterator, size, device, stats):
     q = queue.Queue(maxsize=size)
     end = object()
     stop = threading.Event()
@@ -189,7 +203,7 @@ def prefetch_to_device(iterator, size: int = 2, device=None,
             current.wait_event(done)
             for x in batch.values():
                 x.record_stream(current)
-            handed_out(t0)
+            _handed_out(stats, t0)
             yield batch
     finally:
         # a consumer that stops early (max_steps, an exception) releases

@@ -2,6 +2,8 @@
 MS-SSIM on NHWC tensors.
 
 * PSNR: one global MSE over the whole batch, explicit data_range.
+* PSNR and mIoU also come as sufficient statistics (`*_stats`), which a
+  data-parallel step sums over its ranks before `*_from_stats`.
 * MS-SSIM with pytorch_msssim.ms_ssim semantics: 5 scales, weights
   (0.0448, 0.2856, 0.3001, 0.2363, 0.1333), an 11-tap separable Gaussian
   window (sigma 1.5) applied VALID per channel, K1 = 0.01, K2 = 0.03, 2x2
@@ -19,22 +21,49 @@ import torch.nn.functional as F
 MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
-def psnr(pred, target, data_range: float):
-    mse = torch.mean((pred - target) ** 2)
+def squared_error_stats(pred, target):
+    """PSNR's sufficient statistics: (summed squared error, count), a
+    float64 (2,) tensor; statistics of several shards add up."""
+    sse = torch.sum((pred.float() - target.float()) ** 2)
+    return torch.stack([sse.double(), sse.new_tensor(pred.numel(),
+                                                     dtype=torch.float64)])
+
+
+def psnr_from_stats(stats, data_range: float):
+    """10 log10(R^2 / mse) of the mse that `stats` hold, as float32."""
+    mse = (stats[0] / stats[1]).float()
     return 10.0 * torch.log10(data_range ** 2 / torch.clamp_min(mse, 1e-12))
+
+
+def psnr(pred, target, data_range: float):
+    """PSNR of one global MSE over the whole batch."""
+    return psnr_from_stats(squared_error_stats(pred, target), data_range)
+
+
+def miou_stats(pred_labels, target_labels, num_classes: int = 17):
+    """mIoU's sufficient statistics: per class the intersection, the
+    union and the target's pixel count, a float64 (3, num_classes)
+    tensor; statistics of several shards add up."""
+    classes = torch.arange(num_classes, device=pred_labels.device)[:, None]
+    p = pred_labels.reshape(1, -1).long() == classes
+    t = target_labels.reshape(1, -1).long() == classes
+    return torch.stack([(p & t).sum(1), (p | t).sum(1), t.sum(1)]).double()
+
+
+def miou_from_stats(stats):
+    """Mean intersection-over-union over the classes present in the
+    target, from `miou_stats`, as float32."""
+    inter, union, count = stats.float()
+    present = (count > 0).float()
+    return torch.sum(inter / union.clamp_min(1) * present) / torch.clamp_min(
+        present.sum(), 1.0)
 
 
 def miou(pred_labels, target_labels, num_classes: int = 17):
     """Mean intersection-over-union over the classes present in the
     target; integer label maps of any shape."""
-    classes = torch.arange(num_classes, device=pred_labels.device)[:, None]
-    p = pred_labels.reshape(1, -1).long() == classes
-    t = target_labels.reshape(1, -1).long() == classes
-    inter = (p & t).sum(1).float()
-    union = (p | t).sum(1).clamp_min(1).float()
-    present = t.any(1).float()
-    return torch.sum(inter / union * present) / torch.clamp_min(
-        present.sum(), 1.0)
+    return miou_from_stats(miou_stats(pred_labels, target_labels,
+                                      num_classes))
 
 
 def _gaussian_kernel(size: int, sigma: float, device):

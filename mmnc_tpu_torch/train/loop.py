@@ -13,8 +13,16 @@ Where it differs from the JAX loop, and why:
 * the step's noise comes from a generator on the model's device reseeded
   from (seed + 1, step) before every step, as the JAX step folds the step
   into its key: a resumed run draws the noise of an uninterrupted one;
-* `n_devices > 1` (data parallelism) and `steps_per_call > 1` (several
-  steps in one dispatch) are not ported yet and raise.
+* data parallelism (`n_devices > 1`) runs one process per device
+  (`parallel.launch` starts them, each calling `fit`): every rank reads
+  the same shuffled batches and stages its own rows, its steps reduce the
+  gradients and the logs (`train/step.py`), and rank 0 alone writes the
+  metrics, image grids and checkpoints. Every early exit (`max_steps`,
+  the divergence guard on the reduced loss, a SIGTERM) is taken by all
+  ranks together: a rank that left alone would hang the others in their
+  next collective;
+* `steps_per_call > 1` (several steps in one dispatch) is not ported yet
+  and raises.
 """
 
 import json
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from ..data.loader import prefetch_to_device
+from ..parallel import make_mesh, shard_train_state
 from ..utils.checkpoint import (find_last_checkpoint, restore_checkpoint,
                                 save_checkpoint)
 from ..utils.logging import MetricLogger, save_image_grid
@@ -40,12 +49,8 @@ def step_seed(seed: int, step: int) -> int:
     return ((seed + 1) << 32) + step
 
 
-def check_ported(n_devices: Optional[int], steps_per_call: int):
+def check_ported(steps_per_call: int):
     """Raise for the options the port does not have yet."""
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md section 1, "
-            "item 11: DDP)")
     if steps_per_call > 1:
         raise NotImplementedError(
             "steps_per_call > 1 is not ported yet (ROADMAP.md section 2, "
@@ -97,13 +102,26 @@ def fit(
     "loader" (seconds the loop waited for prefetched batches and how many
     it took), "save_ms" (one entry per checkpoint written), "restore_ms"
     (the resume's load, if any) and "trace" (the profiler's file, if
-    any)."""
-    check_ported(n_devices, steps_per_call)
+    any).
+
+    `n_devices > 1` trains on a mesh of that many ranks, each running
+    this `fit` in its own process (`parallel.launch`) with its own model
+    on its own device: the batch size is the global batch's, which the
+    ranks split. Outside such a process group it raises."""
+    check_ported(steps_per_call)
     stats = {} if stats is None else stats
+    device = model.device
+    mesh = None
+    if n_devices is not None and n_devices > 1:
+        mesh = make_mesh(n_devices, device)
+        if mesh.device != device:
+            raise ValueError(f"rank {mesh.rank}: the model is on {device}, "
+                             f"the rank's device is {mesh.device}")
+    lead = mesh is None or mesh.lead  # writes the run's files
     run_dir = os.path.join(out_dir, run_name)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    logger = MetricLogger(run_dir, run_name, use_wandb=use_wandb)
-    device = model.device
+    logger = MetricLogger(run_dir, run_name, use_wandb=use_wandb) \
+        if lead else None
 
     steps_per_epoch = len(train_loader)
     total_steps = min(epochs * steps_per_epoch, max_steps or 10 ** 12)
@@ -143,11 +161,14 @@ def fit(
         stats["restore_ms"] = (time.perf_counter() - t0) * 1e3
         start_epoch = state.step // steps_per_epoch
         print(f"resumed from {last} (step {state.step})")
+    if mesh is not None:
+        shard_train_state(state, model, mesh)
 
     tm = compute_metrics if train_metrics is None else train_metrics
     train_step = make_train_step(model, compute_metrics=tm,
-                                 clip_norm=clip_norm, remat=remat)
-    eval_step = make_eval_step(model, compute_metrics=compute_metrics)
+                                 clip_norm=clip_norm, remat=remat, mesh=mesh)
+    eval_step = make_eval_step(model, compute_metrics=compute_metrics,
+                               mesh=mesh)
 
     generator = torch.Generator(device=device)
     timer = StepTimer()
@@ -164,17 +185,26 @@ def fit(
     def _save():
         nonlocal last_saved_step
         if state.step != last_saved_step:
-            t0 = time.perf_counter()
-            save_checkpoint(ckpt_dir, state.step, model, state,
-                            {**model.hyper_parameters,
-                             "total_steps": int(total_steps)})
-            stats["save_ms"].append((time.perf_counter() - t0) * 1e3)
+            if lead:
+                t0 = time.perf_counter()
+                save_checkpoint(ckpt_dir, state.step, model, state,
+                                {**model.hyper_parameters,
+                                 "total_steps": int(total_steps)})
+                stats["save_ms"].append((time.perf_counter() - t0) * 1e3)
+            if mesh is not None:
+                mesh.barrier()
             last_saved_step = state.step
 
     # SIGTERM (scheduler preemption, `timeout`) -> SystemExit, so the
-    # interrupt-save below fires; the previous handler comes back on exit
+    # interrupt-save below fires; the previous handler comes back on exit.
+    # A rank only notes it: the ranks agree on it after every step and
+    # save and exit together
+    sigterm = []
+
     def _sigterm(*_):
-        raise SystemExit(143)
+        if mesh is None:
+            raise SystemExit(143)
+        sigterm.append(1)
 
     prev_handler = None
     try:
@@ -183,11 +213,13 @@ def fit(
         pass  # not the main thread
 
     # a device-resident dataset gathers its batches on the device already
+    # (a rank fetches and stages its rows only)
     def _staged(loader, epoch, count=False):
+        rows = slice(None) if mesh is None else mesh.rows(loader.batch_size)
         if getattr(getattr(loader, "dataset", None), "device_resident",
                    False):
-            return loader.epoch(epoch)
-        return prefetch_to_device(loader.epoch(epoch), device=device,
+            return loader.epoch(epoch, rows)
+        return prefetch_to_device(loader.epoch(epoch, rows), device=device,
                                   stats=loader_stats if count else None)
 
     try:
@@ -196,7 +228,7 @@ def fit(
                 break
             for batch in _staged(train_loader, epoch, count=True):
                 step_no = state.step
-                if profile_dir and step_no == 5:
+                if profile_dir and lead and step_no == 5:
                     tracing = start_trace(profile_dir)
                 generator.manual_seed(step_seed(seed, step_no))
                 state, logs = train_step(state, batch, generator)
@@ -207,7 +239,8 @@ def fit(
                 # in between, steps are queued without waiting for the card
                 if step_no % log_every == 0:
                     host_logs = _host_values(logs)
-                    logger.log(step_no, host_logs)
+                    if lead:
+                        logger.log(step_no, host_logs)
                     # divergence guard: a blown-up run never recovers, so
                     # abort after three consecutive bad checks
                     if ("train/loss" not in host_logs
@@ -228,6 +261,10 @@ def fit(
                     else:
                         diverged_checks = 0
                 timer.tick()
+                if mesh is not None and mesh.any(bool(sigterm)):
+                    print(f"rank {mesh.rank}: SIGTERM — saving checkpoint")
+                    _save()
+                    raise SystemExit(143)
                 if max_steps is not None and state.step >= max_steps:
                     done = True
                     break
@@ -246,9 +283,10 @@ def fit(
                     table = torch.stack(rows).cpu().numpy()
                     last_val_logs = {k: float(np.mean(table[:, i].tolist()))
                                      for i, k in enumerate(keys)}
-                    logger.log(state.step, last_val_logs)
+                    if lead:
+                        logger.log(state.step, last_val_logs)
 
-                if log_images:
+                if log_images and lead:
                     # one val batch and one train batch per val epoch, as
                     # the reference callback does
                     for split, loader in (("val", val_loader),
@@ -264,9 +302,11 @@ def fit(
                     or epoch == epochs - 1 or done):
                 _save()
     except (KeyboardInterrupt, SystemExit):
-        # interrupt safety: persist the latest weights before exiting
-        print("interrupted — saving checkpoint")
-        _save()
+        # interrupt safety: persist the latest weights before exiting (a
+        # rank saved with the others above; alone it could only hang)
+        if mesh is None:
+            print("interrupted — saving checkpoint")
+            _save()
         raise
     finally:
         if tracing:
@@ -275,7 +315,8 @@ def fit(
             signal.signal(signal.SIGTERM, prev_handler)
         stats["step_timer"] = timer.stats()
         dt = time.time() - t_start
-        print(f"training done: {state.step} steps in {dt:.1f}s "
-              f"({state.step / max(dt, 1e-9):.2f} steps/s)")
-        logger.close()
+        if lead:
+            print(f"training done: {state.step} steps in {dt:.1f}s "
+                  f"({state.step / max(dt, 1e-9):.2f} steps/s)")
+            logger.close()
     return state, last_val_logs

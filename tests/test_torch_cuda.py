@@ -572,3 +572,129 @@ def test_resumed_fit_on_card_equals_uninterrupted(device, tmp_path):
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(s_w.optimizer.state[p][k],
                                s_r.optimizer.state[q][k]), (name, k)
+
+
+# --- analysis and data parallelism on the card -----------------------------
+
+def test_analysis_on_card_equals_the_cpu_port(device):
+    """check_bpp, encode_eval, channel_bpp, swap_latent_slices and
+    average_channels of the disjoint codec (rgb + mono, m=8, c=4, kernels
+    scaled) on the card and on the CPU from one seed: bytes and symbols
+    equal, floats within rtol 1e-3 / atol 1e-4."""
+    from mmnc_tpu_torch import analysis
+
+    models = []
+    for dev in ("cpu", device):
+        model = scale_conv_kernels(build_model(
+            3, ["rgb", "mono"], latent_channels=8, conv_channels=4,
+            device=dev, seed=3))
+        model.update_bottleneck_values()
+        models.append(model)
+    cpu, card = models
+    batch_a = cpu.example_batch(2, seed=1)
+    batch_b = cpu.example_batch(2, seed=7)
+    want, got = (analysis.check_bpp(m, batch_a) for m in (cpu, card))
+    assert got["bytes"] == want["bytes"] > 0
+    assert got["actual_bpp"] == want["actual_bpp"]
+    for k in ("estimated_bpp", "estimated_bpp_legacy"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4)
+    for a, b in zip(card.encode_eval(batch_a), cpu.encode_eval(batch_a)):
+        assert torch.equal(a.cpu(), b)
+    want, got = (analysis.channel_bpp(m, batch_a) for m in (cpu, card))
+    for k in ("y", "z"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4)
+    for probe in (lambda m: analysis.swap_latent_slices(m, batch_a, batch_b,
+                                                        range(4)),
+                  lambda m: analysis.average_channels(m, batch_a, [0, 5])):
+        want, got = probe(cpu), probe(card)
+        for t in want:
+            np.testing.assert_allclose(got[t].cpu().numpy(),
+                                       want[t].numpy(), rtol=1e-3, atol=1e-4)
+
+
+def _card_fit(mesh, data, out_dir, steps):
+    """fit of the c=4, m=8 rgb codec for `steps` steps at a global batch
+    of 4 under deterministic cuDNN, on the card (mesh None) or as a rank:
+    -> (rank 0's train losses, the parameters, launches)."""
+    import json
+    import os
+
+    from mmnc_tpu_torch.data import BatchLoader
+    from mmnc_tpu_torch.train import fit
+
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    name = "single" if mesh is None else f"ranks{mesh.world_size}"
+    torch.backends.cudnn.deterministic = True
+    model = build_model(1, ["rgb"], latent_channels=8, conv_channels=4,
+                        lmbda=1e-2, learning_rate_main=1e-4, device=device)
+    before = gdn_cuda.launches
+    fit(model, BatchLoader(data, 4), epochs=1, max_steps=steps,
+        run_name=name, out_dir=out_dir, log_every=1, log_images=False,
+        compute_metrics=True,
+        n_devices=None if mesh is None else mesh.world_size)
+    trace = []
+    if mesh is None or mesh.lead:
+        with open(os.path.join(out_dir, name, f"{name}.metrics.jsonl")) as f:
+            trace = [r["train/loss"] for r in map(json.loads, f)
+                     if "train/loss" in r]
+    return (trace, {k: v.cpu().numpy() for k, v in model.state_dict().items()},
+            gdn_cuda.launches - before)
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_process(device, tmp_path):
+    """2 ranks on cuda:0 over gloo (which reduces CUDA tensors; NCCL takes
+    one rank per card) against one process: 3 steps, the loss trace within
+    rtol 1e-4, parameters within rtol 2e-4 / atol 2e-6, the ranks' equal,
+    18 GDN launches a rank step."""
+    from mmnc_tpu_torch.parallel import launch
+
+    data = _scenes(12)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        trace, params, _ = _card_fit(None, data, str(tmp_path), 3)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (r_trace, r_params, n0), (_, r_params1, n1) = launch(
+        _card_fit, 2, "cuda:0", data, str(tmp_path), 3, backend="gloo",
+        timeout=300)
+    assert n0 == n1 == 3 * 18
+    assert len(trace) == 3
+    np.testing.assert_allclose(r_trace, trace, rtol=1e-4)
+    for name, p in params.items():
+        np.testing.assert_array_equal(r_params1[name], r_params[name])
+        np.testing.assert_allclose(r_params[name], p, rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+def test_nccl_fit_step_at_world_size_one(device, tmp_path):
+    from mmnc_tpu_torch.parallel import launch
+
+    ((trace, _, launches),) = launch(_card_fit, 1, "cuda", _scenes(4),
+                                     str(tmp_path), 1, timeout=300)
+    assert len(trace) == 1 and np.isfinite(trace[0]) and launches == 18
+
+
+def test_nccl_ranks_across_cards_equal_one_process(device, tmp_path):
+    """One NCCL rank on each card of the machine against one process at
+    the global batch of 4: as the gloo test (needs two cards or more)."""
+    from mmnc_tpu_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2 or 4 % cards:
+        pytest.skip(f"needs 2 or 4 CUDA devices, found {cards}")
+    data = _scenes(12)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        trace, params, _ = _card_fit(None, data, str(tmp_path), 3)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ranks = launch(_card_fit, cards, "cuda", data, str(tmp_path), 3,
+                   timeout=300)
+    r_trace, r_params, _ = ranks[0]
+    assert [n for _, _, n in ranks] == [3 * 18] * cards
+    np.testing.assert_allclose(r_trace, trace, rtol=1e-4)
+    for name, p in params.items():
+        for _, other, _ in ranks[1:]:
+            np.testing.assert_array_equal(other[name], r_params[name])
+        np.testing.assert_allclose(r_params[name], p, rtol=2e-4, atol=2e-6,
+                                   err_msg=name)

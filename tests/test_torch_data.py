@@ -230,9 +230,16 @@ def test_prefetch_on_the_cpu_yields_the_host_batches():
         for task in h:
             assert isinstance(g[task], torch.Tensor)
             _bitwise(h[task], g[task].numpy())
-    # no device given: the same
-    for h, g in zip(host, data.prefetch_to_device(loader.epoch(0))):
-        _bitwise(h["rgb"], g["rgb"].numpy())
+
+
+def test_prefetch_without_a_card_or_device_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    loader = data.BatchLoader(data.SyntheticMultiTaskDataset(
+        ["rgb"], size=4, image_size=32), 2)
+    # raised by the call, before a batch is asked for
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.prefetch_to_device(loader.epoch(0))
 
 
 def test_device_cache_without_a_card_or_device_raises():

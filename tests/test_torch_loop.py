@@ -13,7 +13,8 @@ The port alone: a run of 2 steps resumed to 4 is bitwise equal to 4
 uninterrupted steps (the per-step reseeded noise, Adam's state and the
 schedule are restored exactly); the saved horizon is kept or extended as
 mmnc_tpu's loop says; a SIGTERM inside a step saves a checkpoint; three
-non-finite losses abort; the options not ported yet raise."""
+non-finite losses abort; steps_per_call > 1, not ported yet, raises
+(n_devices > 1: tests/test_torch_parallel.py)."""
 
 import json
 import os
@@ -246,7 +247,7 @@ def test_three_non_finite_losses_abort(tmp_path):
             run_name="run", log_every=1, compute_metrics=False)
 
 
-@pytest.mark.parametrize("kw", [{"n_devices": 2}, {"steps_per_call": 2}])
+@pytest.mark.parametrize("kw", [{"steps_per_call": 2}])
 def test_options_not_ported_yet_raise(tmp_path, kw):
     train_loader, _ = _loaders()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
