@@ -38,7 +38,11 @@ Phases, each of which exits non-zero on failure:
      whose fused program reports max_abs = 2^15 takes the int32 path and
      still round-trips. Print each layout's wall time, device time and
      busy share (torch.profiler) and its host split by pipeline stage
-     (the streaming module's record_function spans, timed);
+     (the streaming module's record_function spans, timed). After phase
+     8 the same at shared4 on phase 8's 3 batches of 8 (every task's
+     x_hat; 35 GDN and 28 deconv+IGDN launches a batch), its MP/s and
+     busy share beside phase 8's compress -> decompress, the int32
+     fallback, and one batch each of mixed and disjoint in both layouts;
   6. the widths past the first slice's limits: SingleTaskCompressor at
      conv 192 and at conv 300 (GDN at C = 96..300, deconv+IGDN at Cout =
      192 and 300), one batch of 8 compress -> decompress each, held
@@ -77,7 +81,13 @@ Phases, each of which exits non-zero on failure:
      tolerances; 63 GDN launches). Then mixed (model 2, latent 300, conv
      32) and disjoint (model 3, latent 300, conv 42), one batch of 8 each:
      round trip, launch counts (21 GDN a compress; 6 GDN + 15 and 21
-     deconv+IGDN a decompress), card against CPU;
+     deconv+IGDN a decompress), card against CPU. Then phase 5 at shared4
+     (above) and the reference import: the seed-0 shared4 model's
+     state_dict with CompressAI's buffers, as a Lightning checkpoint,
+     imported into a model of another seed on the card; its round trip
+     of a batch of 8 under deterministic cuDNN gives the source's bytes
+     and bitwise its x_hats (35 + 28 launches); imported with
+     raw_gdn=True, the card against the CPU plain path;
   9. cli, the user's flow at shared4 (all files in a temporary
      directory): CLI_TRAIN_SIZE + CLI_VAL_SIZE CLEVR-style synthetic scenes
      prerendered through the train CLI's `get_loaders`; `python -m
@@ -92,8 +102,13 @@ Phases, each of which exits non-zero on failure:
      parameters and Adam moments within 1e-6 x max|p|), and a resume with
      more epochs keeping the saved horizon (restore ms); the training set
      as a DeviceResidentDataset (batches bitwise equal to the CPU port's,
-     4 fit steps without the prefetch queue); every prefetched batch
-     bitwise equal to its host batch; the compress CLI on the checkpoint
+     4 fit steps without the prefetch queue); the train CLI again at K = 1
+     and at --steps-per-call CLI_K under deterministic cuDNN (final
+     parameters within 1e-6 x max|p|, logged steps 0, 4, 8, 12, 63 x 4
+     GDN a call, each run's call p50 and images/s) and once at
+     CLI_K_CLAMPED for one epoch (clamped to its 8 batches); every
+     prefetched batch bitwise equal to its host batch; the compress CLI
+     on the checkpoint
      (2 batches: finite bpps > 0, MP/s, launches), and its bytes on a batch
      of CLI_COMPARE_BATCH equal to the CPU port's;
  10. analysis, the RD sweep and data parallelism at shared4 (all files in
@@ -113,24 +128,34 @@ Phases, each of which exits non-zero on failure:
      2e-4 / atol 2e-6, the ranks' bitwise equal), and one step over NCCL
      at world size 1 (its loss the single process's first within rtol
      1e-4); each run's step p50, the gradient all-reduce's
-     share of a profiled step and its busy share;
+     share of a profiled step and its busy share; the 2 gloo ranks again
+     at DP_K steps a call against the one process (its losses at the
+     calls' last steps); (d) then each of those ranks compresses its 8
+     rows of a shared4 batch of 16 (`compress_device_fused_sharded`): the
+     gathered symbols, indexes and max_abs bitwise equal one process's,
+     the rANS bytes its compress's, 27 GDN a rank's call;
  11. print a {"kernels": [...]} line (launches: the shared4 run; times
      summed over a shared4 round trip, the rgb path's beside them; cli_*:
      phase 9's launches and phase 3's times at its train and validation
      steps' shapes; p10_*: phase 10's launches, every process's, and phase
-     3's times summed over them) and, last, {"ok": true, "device":
+     3's times summed over them; p5_shared4_*, cli_k4_*, p10_compress_*
+     and import_launches: the same for phase 5's shared4 stream, phase
+     9's K-step run, phase 10 (d) and the import's round trip) and,
+     last, {"ok": true, "device":
      {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
-and prints no result. `--dp-cards N` runs only phase 10 (c) across N
-cards (one NCCL rank a card, DP_BATCH rows each) against one process at
-the global batch, on a machine with N cards. `--profile DIR` also writes torch.profiler summaries
+and prints no result. `--dp-cards N` runs only phase 10 (c) and (d)
+across N cards (one NCCL rank a card, DP_BATCH rows each) against one
+process at the global batch, on a machine with N cards. `--profile DIR`
+also writes torch.profiler summaries
 of one round trip, of each layout's streamed run, of one train step, of
 a shared4 round trip and phase 9's trace of the CLI's steps 5-10 to DIR.
 """
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -182,6 +207,9 @@ MT_TRAIN_BATCH = 2
 CLI_TRAIN_SIZE, CLI_VAL_SIZE, CLI_BATCH, CLI_EPOCHS = 128, 16, 16, 2
 CLI_COMPARE_BATCH = 4
 CLI_DEVICE = "cuda"
+# phase 9: the train CLI with --steps-per-call CLI_K against K = 1, and
+# with CLI_K_CLAMPED (more than an epoch's 8 batches: clamped to 8)
+CLI_K, CLI_K_CLAMPED = 4, 12
 # phase 10: rd_sweep's sweep at shared4 on CLEVR-style scenes (two lambdas,
 # one epoch of 4 steps of 16, validation on one batch), the analysis on
 # its checkpoints (a batch of ANALYSIS_BATCH on the card and on the CPU;
@@ -193,6 +221,7 @@ RD_LMBDAS, RD_TRAIN_SIZE, RD_VAL_SIZE, RD_BATCH = (0.01, 0.001), 64, 16, 16
 ANALYSIS_BATCH, BASELINE_IMAGES = 4, 32
 DP_RANKS, DP_STEPS, DP_BATCH, DP_TIMED_STEPS = 2, 4, 16, 5
 DP_CARD = "cuda:0"  # the card every gloo rank of phase 10 (c) shares
+DP_K = 2  # phase 10 (c): the ranks' run at 2 steps a call
 # launches (GDN, deconv+IGDN) per call: compress runs every encoder-head
 # GDN and g_a's; the eval forward (a validation step) compress's and
 # decompress's; decompress the decoder heads' two conv3 IGDNs a task and
@@ -544,9 +573,10 @@ def check_gdn(torch, b, gen):
 
 def p10_gdn_groups(lay):
     """Phase 10's GDN launch shapes by group: a train step's at each batch
-    it trains at (the sweep's, the single process's and a rank's), and the
+    it trains at (the sweep's, the single process's and a rank's), the
     encode (compress's analysis) and decode halves of an eval forward at
-    the sweep's and the analysis' batches."""
+    the sweep's and the analysis' batches, and a rank's compress of its
+    rows (d)."""
     n_enc = MT_LAUNCHES["shared4"]["compress"][0]
     groups = [(mt_gdn_shapes(lay, b, train=True), f"train{b}")
               for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
@@ -554,7 +584,8 @@ def p10_gdn_groups(lay):
         shapes = mt_gdn_shapes(lay, b)
         groups += [(shapes[:n_enc], f"encode{b}"),
                    (shapes[n_enc:], f"decode{b}")]
-    return groups
+    rows = DP_BATCH // DP_RANKS  # a rank's rows of the sharded compress
+    return groups + [(mt_gdn_shapes(lay, rows)[:n_enc], f"encode{rows}")]
 
 
 def split_extra_shapes():
@@ -838,32 +869,47 @@ def busy_us(events):
     return total
 
 
-def run_streaming(torch, model, batches, profile_dir):
-    """Phase 5: both stream layouts against compress/decompress, their
-    launch counts, the int32 fallback, and each layout's time split."""
+def stream_refs(torch, model, batches):
+    """(bytes, x_hats) of each batch's packed compress and decompress."""
+    refs = []
+    for batch in batches:
+        ans, n_bytes = model.compress(batch)
+        refs.append((n_bytes, model.decompress(ans)))
+    torch.cuda.synchronize()
+    return refs
+
+
+def check_stream(what, results, refs):
+    """Each batch's stream bytes are compress's, and each task's x_hat
+    within 1e-5 of decompress's. Returns the largest error."""
+    if len(results) != len(refs):
+        raise RuntimeError(f"stream {what}: {len(results)} results")
+    worst = 0.0
+    for k, ((x_hats, n_bytes), (n_ref, ref)) in enumerate(zip(results,
+                                                              refs)):
+        if n_bytes != n_ref:
+            raise RuntimeError(f"stream {what} batch {k}: {n_bytes} bytes, "
+                               f"compress gave {n_ref}")
+        err = task_err(x_hats, ref, list(ref))
+        if not err <= 1e-5:
+            raise RuntimeError(f"stream {what} batch {k}: x_hats vs "
+                               f"decompress max abs err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def stream_layouts(torch, model, batches, refs, per_batch, label,
+                   profile_dir):
+    """Each stream layout over `batches` after a warm-up: a timed run
+    (its launches, `per_batch` a batch, and MP/s counting each 256 x 256
+    image once), then a profiled run (device busy share, host ms by
+    pipeline stage), both against compress/decompress (`refs`). Returns
+    {impl: {"mps", "busy", "launches"}}."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmnc_tpu_torch.models import streaming
 
-    refs = []
-    for batch in batches:
-        ans, n_bytes = model.compress(batch)
-        refs.append((n_bytes, model.decompress(ans)["rgb"]))
-    torch.cuda.synchronize()
-
-    def check(impl, results, refs):
-        if len(results) != len(refs):
-            raise RuntimeError(f"stream {impl}: {len(results)} results")
-        for k, ((x_hats, n_bytes), (n_ref, ref)) in enumerate(
-                zip(results, refs)):
-            if n_bytes != n_ref:
-                raise RuntimeError(f"stream {impl} batch {k}: {n_bytes} "
-                                   f"bytes, compress gave {n_ref}")
-            err = (x_hats["rgb"] - ref).abs().max().item()
-            if not err <= 1e-5:
-                raise RuntimeError(f"stream {impl} batch {k}: x_hats vs "
-                                   f"decompress max abs err {err}")
-
+    out = {}
     for impl in streaming.IMPLS:
         # warm-up: every slot's pinned buffers, the coder thread's plans
         list(streaming.stream_roundtrip(model, batches, impl=impl))
@@ -874,11 +920,11 @@ def run_streaming(torch, model, batches, profile_dir):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = counts()
-        want = {"gdn": 11 * len(batches), "deconv_igdn": 7 * len(batches)}
+        want = {k: n * len(batches) for k, n in per_batch.items()}
         if launches != want:
-            raise RuntimeError(f"stream {impl}: launches {launches}, want "
-                               f"{want} (11 GDN + 7 deconv+IGDN a batch)")
-        check(impl, results, refs)
+            raise RuntimeError(f"stream {impl} {label}: launches {launches},"
+                               f" want {want} ({per_batch} a batch)")
+        check_stream(impl, results, refs)
         del results
         images = BATCH * len(batches)
         with SpanTimer(streaming) as spans, profile(
@@ -889,10 +935,12 @@ def run_streaming(torch, model, batches, profile_dir):
                                                       impl=impl))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-        check(impl, results, refs)
+        check_stream(impl, results, refs)
         del results
         with tempfile.TemporaryDirectory() as tmp:
-            trace = os.path.join(profile_dir or tmp, f"stream_{impl}_trace.json")
+            trace = os.path.join(profile_dir or tmp,
+                                 f"stream_{label.split()[0]}_{impl}_trace"
+                                 f".json")
             if profile_dir:
                 os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(trace)
@@ -902,25 +950,33 @@ def run_streaming(torch, model, batches, profile_dir):
         busy = busy_us(events) / 1e3
         split = {name.split(".", 1)[1]: round(t * 1e3 / len(batches), 5)
                  for name, t in sorted(spans.totals.items())}
-        print(f"stream {impl} rgb latent={LATENT} conv={CONV} {IMAGE}px "
-              f"batch={BATCH} batches={len(batches)}: {seconds:.4f} s, "
-              f"{images * IMAGE * IMAGE / 1e6 / seconds:.3f} MP/s, launches "
-              f"{launches}, bytes/image "
+        mps = images * IMAGE * IMAGE / 1e6 / seconds
+        print(f"stream {impl} {label} {IMAGE}px batch={BATCH} "
+              f"batches={len(batches)}: {seconds:.4f} s, {mps:.3f} MP/s, "
+              f"launches {launches}, bytes/image "
               f"{sum(n for n, _ in refs) / images:.2f}; profiled: wall "
               f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
               f"({busy / (wall * 1e3):.3f} of wall), device records "
               f"{sum(e['dur'] for e in events) / 1e3:.3f} ms in "
               f"{len(events)}")
-        print(f"stream {impl} host ms per batch by stage (summed over "
-              f"threads): {json.dumps(split)}")
+        print(f"stream {impl} {label.split()[0]} host ms per batch by stage "
+              f"(summed over threads): {json.dumps(split)}")
+        out[impl] = {"mps": mps, "busy": busy / (wall * 1e3),
+                     "launches": launches}
+    return out
 
-    # the int32 fallback: the fused program's guard tripped by hand
+
+def stream_fallback(torch, model, batches, refs, label):
+    """A batch whose fused program reports max_abs = 2^15 takes the int32
+    path and still gives compress's bytes and decompress's x_hats."""
+    from mmnc_tpu_torch.models import streaming
+
     wide = []
     fused, real_wide = model._compress_device_fused, streaming._roundtrip_one_wide
 
     def tripped(batch):
-        *outs, _ = fused(batch)
-        return (*outs, torch.tensor(2 ** 15, dtype=torch.int32, device="cuda"))
+        *outs, max_abs = fused(batch)
+        return (*outs, torch.full_like(max_abs, 2 ** 15))
 
     def counted(pipe, batch):
         wide.append(batch)
@@ -935,11 +991,63 @@ def run_streaming(torch, model, batches, profile_dir):
         del model._compress_device_fused
         streaming._roundtrip_one_wide = real_wide
     if len(wide) != 1:
-        raise RuntimeError("stream: a max_abs of 2^15 did not take the "
-                           "int32 path")
-    check("v2 (int32 fallback)", results, refs[:1])
-    print("stream v2 int32 fallback (max_abs forced to 2^15): bytes and "
-          "x_hats equal compress/decompress")
+        raise RuntimeError(f"stream {label}: a max_abs of 2^15 did not take "
+                           f"the int32 path")
+    check_stream(f"v2 {label} (int32 fallback)", results, refs[:1])
+    print(f"stream v2 {label} int32 fallback (max_abs forced to 2^15): "
+          f"bytes and x_hats equal compress/decompress")
+
+
+def run_streaming(torch, model, batches, profile_dir):
+    """Phase 5: both stream layouts of the rgb codec against
+    compress/decompress, their launch counts, the int32 fallback, and
+    each layout's time split."""
+    refs = stream_refs(torch, model, batches)
+    stream_layouts(torch, model, batches, refs,
+                   {"gdn": 11, "deconv_igdn": 7},
+                   f"rgb latent={LATENT} conv={CONV}", profile_dir)
+    stream_fallback(torch, model, batches, refs, "rgb")
+
+
+def run_mt_streaming(torch, profile_dir, mt):
+    """Phase 5 at shared4 (after phase 8, whose compress -> decompress it
+    is printed beside): both layouts on phase 8's 3 batches of 8
+    (`stream_layouts`: a compress's and a decompress's launches a batch,
+    MT_LAUNCHES), the int32 fallback; then one batch each of mixed and
+    disjoint, its bytes and x_hats against compress/decompress. Returns
+    the v2 run's launches."""
+    from mmnc_tpu_torch.models import streaming
+
+    t0 = time.perf_counter()
+    name = "shared4"
+    model = paper_model(name, "cuda")
+    batches = paper_batches(torch, model, BATCHES, SEED)
+    refs = stream_refs(torch, model, batches)
+    per_batch = {k: MT_LAUNCHES[name]["compress"][i]
+                 + MT_LAUNCHES[name]["decompress"][i]
+                 for i, k in enumerate(("gdn", "deconv_igdn"))}
+    runs = stream_layouts(torch, model, batches, refs, per_batch,
+                          f"{name} {PAPER[name]}", profile_dir)
+    stream_fallback(torch, model, batches, refs, name)
+    print(f"p5 {name} batch={BATCH} x {BATCHES}: stream v2 "
+          f"{runs['v2']['mps']:.3f} MP/s (busy {runs['v2']['busy']:.3f}), "
+          f"v1 {runs['v1']['mps']:.3f} MP/s (busy {runs['v1']['busy']:.3f});"
+          f" phase 8's compress -> decompress {mt['mps']:.3f} MP/s (busy "
+          f"{mt['busy_ms'] / mt['wall_ms']:.3f} of one profiled round trip)")
+    del model, batches, refs
+    for other in ("mixed", "disjoint"):
+        m = paper_model(other, "cuda")
+        batches = paper_batches(torch, m, 1, SEED + 10)
+        refs = stream_refs(torch, m, batches)
+        for impl in streaming.IMPLS:
+            err = check_stream(f"{impl} {other}", list(
+                streaming.stream_roundtrip(m, batches, impl=impl)), refs)
+            print(f"stream {impl} {other} {PAPER[other]} batch={BATCH}: "
+                  f"bytes equal compress's, x_hats vs decompress max abs "
+                  f"err {err:.3e}")
+        del m
+    print(f"p5 multi-task streams: {time.perf_counter() - t0:.3f} s")
+    return runs["v2"]["launches"]
 
 
 def run_widths(torch):
@@ -1468,6 +1576,84 @@ def run_multitask(torch, profile_dir):
             "z_nonzero": z_nz, "train_launches": train, **prof}
 
 
+def compressai_state_dict(torch, model):
+    """`model`'s state_dict as a reference (CompressAI / Lightning)
+    checkpoint holds it: CPU tensors plus the buffers the importer skips
+    (the entropy bottleneck's and the Gaussian conditional's CDF tables,
+    each GDN's reparametriser constants), in {"state_dict": ...}."""
+    from mmnc_tpu_torch.ops.layers import GDN
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    eb = "model.compressor.entropy_bottleneck."
+    n = model.conv_channels * model.n_tasks
+    for prefix, rows in ((eb, n), ("model.compressor.gaussian_conditional.",
+                                   64)):
+        sd[prefix + "_offset"] = torch.zeros(rows, dtype=torch.int32)
+        sd[prefix + "_quantized_cdf"] = torch.zeros(rows, 40,
+                                                    dtype=torch.int32)
+        sd[prefix + "_cdf_length"] = torch.zeros(rows, dtype=torch.int32)
+    sd["model.compressor.gaussian_conditional.scale_table"] = \
+        torch.linspace(0.11, 256, 64)
+    for name, module in model.named_modules():
+        if isinstance(module, GDN):
+            for p in ("beta", "gamma"):
+                sd[f"{name}.{p}_reparam.pedestal"] = torch.tensor([2.0 ** -36])
+                sd[f"{name}.{p}_reparam.lower_bound.bound"] = \
+                    torch.tensor([2.0 ** -18])
+    return {"state_dict": sd, "epoch": 0, "global_step": 0}
+
+
+def run_import(torch):
+    """Reference-checkpoint import at shared4: the seed-0 model's
+    state_dict as a CompressAI/Lightning checkpoint (`compressai_state_dict`)
+    imported into a model drawn from another seed on the card; a round
+    trip of one batch of 8 by both under deterministic cuDNN: the bytes
+    equal and the x_hats bitwise equal, the imported model's launches a
+    compress and a decompress. Then raw_gdn=True into a card model and a
+    CPU one: the card's path against the CPU plain path on one image
+    (`check_against_cpu`). Returns the imported model's launches."""
+    from mmnc_tpu_torch.utils.torch_import import import_reference_state_dict
+
+    t0 = time.perf_counter()
+    name = "shared4"
+    source = paper_model(name, "cuda")
+    ckpt = compressai_state_dict(torch, source)
+    model = import_reference_state_dict(ckpt, paper_model(name, "cuda",
+                                                          seed=SEED + 1))
+    model.update_bottleneck_values()
+    batch = paper_batches(torch, source, 1, SEED + 30)[0]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ans_s, n_s = source.compress(batch)
+        x_s = source.decompress(ans_s)
+        (ans, n_bytes), enc = launched(torch, lambda: model.compress(batch))
+        x_hats, dec = launched(torch, lambda: model.decompress(ans))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want_launches(name, "compress", enc)
+    want_launches(name, "decompress", dec)
+    if ans != ans_s or n_bytes != n_s:
+        raise RuntimeError("imported model: its bytes differ from the "
+                           "source model's")
+    for t in model.tasks:
+        if not torch.equal(x_hats[t], x_s[t]):
+            raise RuntimeError(f"imported model: x_hat {t} differs from the "
+                               f"source model's")
+    raw = [import_reference_state_dict(ckpt, paper_model(name, device),
+                                       raw_gdn=True)
+           for device in ("cuda", "cpu")]
+    check_against_cpu(torch, *raw, {t: x[:1] for t, x in batch.items()},
+                      f"{name} imported with raw_gdn")
+    print(f"import {name}: a CompressAI/Lightning state_dict "
+          f"({len(ckpt['state_dict'])} keys, {len(model.state_dict())} read) "
+          f"into a model from seed {SEED + 1}: {n_bytes} bytes and x_hats "
+          f"bitwise equal the source model's round trip of {BATCH}; "
+          f"launches compress {enc}, decompress {dec}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {k: enc[k] + dec[k] for k in enc}
+
+
 def cli_argv(tmp, *extra):
     """The train CLI's flags for phase 9: shared4 (PAPER) on CLEVR-style
     synthetic scenes, prerendered into `tmp`."""
@@ -1483,15 +1669,17 @@ def cli_argv(tmp, *extra):
 
 
 @contextlib.contextmanager
-def counted_steps(torch, per_step):
-    """Wrap the train loop's train and eval steps so each appends its
-    launches ("train" or "eval", counts) to `per_step`: the counts read
-    just before the step and just after it, on a synchronised card, and
-    subtracted (the run's totals keep counting). The steps themselves are
-    unchanged."""
+def counted_steps(torch, per_step, walls=None):
+    """Wrap the train loop's train call (`steps_per_call` steps) and eval
+    step so each appends its launches ("train" or "eval", counts) to
+    `per_step`: the counts read just before the call and just after it,
+    on a synchronised card, and subtracted (the run's totals keep
+    counting); `walls`, if given, gets each train call's synchronised
+    wall seconds. The steps themselves are unchanged."""
     from mmnc_tpu_torch.train import loop
 
-    make_train, make_eval = loop.make_train_step, loop.make_eval_step
+    names = {"train": "make_multi_train_step", "eval": "make_eval_step"}
+    makers = {kind: getattr(loop, name) for kind, name in names.items()}
 
     def wrap(make, kind):
         def made(*args, **kwargs):
@@ -1499,22 +1687,25 @@ def counted_steps(torch, per_step):
 
             def counted(*a, **k):
                 torch.cuda.synchronize()
-                before = counts()
+                before, t0 = counts(), time.perf_counter()
                 out = step(*a, **k)
                 torch.cuda.synchronize()
                 after = counts()
+                if walls is not None and kind != "eval":
+                    walls.append(time.perf_counter() - t0)
                 per_step.append((kind, {n: after[n] - before[n]
                                         for n in after}))
                 return out
             return counted
         return made
 
-    loop.make_train_step = wrap(make_train, "train")
-    loop.make_eval_step = wrap(make_eval, "eval")
+    for kind, name in names.items():
+        setattr(loop, name, wrap(makers[kind], kind))
     try:
         yield
     finally:
-        loop.make_train_step, loop.make_eval_step = make_train, make_eval
+        for kind, name in names.items():
+            setattr(loop, name, makers[kind])
 
 
 def trace_summary(path):
@@ -1669,6 +1860,91 @@ def check_prefetch(torch, train_set):
           f"host batches (consumer wait {stats['wait_s'] * 1e3:.3f} ms)")
 
 
+def cli_k_run(torch, tmp, k, *extra):
+    """The train CLI at --steps-per-call k (run name cli_k{k}) under
+    deterministic cuDNN, each train call counted and timed
+    (`counted_steps`) -> (state, per-call launches, call walls s, run
+    launches, stdout)."""
+    from mmnc_tpu_torch.cli import train as train_cli
+
+    per_step, walls, out = [], [], io.StringIO()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        with counted_steps(torch, per_step, walls), \
+                contextlib.redirect_stdout(out):
+            state = train_cli.main(cli_argv(
+                tmp, "--log-every", "1", "--steps-per-call", str(k), "-w",
+                f"cli_k{k}", *extra))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return state, per_step, walls, counts(), out.getvalue()
+
+
+def check_steps_per_call(torch, tmp, card):
+    """Phase 9 (3b): the train CLI at K = 1 and at --steps-per-call
+    CLI_K, the same 16 steps, seed and scenes, under deterministic cuDNN:
+    final parameters within 1e-6 x max|p| (check_resume's bound), the
+    logged steps JAX's cadence gives (the first step of each call), 63 x
+    K GDN launches a call; each run's synchronised train-call p50 and
+    images/s. Then --steps-per-call CLI_K_CLAMPED for one epoch: clamped
+    to its 8 batches, one call. Returns the K = CLI_K run's launches and
+    its launches a call."""
+    t0 = time.perf_counter()
+    steps = CLI_EPOCHS * (CLI_TRAIN_SIZE // CLI_BATCH)
+    per_epoch = CLI_TRAIN_SIZE // CLI_BATCH
+    train = MT_LAUNCHES["shared4"]["train"]
+    runs = {}
+    for k in (1, CLI_K):
+        state, per_step, walls, launches, _ = cli_k_run(
+            torch, tmp, k, "--epochs", str(CLI_EPOCHS))
+        want = {"gdn": k * train[0], "deconv_igdn": k * train[1]}
+        calls = [c for kd, c in per_step if kd == "train"]
+        if state.step != steps or len(calls) != steps // k or \
+                any(c != want for c in calls):
+            raise RuntimeError(f"cli --steps-per-call {k}: {state.step} "
+                               f"steps, calls {calls}, want {steps // k} of "
+                               f"{want}")
+        with open(os.path.join(tmp, "runs", f"cli_k{k}",
+                               f"cli_k{k}.metrics.jsonl")) as f:
+            logged = [r["step"] for r in map(json.loads, f)
+                      if "train/loss" in r]
+        if logged != list(range(0, steps, k)):
+            raise RuntimeError(f"cli --steps-per-call {k}: logged steps "
+                               f"{logged}")
+        params = [p.detach() for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        runs[k] = (params, float(np.median(walls)), launches, want)
+    worst = max(max_rel_diff(q, p) for p, q in zip(runs[1][0],
+                                                   runs[CLI_K][0]))
+    if not worst <= 1e-6:
+        raise RuntimeError(f"cli --steps-per-call {CLI_K} vs 1: parameters "
+                           f"max rel diff {worst} over 1e-6")
+    state, per_step, _, _, out = cli_k_run(
+        torch, tmp, CLI_K_CLAMPED, "--epochs", "1", "--no-metrics")
+    calls = [c for kd, c in per_step if kd == "train"]
+    note = f"steps_per_call {CLI_K_CLAMPED} > {per_epoch} batches/epoch"
+    if state.step != per_epoch or len(calls) != 1 or note not in out or \
+            calls[0]["gdn"] != per_epoch * train[0]:
+        raise RuntimeError(f"cli --steps-per-call {CLI_K_CLAMPED}: "
+                           f"{state.step} steps, calls {calls}, output "
+                           f"{out!r}")
+    p1, pk = runs[1][1], runs[CLI_K][1]
+    print(f"cli --steps-per-call {CLI_K} ({card}, deterministic cuDNN): "
+          f"{steps} steps in {steps // CLI_K} calls of {runs[CLI_K][3]} "
+          f"launches, logged steps {list(range(0, steps, CLI_K))}, final "
+          f"parameters vs K = 1 max rel diff {worst:.3e}; call p50 "
+          f"{pk * 1e3:.3f} ms ({CLI_K * CLI_BATCH / pk:.3f} images/s) vs "
+          f"K = 1 step p50 {p1 * 1e3:.3f} ms ({CLI_BATCH / p1:.3f} "
+          f"images/s), synchronised calls; --steps-per-call "
+          f"{CLI_K_CLAMPED}: clamped to {per_epoch} ({note}), one call of "
+          f"{calls[0]} launches; {time.perf_counter() - t0:.3f} s")
+    return {"launches": runs[CLI_K][2], "per_call": runs[CLI_K][3]}
+
+
 def run_cli(torch, profile_dir, card):
     """Phase 9: the train CLI (prerendered CLEVR-style scenes, validation,
     image grids, checkpoints, the profiler over steps 5-10), resume, the
@@ -1774,6 +2050,7 @@ def run_cli(torch, profile_dir, card):
         print(f"cli losses: {json.dumps(losses)}")
 
         save_ms, restore_ms = check_resume(torch, train_set, tmp)
+        k_calls = check_steps_per_call(torch, tmp, card)
         check_device_cache(torch, train_set, tmp)
         check_prefetch(torch, train_set)
 
@@ -1825,7 +2102,7 @@ def run_cli(torch, profile_dir, card):
                 "wait_ms": wait * 1e3, "device_ms": dev_ms,
                 "busy": busy_ms / wall_ms, "peak": peak,
                 "save_ms": save_ms, "restore_ms": restore_ms,
-                "compress_launches": c_launches}
+                "compress_launches": c_launches, "k_calls": k_calls}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2103,28 +2380,31 @@ def profile_dp_step(torch, step, state, batch, gen):
             "nccl_kernel_ms": sum(nccl) / 1e3}
 
 
-def dp_fit(mesh, cache_dir, out_dir, steps, batch_size):
+def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
     """Phase 10 (c): `steps` steps of fit at shared4 from seed-0 weights at
     the init scale on `batch_size` scenes a step (under a mesh the rank's
-    rows of them), deterministic cuDNN, train metrics on; then DP_TIMED_STEPS
-    synchronised steps and one profiled step. A rank of `parallel.launch`,
-    or (mesh None) the single process. -> {"trace": rank 0's train losses,
-    "params": the parameters after fit, "launches": fit's, "all_launches":
-    with the timed and profiled steps', "step_ms", "profile"}."""
+    rows of them), `steps_per_call` steps a call, deterministic cuDNN,
+    train metrics on; then DP_TIMED_STEPS synchronised steps and one
+    profiled step. A rank of `parallel.launch`, or (mesh None) the single
+    process. -> {"trace": rank 0's logged train losses (one a call: the
+    last step's), "params": the parameters after fit, "launches": fit's,
+    "all_launches": with the timed and profiled steps', "step_ms",
+    "profile"}."""
     import torch
 
     from mmnc_tpu_torch.data import (BatchLoader, SyntheticMultiTaskDataset,
                                      prerender)
     from mmnc_tpu_torch.device import resolve_device
     from mmnc_tpu_torch.train import fit, make_train_step
-    from mmnc_tpu_torch.train.loop import step_seed
+    from mmnc_tpu_torch.train.step import step_seed
 
     device = mesh.device if mesh is not None else resolve_device(CLI_DEVICE)
     tasks = PAPER["shared4"][1]
     data = prerender(SyntheticMultiTaskDataset(
         tasks, size=DP_STEPS * batch_size, image_size=IMAGE, seed=0,
         style="clevr"), cache_dir)
-    name = "single" if mesh is None else f"ranks{mesh.world_size}"
+    name = ("single" if mesh is None else f"ranks{mesh.world_size}") + (
+        f"_k{steps_per_call}" if steps_per_call > 1 else "")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2134,7 +2414,7 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size):
         state, _ = fit(model, BatchLoader(data, batch_size), epochs=1,
                        max_steps=steps,
                        run_name=name, out_dir=out_dir, log_every=1,
-                       log_images=False,
+                       log_images=False, steps_per_call=steps_per_call,
                        n_devices=None if mesh is None else mesh.world_size)
         torch.cuda.synchronize(device)
         launches = counts()
@@ -2169,6 +2449,101 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size):
             "profile": prof}
 
 
+def compress_batch(torch, model, batch_size, device):
+    """Phase 10 (d)'s batch: `batch_size` random 256 px images of every
+    task (seeded) on `device`."""
+    return {t: torch.from_numpy(x).to(device) for t, x in
+            model.example_batch(batch_size, IMAGE, seed=SEED + 20).items()}
+
+
+def dp_compress(mesh, batch_size):
+    """Phase 10 (d), a rank: shared4 (kernels scaled, from seed 0)
+    compresses its rows of `batch_size` images with
+    `compress_device_fused_sharded`: a warm-up call, one counted call
+    (its gathered outputs, as numpy, and its launches) and DP_TIMED_STEPS
+    synchronised calls (their median ms). "all_launches": the counted and
+    the timed calls' ("calls" of them)."""
+    import torch
+
+    from mmnc_tpu_torch.parallel import compress_device_fused_sharded
+
+    model = paper_model("shared4", mesh.device)
+    batch = compress_batch(torch, model, batch_size, mesh.device)
+    compress_device_fused_sharded(model, batch, mesh)
+    torch.cuda.synchronize(mesh.device)
+    reset_counts()
+    outs = compress_device_fused_sharded(model, batch, mesh)
+    torch.cuda.synchronize(mesh.device)
+    launches = counts()
+    walls = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        compress_device_fused_sharded(model, batch, mesh)
+        torch.cuda.synchronize(mesh.device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"outs": [t.cpu().numpy() for t in outs], "launches": launches,
+            "all_launches": counts(), "calls": 1 + DP_TIMED_STEPS,
+            "ms": float(np.median(walls))}
+
+
+def dp_fit_and_compress(mesh, cache_dir, out_dir, steps, batch_size,
+                        ks=(1,)):
+    """A rank of phase 10 (c), `dp_fit` at each number of steps a call in
+    `ks`, and then of (d), `dp_compress` of `batch_size` images: one
+    spawn for all of them."""
+    return {"fit": {k: dp_fit(mesh, cache_dir, out_dir, steps, batch_size,
+                              k) for k in ks},
+            "compress": dp_compress(mesh, batch_size)}
+
+
+def check_sharded_compress(torch, ranks, batch_size, card, what):
+    """Phase 10 (d): every rank's gathered symbols, indexes and max_abs
+    bitwise equal one process's `_compress_device_fused` of the batch on
+    the card, and the rANS streams coded from them are the bytes of its
+    packed `compress`; 27 GDN launches a rank's call. Prints each side's
+    synchronised ms."""
+    from mmnc_tpu_torch.entropy import rans
+
+    model = paper_model("shared4", CLI_DEVICE)
+    batch = compress_batch(torch, model, batch_size, CLI_DEVICE)
+    model._compress_device_fused(batch)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        want = model._compress_device_fused(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    want = [t.cpu().numpy() for t in want]
+    n_enc = MT_LAUNCHES["shared4"]["compress"]
+    for r, rank in enumerate(ranks):
+        if rank["launches"] != {"gdn": n_enc[0], "deconv_igdn": n_enc[1]}:
+            raise RuntimeError(f"{what} rank {r}: launches "
+                               f"{rank['launches']}, want {n_enc}")
+        for name, got, w in zip(("y", "z", "indexes", "max_abs"),
+                                rank["outs"], want):
+            if got.dtype != w.dtype or not np.array_equal(got, w):
+                raise RuntimeError(f"{what} rank {r}: {name} differs from "
+                                   f"one process's")
+    y_sym, z_sym, indexes, _ = ranks[0]["outs"]
+    tables = model.tables
+    b, zh, zw, _ = z_sym.shape
+    ys = rans.encode_with_indexes(y_sym, indexes, tables.gc)
+    zs = rans.encode_with_indexes(z_sym, model._z_index((b, zh, zw)),
+                                  tables.eb)
+    ans, n_bytes = model.compress(batch)
+    if ans["strings"] != [[ys], [zs]]:
+        raise RuntimeError(f"{what}: the gathered symbols code to other "
+                           f"bytes than compress's")
+    print(f"p10 sharded compress {what} ({card}): shared4 batch of "
+          f"{batch_size} on {len(ranks)} ranks ({batch_size // len(ranks)} "
+          f"rows each): symbols, indexes and max_abs bitwise equal one "
+          f"process's, {n_bytes} bytes equal compress's; launches a rank "
+          f"{ranks[0]['launches']}; synchronised call p50 "
+          f"{json.dumps([round(r['ms'], 3) for r in ranks])} ms a rank vs "
+          f"one process {float(np.median(walls)):.3f} ms")
+
+
 def dp_scenes(tmp, n):
     """Render n CLEVR-style shared4 scenes into a cache under `tmp` (the
     ranks load it) -> (cache dir, seconds)."""
@@ -2182,9 +2557,10 @@ def dp_scenes(tmp, n):
     return cache, time.perf_counter() - t0
 
 
-def check_dp(single, ranks, steps, what):
-    """The ranks' fit against the single process's: each run's launches
-    (`steps` train steps of 63 GDN), the loss trace within rtol 1e-4, the
+def check_dp(single, ranks, steps, what, k=1):
+    """The ranks' fit (`k` steps a call) against the single process's (one
+    a call): each run's launches (`steps` train steps of 63 GDN), the loss
+    trace within rtol 1e-4 (a call logs its last step's loss), the
     parameters within rtol 2e-4 / atol 2e-6 (tests/test_train.py:95-103),
     every rank's bitwise equal. Returns the largest parameter diff."""
     train = MT_LAUNCHES["shared4"]["train"]
@@ -2195,13 +2571,14 @@ def check_dp(single, ranks, steps, what):
             raise RuntimeError(f"{what} {name}: launches {run['launches']}, "
                                f"want {want}")
     lead = ranks[0]
-    if len(single["trace"]) != steps or len(lead["trace"]) != steps \
+    single_trace = single["trace"][k - 1::k]
+    if len(single["trace"]) != steps or len(lead["trace"]) != steps // k \
             or not np.all(np.isfinite(single["trace"])):
         raise RuntimeError(f"{what} traces {single['trace']} {lead['trace']}")
-    if not np.allclose(lead["trace"], single["trace"], rtol=1e-4, atol=0):
+    if not np.allclose(lead["trace"], single_trace, rtol=1e-4, atol=0):
         raise RuntimeError(f"{what} loss trace: {len(ranks)} ranks "
                            f"{lead['trace']} vs one process "
-                           f"{single['trace']} (rtol 1e-4)")
+                           f"{single_trace} (rtol 1e-4)")
     worst = 0.0
     for k, p in single["params"].items():
         for rank in ranks[1:]:
@@ -2235,7 +2612,9 @@ def run_parallel(torch, tmp, card):
     """Phase 10 (c): fit on DP_RANKS ranks on one card (DP_CARD) over gloo
     (NCCL takes one rank per card) against one process, the same seed
     weights and scenes under deterministic cuDNN (`check_dp`). Then one
-    fit step over NCCL at world size 1. Prints each run's step p50, the
+    fit step over NCCL at world size 1. The gloo ranks also run fit at
+    DP_K steps a call and then (d), the sharded compress of DP_BATCH
+    images (`check_sharded_compress`). Prints each run's step p50, the
     all-reduce's share of a profiled step and its busy share."""
     from mmnc_tpu_torch.parallel import launch
 
@@ -2243,15 +2622,27 @@ def run_parallel(torch, tmp, card):
     out = os.path.join(tmp, "dp")
     runs = {"single": dp_fit(None, cache, out, DP_STEPS, DP_BATCH)}
     t0 = time.perf_counter()
-    ranks = launch(dp_fit, DP_RANKS, DP_CARD, cache, out, DP_STEPS,
-                   DP_BATCH, backend="gloo", timeout=600)
+    gloo = launch(dp_fit_and_compress, DP_RANKS, DP_CARD, cache, out,
+                  DP_STEPS, DP_BATCH, (1, DP_K), backend="gloo", timeout=600)
     gloo_s = time.perf_counter() - t0
+    ranks = [r["fit"][1] for r in gloo]
+    k2 = [r["fit"][DP_K] for r in gloo]
+    compress = [r["compress"] for r in gloo]
     runs["gloo"] = ranks[0]
     t0 = time.perf_counter()
     (runs["nccl"],) = launch(dp_fit, 1, CLI_DEVICE, cache, out, 1, DP_BATCH,
                              timeout=600)
     nccl_s = time.perf_counter() - t0
     worst = check_dp(runs["single"], ranks, DP_STEPS, "dp")
+    worst_k2 = check_dp(runs["single"], k2, DP_STEPS,
+                        f"dp --steps-per-call {DP_K}", DP_K)
+    print(f"p10 data parallel, {DP_K} steps a call ({card}): {DP_RANKS} "
+          f"gloo ranks on {DP_CARD} vs one process at 1 a call: logged "
+          f"losses {json.dumps(k2[0]['trace'])} vs "
+          f"{json.dumps(runs['single']['trace'][DP_K - 1::DP_K])}, "
+          f"parameters max |diff| {worst_k2:.3e}, ranks bitwise equal")
+    check_sharded_compress(torch, compress, DP_BATCH, card,
+                           f"{DP_RANKS} gloo ranks on {DP_CARD}")
     nccl, train = runs["nccl"], MT_LAUNCHES["shared4"]["train"]
     if nccl["launches"] != {"gdn": train[0], "deconv_igdn": train[1]} or \
             len(nccl["trace"]) != 1 or not np.allclose(
@@ -2268,25 +2659,34 @@ def run_parallel(torch, tmp, card):
           f"{nccl['trace'][0]:.6f} (the single process's first "
           f"{runs['single']['trace'][0]:.6f}); scenes rendered in "
           f"{render_s:.3f} s; launch walls (spawn, CUDA init, fit, timing) "
-          f"gloo {gloo_s:.3f} s, nccl {nccl_s:.3f} s")
+          f"gloo {gloo_s:.3f} s (with the K = {DP_K} fit and the sharded "
+          f"compress), nccl {nccl_s:.3f} s")
     for name in ("single", "gloo", "nccl"):
         print_dp_run("p10 dp", name, runs[name], DP_BATCH, card)
     # every run's train steps (fit's, the timed and the profiled ones) and
     # its launches, counted in its process
     extra = DP_TIMED_STEPS + 1
-    calls = {f"train{DP_BATCH}": DP_STEPS + extra + 1 + extra}
-    calls[f"train{DP_BATCH // DP_RANKS}"] = DP_RANKS * (DP_STEPS + extra)
+    rows = DP_BATCH // DP_RANKS
+    calls = {f"train{DP_BATCH}": DP_STEPS + extra + 1 + extra,
+             f"train{rows}": 2 * DP_RANKS * (DP_STEPS + extra),
+             f"encode{rows}": sum(c["calls"] for c in compress)}
     launches = {k: sum(r["all_launches"][k] for r in
-                       [runs["single"], runs["nccl"], *ranks])
+                       [runs["single"], runs["nccl"], *ranks, *k2,
+                        *compress])
                 for k in ("gdn", "deconv_igdn")}
-    return {"calls": calls, "launches": launches}
+    return {"calls": calls, "launches": launches,
+            "compress": {"launches": {k: sum(c["launches"][k]
+                                             for c in compress)
+                                      for k in ("gdn", "deconv_igdn")},
+                         "calls": len(compress), "key": f"encode{rows}"}}
 
 
 def run_cards(torch, n, card):
-    """`--dp-cards n`: phase 10 (c) across n cards, one rank a card over
-    NCCL, DP_BATCH rows a rank (a global batch of n x DP_BATCH), against
-    one process at the global batch (`check_dp`), with each run's step
-    p50, all-reduce share and busy share."""
+    """`--dp-cards n`: phase 10 (c) and (d) across n cards, one rank a
+    card over NCCL, DP_BATCH rows a rank (a global batch of n x
+    DP_BATCH), against one process at the global batch (`check_dp`,
+    `check_sharded_compress`), with each run's step p50, all-reduce share
+    and busy share."""
     from mmnc_tpu_torch.parallel import launch
 
     batch = n * DP_BATCH
@@ -2296,11 +2696,14 @@ def run_cards(torch, n, card):
         out = os.path.join(tmp, "dp")
         single = dp_fit(None, cache, out, DP_STEPS, batch)
         t0 = time.perf_counter()
-        ranks = launch(dp_fit, n, "cuda", cache, out, DP_STEPS, batch,
-                       timeout=600)
+        ranks = launch(dp_fit_and_compress, n, "cuda", cache, out, DP_STEPS,
+                       batch, timeout=600)
         seconds = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    check_sharded_compress(torch, [r["compress"] for r in ranks], batch,
+                           card, f"{n} NCCL ranks, one a card")
+    ranks = [r["fit"][1] for r in ranks]
     worst = check_dp(single, ranks, DP_STEPS, f"{n} cards")
     print(f"cards: {DP_STEPS} fit steps at a global batch of {batch}, {n} "
           f"NCCL ranks, one a card ({DP_BATCH} rows each), vs one process "
@@ -2345,21 +2748,23 @@ def run_phase10(torch, card):
         if n == 0:
             raise RuntimeError(f"kernel {k} never launched in phase 10")
     print(f"p10 ({card}): {seconds:.3f} s; launches {launches}")
-    return {"launches": launches, "calls": calls}
+    return {"launches": launches, "calls": calls, "compress": dp["compress"]}
 
 
 def p10_sums(p10, tot, kernel):
     """The kernels line's phase 10 entries of `kernel`: its launches, and
     phase 3's times summed over them (each shape group's sums times the
     calls of it); the two counts must agree."""
-    out = {"p10_launches": p10["launches"][kernel], "p10_ms": 0.0,
-           "p10_plain_ms": 0.0, "p10_bound_ms": 0.0}
+    fields = [f for f in ("ms", "plain_ms", "bound_ms", "library_ms")
+              if f in tot["shared4"]]
+    out = {"p10_launches": p10["launches"][kernel],
+           **{f"p10_{f}": 0.0 for f in fields}}
     reckoned = 0
     for key, n in p10["calls"].items():
         if key not in tot:  # deconv+IGDN: no train or encode launches
             continue
         reckoned += n * tot[key]["launches"]
-        for field in ("ms", "plain_ms", "bound_ms"):
+        for field in fields:
             out[f"p10_{field}"] += n * tot[key][field]
     if reckoned != p10["launches"][kernel]:
         raise RuntimeError(f"{kernel}: phase 3 reckoned {reckoned} launches "
@@ -2415,6 +2820,32 @@ def cli_sums(cli, tot, kernel, steps):
     return out
 
 
+def new_path_sums(p5, cli, p10, imported, tot, kernel):
+    """The kernels line's entries of `kernel` on this slice's paths: each
+    path's launches and phase 3's device / plain / bound (and library)
+    ms summed over them, the launches phase 3 reckoned checked against
+    the counted ones."""
+    fields = [f for f in ("ms", "plain_ms", "bound_ms", "library_ms")
+              if f in tot["shared4"]]
+    out = {"import_launches": imported[kernel]}
+    k = cli["k_calls"]["per_call"][kernel]
+    compress = p10["compress"]
+    for prefix, launches, key, n in (
+            ("p5_shared4", p5[kernel], "shared4", BATCHES),
+            ("cli_k4_call", k, "cli_train", CLI_K),
+            ("p10_compress", compress["launches"][kernel], compress["key"],
+             compress["calls"])):
+        reckoned = n * tot[key]["launches"] if key in tot else 0
+        if reckoned != launches:
+            raise RuntimeError(f"{kernel} {prefix}: phase 3 reckoned "
+                               f"{reckoned} launches, counted {launches}")
+        out[f"{prefix}_launches"] = launches
+        for f in fields:
+            out[f"{prefix}_{f}"] = n * tot[key][f] if key in tot else 0.0
+    out["cli_k4_launches"] = cli["k_calls"]["launches"][kernel]
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--profile", default=None,
@@ -2462,6 +2893,8 @@ def main(argv=None):
     run_widths(torch)
     train = run_train(torch, args.profile)
     mt = run_multitask(torch, args.profile)
+    p5 = run_mt_streaming(torch, args.profile, mt)
+    imported = run_import(torch)
     cli = run_cli(torch, args.profile, card)
     p10 = run_phase10(torch, card)
     for name, n in mt["launches"].items():
@@ -2476,6 +2909,11 @@ def main(argv=None):
     for name, n in cli["launches"].items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched by the CLIs")
+    for what, got in (("phase 5's shared4 stream", p5),
+                      ("the imported model's round trip", imported)):
+        for name, n in got.items():
+            if n == 0:
+                raise RuntimeError(f"kernel {name} never launched in {what}")
 
     def sums(tot, key, library):
         t = tot[key]
@@ -2501,7 +2939,14 @@ def main(argv=None):
              f"at those steps' shapes; p10_*: phase 10 (the sweep, the "
              f"analysis and data parallelism at shared4): p10_launches "
              f"counted over it, every process's, p10_ms, p10_plain_ms and "
-             f"p10_bound_ms phase 3's sums over those launches")
+             f"p10_bound_ms phase 3's sums over those launches; p5_shared4_*"
+             f": phase 5's shared4 stream (v2, {BATCHES} batches of "
+             f"{BATCH}), its launches and phase 3's sums over them; "
+             f"cli_k4_*: phase 9's train CLI at --steps-per-call {CLI_K} "
+             f"(its run's launches, a call's, phase 3's sums at a call's "
+             f"shapes); p10_compress_*: phase 10 (d)'s sharded compress, "
+             f"the ranks' counted call; import_launches: the imported "
+             f"model's round trip of {BATCH}")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -2522,7 +2967,8 @@ def main(argv=None):
          "shared4_train_plain_ms": gdn_tot["shared4_train"]["plain_ms"],
          "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"],
          **cli_sums(cli, gdn_tot, "gdn", ("train", "val")),
-         **p10_sums(p10, gdn_tot, "gdn")},
+         **p10_sums(p10, gdn_tot, "gdn"),
+         **new_path_sums(p5, cli, p10, imported, gdn_tot, "gdn")},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -2536,7 +2982,8 @@ def main(argv=None):
          "shared4_train_launches_per_step":
              mt["train_launches"]["deconv_igdn"],
          **cli_sums(cli, dec_tot, "deconv_igdn", ("val",)),
-         **p10_sums(p10, dec_tot, "deconv_igdn")},
+         **p10_sums(p10, dec_tot, "deconv_igdn"),
+         **new_path_sums(p5, cli, p10, imported, dec_tot, "deconv_igdn")},
     ]
     print(json.dumps({"kernels": kernels}))
     print_ok(torch)

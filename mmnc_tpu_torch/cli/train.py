@@ -8,7 +8,8 @@ Runs on the CUDA device unless --device names another (--device cpu);
 with no card and no --device it raises. `-g N` trains data-parallel on N
 ranks, one process each (`parallel.launch`): rank r on card r, or N CPU
 ranks with --device cpu; --batch-size is the global batch, which the
-ranks split. --steps-per-call > 1 is not ported yet and raises.
+ranks split. `--steps-per-call K` runs K train steps per call of the
+step (`make_multi_train_step`), with `-g N` too.
 """
 
 import argparse
@@ -20,7 +21,7 @@ from ..data import (SyntheticMultiTaskDataset, CLEVRDataset, BatchLoader,
 from ..data.mnist import MNISTMonoDataset
 from ..models import build_model
 from ..parallel import launch
-from ..train.loop import check_ported, fit
+from ..train.loop import fit
 
 DATASET_ROOTS = {
     "mnist": os.environ.get("MMNC_MNIST_ROOT", "data/mnist"),
@@ -70,8 +71,8 @@ def parse_args(argv):
     p.add_argument("--no-metrics", action="store_true")
     p.add_argument("--log-every", default=10, type=int)
     p.add_argument("--steps-per-call", default=1, type=int,
-                   help="optimizer steps fused into one device dispatch "
-                        "(only 1 is ported; more raise)")
+                   help="optimizer steps per call of the train step "
+                        "(clamped to the batches of an epoch)")
     p.add_argument("--profile-dir", default=None)
     p.add_argument("-n", "--num-workers", default=4, type=int,
                    help="thread workers for sample fetch (reference "
@@ -180,7 +181,6 @@ def main(argv=None, stats=None):
     handed to `fit` (the run's timings). Returns the train state; with
     `-g N > 1`, each rank's {"step", "val_logs", "stats"} in rank order."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    check_ported(args.steps_per_call)
     if args.devices > 1:
         if args.prerender:
             get_loaders(args)  # render the cache once, before the ranks read it

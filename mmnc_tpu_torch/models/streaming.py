@@ -37,7 +37,9 @@ Layouts ("impl"), as in the JAX package:
       the decoded z (`_decompress_indexes_u8`): three programs.
 Where max_abs says int16 wrapped (>= 2^15 - 1), the batch goes through
 `_roundtrip_one_wide`: the int32 `compress` program and coder. Streams equal
-`compress(packed=True)`'s bytes, and x_hats its `decompress`.
+`compress(packed=True)`'s bytes, and x_hats its `decompress`, for each of
+the four codecs: the device programs are the base class's, and the x_hats
+are a dict with one NHWC tensor per task.
 
 Stages are labelled for torch.profiler (`record_function`):
 stream.compress, stream.d2h_wait, stream.rans_encode, stream.rans_decode,

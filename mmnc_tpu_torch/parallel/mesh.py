@@ -72,6 +72,17 @@ class Mesh:
             out[k] = chunk.view(values[k].shape)
         return out
 
+    def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's `tensor` (equal shapes) concatenated along dim 0
+        in rank order. The ranks exchange the tensors' bytes (a uint8
+        view), so every dtype goes through NCCL and gloo bit for bit
+        (NCCL has no int16)."""
+        t = tensor.contiguous()
+        raw = t.reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(self.world_size)]
+        dist.all_gather(parts, raw, group=self.group)
+        return torch.cat([p.view(t.dtype).view(t.shape) for p in parts])
+
     def any(self, flag: bool) -> bool:
         """True on every rank if `flag` is true on any."""
         t = torch.tensor([int(flag)], dtype=torch.int32)

@@ -21,8 +21,14 @@ Where it differs from the JAX loop, and why:
   the divergence guard on the reduced loss, a SIGTERM) is taken by all
   ranks together: a rank that left alone would hang the others in their
   next collective;
-* `steps_per_call > 1` (several steps in one dispatch) is not ported yet
-  and raises.
+* every call of the train step is one of `make_multi_train_step`, on
+  `steps_per_call` K consecutive batches (a rank its own rows) handed
+  over as a list of the K staged batches rather than a stacked copy; K =
+  1 is a group of one, so one path serves both. The loop's cadences are
+  the JAX loop's, read at the step before the call: logs are pulled, and
+  the profiler window opened and closed, on calls whose first step is a
+  multiple of `log_every` or equals 5 / 10; `max_steps`, the divergence
+  guard, SIGTERM and the stop flag are checked after each call.
 """
 
 import json
@@ -41,20 +47,19 @@ from ..utils.checkpoint import (find_last_checkpoint, restore_checkpoint,
 from ..utils.logging import MetricLogger, save_image_grid
 from ..utils.profiling import StepTimer, start_trace, stop_trace
 from .state import create_train_state
-from .step import make_eval_step, make_train_step
+from .step import make_eval_step, make_multi_train_step
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The noise generator's seed for `step` of a run seeded `seed`."""
-    return ((seed + 1) << 32) + step
-
-
-def check_ported(steps_per_call: int):
-    """Raise for the options the port does not have yet."""
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 is not ported yet (ROADMAP.md section 2, "
-            "item 4: the multi-step as CUDA graphs)")
+def _superbatches(it, k: int):
+    """Group k consecutive batches of `it` into lists of k, for the
+    K-step call; drops a trailing incomplete group (mmnc_tpu/train/loop.py:
+    30-39, which stacks them)."""
+    group = []
+    for batch in it:
+        group.append(batch)
+        if len(group) == k:
+            yield group
+            group = []
 
 
 def _host_values(logs: dict) -> dict:
@@ -98,7 +103,8 @@ def fit(
     """Train `model` (in place); returns (state, last_val_logs).
 
     `stats`, if given, is filled with the run's timings: "step_timer"
-    (StepTimer.stats() over the train steps, the first two left out),
+    (StepTimer.stats() over the train calls, each `steps_per_call` steps,
+    the first two left out),
     "loader" (seconds the loop waited for prefetched batches and how many
     it took), "save_ms" (one entry per checkpoint written), "restore_ms"
     (the resume's load, if any) and "trace" (the profiler's file, if
@@ -108,7 +114,6 @@ def fit(
     this `fit` in its own process (`parallel.launch`) with its own model
     on its own device: the batch size is the global batch's, which the
     ranks split. Outside such a process group it raises."""
-    check_ported(steps_per_call)
     stats = {} if stats is None else stats
     device = model.device
     mesh = None
@@ -165,8 +170,16 @@ def fit(
         shard_train_state(state, model, mesh)
 
     tm = compute_metrics if train_metrics is None else train_metrics
-    train_step = make_train_step(model, compute_metrics=tm,
-                                 clip_norm=clip_norm, remat=remat, mesh=mesh)
+    if steps_per_call > steps_per_epoch:
+        # _superbatches drops trailing incomplete groups; a group larger
+        # than the epoch would silently train zero steps per epoch
+        print(f"steps_per_call {steps_per_call} > {steps_per_epoch} "
+              f"batches/epoch — clamping")
+        steps_per_call = steps_per_epoch
+    steps_per_call = max(steps_per_call, 1)  # as JAX's loop takes 0
+    train_step = make_multi_train_step(
+        model, steps_per_call, compute_metrics=tm, clip_norm=clip_norm,
+        remat=remat, mesh=mesh)
     eval_step = make_eval_step(model, compute_metrics=compute_metrics,
                                mesh=mesh)
 
@@ -226,12 +239,12 @@ def fit(
         for epoch in range(start_epoch, epochs):
             if done:
                 break
-            for batch in _staged(train_loader, epoch, count=True):
+            for group in _superbatches(_staged(train_loader, epoch,
+                                               count=True), steps_per_call):
                 step_no = state.step
                 if profile_dir and lead and step_no == 5:
                     tracing = start_trace(profile_dir)
-                generator.manual_seed(step_seed(seed, step_no))
-                state, logs = train_step(state, batch, generator)
+                state, logs = train_step(state, group, generator, seed)
                 if tracing and step_no == 10:
                     stats["trace"] = stop_trace(tracing)
                     tracing = None

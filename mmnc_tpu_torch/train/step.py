@@ -1,11 +1,13 @@
-"""The train step and the eval step (mmnc_tpu/train/step.py).
+"""The train step, K train steps per call and the eval step
+(mmnc_tpu/train/step.py).
 
 One train step: draw the step's noise, forward, main + aux loss, ONE
 backward, an optional global-norm clip, the two-group Adam update and the
 train metrics. Nothing in it waits for the device: the logs are 0-d
 tensors on the device, read by the caller when it needs them. Under a
 data-parallel mesh (`parallel/`) a rank's step equals the single-process
-step on the global batch (`make_train_step`).
+step on the global batch (`make_train_step`). `make_multi_train_step`
+runs K such steps, eagerly one after another, in one call.
 
 With grad enabled every layer runs on its own (`ops/layers.py:run_layers`
 fuses deconv->IGDN only under no-grad, as the JAX package trains unfused):
@@ -21,6 +23,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import metrics as M
 from .state import TrainState
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The noise generator's seed for `step` of a run seeded `seed`: the
+    step's noise depends on the step alone, as the JAX step folds the step
+    into its key."""
+    return ((seed + 1) << 32) + step
 
 
 def _clip_grads(grads, max_norm: float):
@@ -158,6 +167,56 @@ def make_train_step(model, compute_metrics: bool = True, clip_norm=None,
                                  compute_metrics, mesh)
 
     return train_step
+
+
+def _micro_batches(super_batch, k: int):
+    """A super-batch {task: (K, B, ...)} or a sequence of K batches -> the
+    K batches, in order (views of the super-batch's rows, no copies)."""
+    if isinstance(super_batch, dict):
+        lengths = {len(x) for x in super_batch.values()}
+        if lengths != {k}:
+            raise ValueError(f"a super-batch of {k} micro-batches has "
+                             f"leading extents {sorted(lengths)}")
+        return [{t: x[i] for t, x in super_batch.items()} for i in range(k)]
+    batches = list(super_batch)
+    if len(batches) != k:
+        raise ValueError(f"{len(batches)} micro-batches, want {k}")
+    return batches
+
+
+def make_multi_train_step(model, steps_per_call: int,
+                          compute_metrics: bool = False, clip_norm=None,
+                          remat: bool = False, mesh=None):
+    """Returns multi_step(state, super_batch, generator=None, seed=None,
+    noise=None) -> (state, logs of the last micro-step): K =
+    `steps_per_call` train steps in one call (mmnc_tpu/train/step.py:
+    88-131), each `make_train_step`'s step, run eagerly one after another.
+
+    `super_batch` is {task: (K, B, ...)} as the JAX multi-step takes it, or
+    a sequence of K batches ({task: (B, ...)}; `fit` hands it that, which
+    needs no stacking copy). Each micro-step draws its noise from
+    `generator` reseeded at step_seed(seed, state.step) just before it, so
+    K steps in one call equal K single steps of a run seeded `seed`;
+    `noise` ({"y", "z"} NHWC), if given, is every micro-step's noise
+    instead. Under a `mesh` the micro-batches are the rank's rows and
+    every micro-step is the mesh step (the single-process step on the
+    global micro-batch)."""
+    one = make_train_step(model, compute_metrics=compute_metrics,
+                          clip_norm=clip_norm, remat=remat, mesh=mesh)
+
+    def multi_step(state: TrainState, super_batch, generator=None,
+                   seed=None, noise=None):
+        if noise is None and (generator is None or seed is None):
+            raise ValueError("multi_step needs a generator and a seed, or "
+                             "noise")
+        logs = None
+        for batch in _micro_batches(super_batch, steps_per_call):
+            if noise is None:
+                generator.manual_seed(step_seed(seed, state.step))
+            state, logs = one(state, batch, generator, noise)
+        return state, logs
+
+    return multi_step
 
 
 def make_eval_step(model, compute_metrics: bool = True, mesh=None):

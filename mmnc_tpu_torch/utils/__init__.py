@@ -1,2 +1,2 @@
-"""Checkpoints, the metric sink and image grids, profiling
-(mmnc_tpu/utils)."""
+"""Checkpoints, the metric sink and image grids, profiling, and the
+import of reference (CompressAI / Lightning) checkpoints (mmnc_tpu/utils)."""

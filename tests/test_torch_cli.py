@@ -11,7 +11,8 @@
 * `rebuild_model_from_checkpoint` on a hyper_parameters.json written as
   mmnc_tpu writes it: for models 1-4 the model's state_dict has the keys
   and shapes `state_dict_from_jax` gives for JAX's params.
-* --steps-per-call 2 raises (-g 2: tests/test_torch_parallel.py).
+* -g 2: tests/test_torch_parallel.py; --steps-per-call 2:
+  tests/test_torch_multistep.py.
 * The image grid, written without an image library, decodes through PIL
   to the pixels of mmnc_tpu's grid."""
 
@@ -80,12 +81,6 @@ def test_train_cli_end_to_end_and_resume(tmp_path):
     assert find_last_checkpoint(ckpt_dir).endswith("step_6")
     steps = [r["step"] for r in _records(tmp_path) if "train/loss" in r]
     assert steps == [0, 1, 2, 3, 4, 5]
-
-
-@pytest.mark.parametrize("extra", [["--steps-per-call", "2"]])
-def test_train_cli_options_not_ported_yet_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_main(_train_args(tmp_path, *extra))
 
 
 def test_compress_cli_matches_jax_cli(tmp_path):

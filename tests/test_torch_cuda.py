@@ -698,3 +698,121 @@ def test_nccl_ranks_across_cards_equal_one_process(device, tmp_path):
             np.testing.assert_array_equal(other[name], r_params[name])
         np.testing.assert_allclose(r_params[name], p, rtol=2e-4, atol=2e-6,
                                    err_msg=name)
+
+
+# --- K steps a call, the multi-task stream, the sharded compress ----------
+
+def test_multi_step_on_card_equals_sequential_steps(device):
+    """K = 3 steps in one call of make_multi_train_step against 3 single
+    steps, each reseeded at step_seed(seed, step), under deterministic
+    cuDNN: parameters bitwise equal, 3 x 18 GDN launches a call."""
+    from mmnc_tpu_torch.train import make_multi_train_step
+    from mmnc_tpu_torch.train.step import step_seed
+
+    rng = np.random.default_rng(8)
+    batches = [{"rgb": torch.from_numpy(rng.random(
+        (2, 256, 256, 3), dtype=np.float32)).to(device)} for _ in range(3)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        models = []
+        for k in (1, 3):
+            model = scale_conv_kernels(build_model(
+                1, ["rgb"], latent_channels=8, conv_channels=4, lmbda=1e-2,
+                device=device, seed=3))
+            state = create_train_state(model, 10, 1e-4, 1e-3)
+            gen = torch.Generator(device=device)
+            before = gdn_cuda.launches
+            if k == 1:
+                step = make_train_step(model, compute_metrics=False)
+                for batch in batches:
+                    gen.manual_seed(step_seed(21, state.step))
+                    state, _ = step(state, batch, gen)
+            else:
+                state, _ = make_multi_train_step(model, 3)(state, batches,
+                                                           gen, 21)
+            torch.cuda.synchronize()
+            assert state.step == 3 and gdn_cuda.launches - before == 3 * 18
+            models.append(model)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for (name, p), q in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_shared4_stream_on_card_equals_its_compress(device):
+    """The paper's shared4 (model 4, four tasks, latent 300, conv 42)
+    streamed on the card in both layouts: each batch's bytes are its
+    compress's, each task's x_hat within 1e-5 of its decompress, 35 GDN
+    and 28 deconv+IGDN launches a batch."""
+    tasks = ["rgb", "depth_euclidean", "normal", "semantic"]
+    model = scale_conv_kernels(build_model(4, tasks, 300, 42, device=device,
+                                           seed=0))
+    model.update_bottleneck_values()
+    batches = [{t: torch.from_numpy(x).to(device) for t, x in
+                model.example_batch(2, seed=s).items()} for s in range(3)]
+    for impl in ("v2", "v1"):
+        gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
+        results = list(stream_roundtrip(model, batches, depth=2, impl=impl))
+        torch.cuda.synchronize()
+        launches = (gdn_cuda.launches - gdn0,
+                    deconv_igdn_cuda.launches - dec0)
+        # v1 computes the indexes once more, from the decoded z (no kernel)
+        assert launches == (3 * 35, 3 * 28), (impl, launches)
+        for b, (x_hats, n_bytes) in zip(batches, results):
+            ans, n_ref = model.compress(b)
+            assert n_bytes == n_ref
+            ref = model.decompress(ans)
+            for t in tasks:
+                assert (x_hats[t] - ref[t]).abs().max().item() <= 1e-5, t
+
+
+def _sharded_compress(mesh, batch):
+    from mmnc_tpu_torch.parallel import compress_device_fused_sharded
+
+    model = scale_conv_kernels(build_model(
+        4, ["rgb", "semantic"], latent_channels=9, conv_channels=8,
+        device=mesh.device, seed=2))
+    return [t.cpu().numpy() for t in
+            compress_device_fused_sharded(model, batch, mesh)]
+
+
+def test_sharded_compress_on_two_gloo_ranks_equals_one_process(device):
+    """2 ranks on cuda:0 over gloo, each compressing its 2 rows of a
+    batch of 4: the gathered symbols, indexes and max_abs bitwise equal
+    one process's `_compress_device_fused`."""
+    from mmnc_tpu_torch.parallel import launch
+
+    model = scale_conv_kernels(build_model(
+        4, ["rgb", "semantic"], latent_channels=9, conv_channels=8,
+        device=device, seed=2))
+    batch = model.example_batch(4, seed=5)
+    want = [t.cpu().numpy() for t in model._compress_device_fused(batch)]
+    ranks = launch(_sharded_compress, 2, "cuda:0", batch, backend="gloo",
+                   timeout=300)
+    assert (want[0] != 0).any()
+    for got in ranks:
+        for name, g, w in zip(("y", "z", "indexes", "max_abs"), got, want):
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_sharded_compress_across_cards_equals_one_process(device):
+    """One NCCL rank on each card (needs 2 or 4), each compressing 2 rows:
+    the gathered int16 symbols (moved as bytes: NCCL has no int16), uint8
+    indexes and max_abs bitwise equal one process's."""
+    from mmnc_tpu_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    if cards < 2 or 4 % cards:
+        pytest.skip(f"needs 2 or 4 CUDA devices, found {cards}")
+    model = scale_conv_kernels(build_model(
+        4, ["rgb", "semantic"], latent_channels=9, conv_channels=8,
+        device=device, seed=2))
+    batch = model.example_batch(2 * cards, seed=5)
+    want = [t.cpu().numpy() for t in model._compress_device_fused(batch)]
+    for got in launch(_sharded_compress, cards, "cuda", batch, timeout=300):
+        for name, g, w in zip(("y", "z", "indexes", "max_abs"), got, want):
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w, err_msg=name)

@@ -13,8 +13,8 @@ The port alone: a run of 2 steps resumed to 4 is bitwise equal to 4
 uninterrupted steps (the per-step reseeded noise, Adam's state and the
 schedule are restored exactly); the saved horizon is kept or extended as
 mmnc_tpu's loop says; a SIGTERM inside a step saves a checkpoint; three
-non-finite losses abort; steps_per_call > 1, not ported yet, raises
-(n_devices > 1: tests/test_torch_parallel.py)."""
+non-finite losses abort (n_devices > 1: tests/test_torch_parallel.py;
+steps_per_call > 1: tests/test_torch_multistep.py)."""
 
 import json
 import os
@@ -245,10 +245,3 @@ def test_three_non_finite_losses_abort(tmp_path):
     with pytest.raises(RuntimeError, match="diverged.*step 3"):
         fit(model, train_loader, epochs=1, out_dir=str(tmp_path),
             run_name="run", log_every=1, compute_metrics=False)
-
-
-@pytest.mark.parametrize("kw", [{"steps_per_call": 2}])
-def test_options_not_ported_yet_raise(tmp_path, kw):
-    train_loader, _ = _loaders()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit(_port_model(), train_loader, out_dir=str(tmp_path), **kw)
