@@ -134,14 +134,31 @@ Phases, each of which exits non-zero on failure:
      rows of a shared4 batch of 16 (`compress_device_fused_sharded`): the
      gathered symbols, indexes and max_abs bitwise equal one process's,
      the rANS bytes its compress's, 27 GDN a rank's call;
+bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
+     path (`build_model(..., dtype=torch.bfloat16)`): phase 3's checks with
+     bf16 activations at every launch shape of an rgb round trip and a
+     shared4 one (batch 8) and of phase 7's train step (batch 16), within
+     2^-7 (GDN) and 2^-6 (deconv+IGDN) x max(1, |plain|max), bitwise
+     repeatable, timed, the bound at 2 bytes an activation value; the
+     rgb codec at bench width on phase 4's batches: decode bitwise
+     equal to the eval forward (deterministic cuDNN), compress -> decompress with phase 4's launch counts, MP/s and
+     one profiled round trip's device ms, busy share and cuDNN's share
+     beside phase 4's float32 codec measured here, both stream layouts
+     (bytes equal compress's, x_hats within 2^-4 of decompress's largest
+     value), card vs CPU on one image (2^-4 of the largest value);
+     shared4's round trip at batch 8 beside phase 8's;
+     phase 7's train step in bf16 for BF16_TRAIN_STEPS steps on one batch
+     (18 GDN a step, the loss falls, parameters and loss float32), its
+     step wall, peak memory and one profiled step (device ms, GDN, its
+     backward, cuDNN's share) beside phase 7's;
  11. print a {"kernels": [...]} line (launches: the shared4 run; times
      summed over a shared4 round trip, the rgb path's beside them; cli_*:
      phase 9's launches and phase 3's times at its train and validation
      steps' shapes; p10_*: phase 10's launches, every process's, and phase
      3's times summed over them; p5_shared4_*, cli_k4_*, p10_compress_*
      and import_launches: the same for phase 5's shared4 stream, phase
-     9's K-step run, phase 10 (d) and the import's round trip) and,
-     last, {"ok": true, "device":
+     9's K-step run, phase 10 (d) and the import's round trip; bf16: the
+     bf16 phase's launches and sums) and, last, {"ok": true, "device":
      {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
@@ -170,7 +187,12 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12  # CUDA cores; the kernels use no tensor cores
+# bf16 x bf16 products summed in float32 on the tensor cores (dense): the
+# rate a bf16 deconv or GDN product could reach, so the bound of a bf16
+# launch counts its operations at this rate
+BF16_FLOP_PER_S = 989e12
 F32 = 4
+BF16 = 2  # bytes of a bf16 activation
 # chrome-trace categories of device work (torch.profiler / kineto)
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 # torch.profiler (CUPTI) on the H100 now and then keeps only part of a
@@ -238,23 +260,26 @@ MT_LAUNCHES = {
 }
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, flop_rate=F32_FLOP_PER_S):
     """Least time for the work: the larger of bytes over HBM rate and
-    operations over the f32 rate. Returns (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    operations over `flop_rate` (the float32 rate, or BF16_FLOP_PER_S for
+    bf16 inputs). Returns (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
 
 
-def gdn_cost(n, c):
-    """Bytes (x read, out written, gamma, beta) and FLOPs (x^2, the
-    C x C product as FMAs, (r)sqrt, multiply) of one (I)GDN on (n, c)."""
-    return (2 * n * c + c * c + c) * F32, 2 * n * c * c + 3 * n * c
+def gdn_cost(n, c, elt=F32):
+    """Bytes (x read, out written, of `elt` bytes a value; gamma, beta in
+    float32) and FLOPs (x^2, the C x C product as FMAs, (r)sqrt, multiply)
+    of one (I)GDN on (n, c)."""
+    return 2 * n * c * elt + (c * c + c) * F32, 2 * n * c * c + 3 * n * c
 
 
-def deconv_igdn_cost(b, h, w, cin, cout, mode):
-    """Bytes and FLOPs of one k5/s2 deconv (+ epilogue). Taps falling on
+def deconv_igdn_cost(b, h, w, cin, cout, mode, elt=F32):
+    """Bytes and FLOPs of one k5/s2 deconv (+ epilogue); x and out of
+    `elt` bytes a value, the parameters float32. Taps falling on
     the zero padding are not counted: (5H-3)(5W-3) input-tap pairs per
     image and channel pair, and of the weights only the kernel rows and
     columns that reach the image (2 of 5 along an axis of extent 1)."""
@@ -262,8 +287,8 @@ def deconv_igdn_cost(b, h, w, cin, cout, mode):
     kernel_taps = (2 if h == 1 else 5) * (2 if w == 1 else 5)
     out_pix = b * 4 * h * w
     flops = 2 * b * taps * cin * cout + out_pix * cout
-    n_bytes = (b * h * w * cin + kernel_taps * cin * cout + cout
-               + out_pix * cout) * F32
+    n_bytes = ((b * h * w * cin + out_pix * cout) * elt
+               + (kernel_taps * cin * cout + cout) * F32)
     if mode is not None:
         flops += 2 * out_pix * cout * cout + 3 * out_pix * cout
         n_bytes += (cout * cout + cout) * F32
@@ -329,10 +354,6 @@ def time_ms(torch, fn, iters=20):
               f"of {iters} calls against {per_call} of one; measuring again")
     raise RuntimeError(f"the profiler lost device records {TIMING_TRIES} "
                        f"times")
-
-
-def max_err(torch, got, want):
-    return (got - want).abs().max().item(), want.abs().max().item()
 
 
 def gdn_path_shapes(b, conv=CONV):
@@ -455,11 +476,116 @@ def gdn_extra_shapes(path):
                for n, c, inv, _ in gdn_path_shapes(BATCH, conv)])
 
 
-def gdn_case(torch, gen, n, c):
+def gdn_case(torch, gen, n, c, dtype=None):
+    """x, gamma, beta on the card; for bf16 x in bf16 and gamma rounded to
+    bf16 values held in float32, as the bf16 layer hands them over."""
     x = torch.randn(n, c, generator=gen).cuda()
     gamma = (0.1 * torch.eye(c) + 0.01 * torch.rand(c, c, generator=gen)).cuda()
     beta = (1 + 0.1 * torch.rand(c, generator=gen)).cuda()
+    if dtype == torch.bfloat16:
+        x, gamma = x.to(dtype), gamma.to(dtype).float()
     return x, gamma, beta
+
+
+def type_costs(torch, dtype):
+    """(bytes an activation value, peak rate of the operations) of x's
+    type for the bound: float32 on the CUDA cores, bf16 on the tensor
+    cores."""
+    if dtype == torch.bfloat16:
+        return BF16, BF16_FLOP_PER_S
+    return F32, F32_FLOP_PER_S
+
+
+def check_close(torch, got, want, tol_rel, where):
+    """got (of want's type) against want within tol_rel x max(1,
+    |want|max). Returns (max abs err, |want|max)."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype:
+        raise RuntimeError(f"{where}: output {got.dtype}, want {want.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not err <= tol_rel * max(1.0, scale):
+        raise RuntimeError(f"{where}: max abs err {err} > {tol_rel} x "
+                           f"{max(1.0, scale)}")
+    return err, scale
+
+
+def check_deconv_bf16(torch, x, taps, bias, gamma, beta, mode, plan, where):
+    """One launch plan of deconv+IGDN on bf16 x (the parameters float32
+    holding bf16 values) held to its plain version stage by stage:
+
+    The kernel's sum and y are read back through launches of the same
+    plan and mode with gamma 0 and beta 1, whose (I)GDN multiplies by
+    sqrt(1) = 1 exactly: the same staging and order of sums as the real
+    launch (the split kernel's weight chunks depend on the mode).
+
+    - the sum: the kernel's, rounded to bf16 (zero bias), equals cuDNN's (the plain version's) but where the exact sum s
+      (float64: products of bf16 values are exact) lies within float32
+      summation error E of a bf16 rounding boundary: E = (n - 1) u
+      sum|terms| for n terms in any order (u = 2^-24; taken twice, n = 9
+      Cin, for the tensor cores' truncated alignment). The two sum in
+      other orders, and there either may round the other way: each of the
+      two values v must be a rounding of a value within E of s, |v - s| -
+      (half v's gap to its bf16 neighbour towards s) <= E;
+    - y: the kernel's is its rounded sum plus the bias, rounded, bitwise
+      (the chain's two roundings);
+    - the output: within BF16_TOL x max(1, |.|max) of `gdn_plain` on the
+      kernel's own y, and a second launch bitwise equal.
+
+    Returns (max abs err against the whole plain version, its |max|,
+    values past BF16_TOL x max(1, |max|) of it, sums rounding apart, the
+    largest such excess over a half gap in u sum|terms|)."""
+    import torch.nn.functional as F
+
+    from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
+                                                deconv_igdn_plain)
+    from mmnc_tpu_torch.ops.gdn import gdn_plain
+
+    c = taps.shape[-1]
+    unit_gdn = (torch.zeros(c, c, device=x.device),
+                torch.ones(c, device=x.device))
+    probe = "igdn" if mode is not None else None
+    zero = torch.zeros_like(bias)
+    acc = deconv_igdn_cuda(x, taps, zero, *unit_gdn, probe, plan=plan)
+    acc_plain = deconv_igdn_plain(x, taps, zero, mode=None)
+    torch.cuda.synchronize()
+    apart = acc != acc_plain
+    n_apart, reach = int(apart.sum().item()), 0.0
+    if n_apart:
+        weight = taps.double().permute(2, 3, 0, 1).flip(2, 3)
+        xs = x.double().permute(0, 3, 1, 2)
+        geometry = {"stride": 2, "padding": 2, "output_padding": 1}
+        exact, size = (F.conv_transpose2d(a, w, **geometry).permute(
+            0, 2, 3, 1)[apart].cpu() for a, w in ((xs, weight),
+                                                  (xs.abs(), weight.abs())))
+        unit = 2.0 ** -24 * size
+        for v in (acc[apart].cpu(), acc_plain[apart].cpu()):
+            towards = torch.where(exact > v.double(), float("inf"),
+                                  float("-inf")).to(v.dtype)
+            gap = (torch.nextafter(v, towards).double() - v.double()).abs()
+            excess = ((v.double() - exact).abs() - gap / 2) / unit
+            reach = max(reach, excess.max().item())
+        if not reach <= 2 * 9 * x.shape[-1]:
+            raise RuntimeError(f"{where}: a rounded sum {reach} u sum|terms| "
+                               f"past half a bf16 gap from the exact sum")
+    y = deconv_igdn_cuda(x, taps, bias, *unit_gdn, probe, plan=plan)
+    if not torch.equal(y, (acc.float() + bias).to(x.dtype)):
+        raise RuntimeError(f"{where}: y is not the rounded sum plus the "
+                           f"bias, rounded")
+    out = y
+    if mode is not None:
+        out = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode, plan=plan)
+        again = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode, plan=plan)
+        check_close(torch, out, gdn_plain(y.reshape(-1, c), gamma, beta,
+                                          mode == "igdn").view(y.shape),
+                    BF16_TOL, f"{where} (epilogue on its own y)")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{where}: two launches differ")
+    want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
+    diff = (out.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    beyond = int((diff > BF16_TOL * max(1.0, scale)).sum().item())
+    return diff.max().item(), scale, beyond, n_apart, reach
 
 
 def check_gdn_launch(torch, x, gamma, beta, inverse, plan, tol_rel):
@@ -470,12 +596,9 @@ def check_gdn_launch(torch, x, gamma, beta, inverse, plan, tol_rel):
     got = gdn_cuda(x, gamma, beta, inverse, plan=plan)
     again = gdn_cuda(x, gamma, beta, inverse, plan=plan)
     want = gdn_plain(x, gamma, beta, inverse)
-    torch.cuda.synchronize()
-    err, scale = max_err(torch, got, want)
-    where = f"gdn {tuple(x.shape)} inverse={inverse} plan {tuple(plan)}"
-    if not err <= tol_rel * max(1.0, scale):
-        raise RuntimeError(f"{where}: max abs err {err} > {tol_rel} x "
-                           f"{max(1.0, scale)}")
+    where = (f"gdn {x.dtype} {tuple(x.shape)} inverse={inverse} plan "
+             f"{tuple(plan)}")
+    err, scale = check_close(torch, got, want, tol_rel, where)
     if not torch.equal(got, again):
         raise RuntimeError(f"{where}: two launches differ")
     return err, scale
@@ -517,7 +640,7 @@ def check_gdn(torch, b, gen):
     train step's forward ("shared4_train"), and phase 9's train step and
     validation step at CLI_BATCH ("cli_train", "cli_val"); the largest
     error; the tolerance."""
-    from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plan
 
     tol_rel = 1e-4
     path = gdn_path_shapes(b)
@@ -534,7 +657,7 @@ def check_gdn(torch, b, gen):
                   f"ms={ms:.5f} host_ms={host:.5f}")
         del x, gamma, beta
     shared4 = paper_layout(*PAPER["shared4"])
-    cases = shape_cases(
+    totals, max_err_seen = check_gdn_cases(torch, gen,
         [([s[:3] for s in path], "trip"),
          (gdn_train_shapes(TRAIN_BATCH), "train"),
          (mt_gdn_shapes(shared4, b), "shared4"),
@@ -546,18 +669,31 @@ def check_gdn(torch, b, gen):
         + p10_gdn_groups(shared4)
         + [(mt_gdn_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
-        + [(gdn_extra_shapes(path), None)])
+        + [(gdn_extra_shapes(path), None)], tol_rel)
+    return totals, max_err_seen, tol_rel
+
+
+def check_gdn_cases(torch, gen, groups, tol_rel, dtype=None):
+    """Each distinct shape of `groups` ([(shapes, count key or None)])
+    under its launch plan, x float32 or `dtype`: against the plain version
+    within tol_rel and bitwise repeatable, then device ms of the kernel and
+    of the plain version and the bound (x's bytes and rate), printed and
+    summed by key (add_times). Returns (the sums, the largest error)."""
+    from mmnc_tpu_torch.ops.gdn import gdn_cuda, gdn_plain, gdn_plan
+
+    elt, rate = type_costs(torch, dtype)
+    tag = " bf16" if dtype == torch.bfloat16 else ""
     totals, max_err_seen = {}, 0.0
-    for (n, c, inverse), uses in cases.items():
-        x, gamma, beta = gdn_case(torch, gen, n, c)
+    for (n, c, inverse), uses in shape_cases(groups).items():
+        x, gamma, beta = gdn_case(torch, gen, n, c, dtype)
         plan = gdn_plan(n, c)
         err, scale = check_gdn_launch(torch, x, gamma, beta, inverse, plan,
                                       tol_rel)
         ms, host = time_ms(torch, lambda: gdn_cuda(x, gamma, beta, inverse))
         plain, plain_host = time_ms(
             torch, lambda: gdn_plain(x, gamma, beta, inverse))
-        bms, by = bound_ms(*gdn_cost(n, c))
-        print(f"kernel gdn rows={n} C={c} inverse={inverse} launches="
+        bms, by = bound_ms(*gdn_cost(n, c, elt), rate)
+        print(f"kernel gdn{tag} rows={n} C={c} inverse={inverse} launches="
               f"{json.dumps(uses, separators=(',', ':'))} plan="
               f"{tuple(plan)} max_abs_err={err:.3e} "
               f"(|ref|max {scale:.3g}) bitwise_repeat=ok "
@@ -568,7 +704,7 @@ def check_gdn(torch, b, gen):
         add_times(totals, uses, {"ms": ms, "host_ms": host,
                                    "plain_ms": plain, "bound_ms": bms}, by)
         del x, gamma, beta
-    return totals, max_err_seen, tol_rel
+    return totals, max_err_seen
 
 
 def p10_gdn_groups(lay):
@@ -606,17 +742,22 @@ def wide_deconv_shapes():
             if s not in path]
 
 
-def deconv_case(torch, gen, bb, h, w, cin, cout):
+def deconv_case(torch, gen, bb, h, w, cin, cout, dtype=None):
     """x NHWC, the torch-layout weight at init scale and its JAX tap
-    layout, bias, gamma, beta; all on the card."""
+    layout, bias, gamma, beta; all on the card. For bf16 x in bf16 and
+    the weight, bias and gamma rounded to bf16 values held in float32, as
+    the bf16 layers hand them over."""
     x = torch.randn(bb, h, w, cin, generator=gen).cuda()
     wt = ((torch.rand(cin, cout, 5, 5, generator=gen) * 2 - 1)
           / (25 * cin) ** 0.5).cuda()
-    taps = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
     bias = (0.1 * torch.randn(cout, generator=gen)).cuda()
     gamma = (0.1 * torch.eye(cout)
              + 0.01 * torch.rand(cout, cout, generator=gen)).cuda()
     beta = (1 + 0.1 * torch.rand(cout, generator=gen)).cuda()
+    if dtype == torch.bfloat16:
+        x = x.to(dtype)
+        wt, bias, gamma = (t.to(dtype).float() for t in (wt, bias, gamma))
+    taps = wt.flip(2, 3).permute(2, 3, 0, 1).contiguous()
     return x, wt, taps, bias, gamma, beta
 
 
@@ -630,14 +771,8 @@ def check_deconv(torch, b, gen):
     (CLI_BATCH and CLI_COMPARE_BATCH). Returns the sums as check_gdn does
     ("trip": an rgb round trip, "shared4": a shared4 one, "cli_val": phase
     9's validation step), the largest error, the tolerance."""
-    import torch.nn.functional as F
-
-    from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
-                                                deconv_igdn_plain,
-                                                launch_plan, tile_shape)
-
     tol_rel = 1e-4
-    cases = shape_cases(
+    totals, max_err_seen = check_deconv_cases(torch, gen,
         [(deconv_path_shapes(b), "trip"),
          (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), b), "shared4"),
          (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), CLI_BATCH),
@@ -649,53 +784,79 @@ def check_deconv(torch, b, gen):
          ([(b, 8, 8, CONV, CONV, None)], None)]  # g_s's last deconv
         + [(mt_deconv_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
-        + [(split_extra_shapes() + wide_deconv_shapes(), None)])
+        + [(split_extra_shapes() + wide_deconv_shapes(), None)], tol_rel)
+    return totals, max_err_seen, tol_rel
+
+
+def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None):
+    """Each distinct shape of `groups` under its launch plan, x float32 or
+    `dtype`: float32 against the plain version within tol_rel, bf16 stage
+    by stage (check_deconv_bf16; the error reported is against the whole
+    plain version), two launches bitwise equal; where the plan is the
+    split kernel the tiled kernel forced at the same shape likewise. Then
+    device ms of the kernel, the plain version and the library call
+    (F.conv_transpose2d in x's type) and the bound (x's bytes and rate),
+    printed and summed by key. Returns (the sums, the largest error)."""
+    import torch.nn.functional as F
+
+    from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
+                                                deconv_igdn_plain,
+                                                launch_plan, tile_shape)
+
+    elt, rate = type_costs(torch, dtype)
+    bf16 = dtype == torch.bfloat16
     totals, max_err_seen = {}, 0.0
-    for (bb, h, w, cin, cout, mode), uses in cases.items():
+    for (bb, h, w, cin, cout, mode), uses in shape_cases(groups).items():
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
-                                                     cin, cout)
+                                                     cin, cout, dtype)
         plan = launch_plan(bb, h, w, cin, cout)
-        plans = {plan}
-        if plan[0] == "split":
-            plans.add(("tiled", *tile_shape(bb, h, w, cout), 1))
-        want = deconv_igdn_plain(x, taps, bias, gamma, beta, mode)
-        err, scale = 0.0, want.abs().max().item()
+        plans = [plan] + ([("tiled", *tile_shape(bb, h, w, cout), 1)]
+                          if plan[0] == "split" else [])
         for p in plans:
-            got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode, plan=p)
-            torch.cuda.synchronize()
-            e, _ = max_err(torch, got, want)
-            if not e <= tol_rel * max(1.0, scale):
-                raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout, mode)}"
-                                   f" plan {p}: max abs err {e} > {tol_rel} x"
-                                   f" {max(1.0, scale)}")
+            where = (f"deconv_igdn {x.dtype} {(bb, h, w, cin, cout, mode)} "
+                     f"plan {p}")
+            if bf16:
+                e, scale, *stages = check_deconv_bf16(
+                    torch, x, taps, bias, gamma, beta, mode, p, where)
+            else:
+                got = deconv_igdn_cuda(x, taps, bias, gamma, beta, mode,
+                                       plan=p)
+                e, scale = check_close(torch, got, deconv_igdn_plain(
+                    x, taps, bias, gamma, beta, mode), tol_rel, where)
+                if not torch.equal(got, deconv_igdn_cuda(
+                        x, taps, bias, gamma, beta, mode, plan=p)):
+                    raise RuntimeError(f"{where}: two launches differ")
+                del got
             if p == plan:
                 err = e
-            if p[0] == "split" and not torch.equal(got, deconv_igdn_cuda(
-                    x, taps, bias, gamma, beta, mode, plan=p)):
-                raise RuntimeError(f"deconv_igdn {(bb, h, w, cin, cout)} "
-                                   f"split: two launches differ")
+                note = (f"; {stages[0]} values beyond {tol_rel}, {stages[1]} "
+                        f"sums rounding apart from cuDNN's, at most "
+                        f"{stages[2]:.3g} u sum|terms| from their boundary"
+                        if bf16 else "")
         x_nchw = x.permute(0, 3, 1, 2)
+        wt_x, bias_x = wt.to(x.dtype), bias.to(x.dtype)
         ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
             x, taps, bias, gamma, beta, mode))
         plain, plain_host = time_ms(torch, lambda: deconv_igdn_plain(
             x, taps, bias, gamma, beta, mode))
         lib, lib_host = time_ms(torch, lambda: F.conv_transpose2d(
-            x_nchw, wt, bias, stride=2, padding=2, output_padding=1))
-        bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode))
-        print(f"kernel deconv_igdn x=({bb},{h},{w},{cin}) Cout={cout} "
-              f"mode={mode} plan={plan} launches="
+            x_nchw, wt_x, bias_x, stride=2, padding=2, output_padding=1))
+        bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode, elt),
+                           rate)
+        print(f"kernel deconv_igdn{' bf16' if bf16 else ''} x=({bb},{h},{w},"
+              f"{cin}) Cout={cout} mode={mode} plan={plan} launches="
               f"{json.dumps(uses, separators=(',', ':'))} "
-              f"max_abs_err={err:.3e} (|ref|max {scale:.3g}) "
-              f"{'bitwise_repeat=ok ' if plan[0] == 'split' else ''}"
-              f"ms={ms:.5f} host_ms={host:.5f} plain_ms={plain:.5f} "
-              f"plain_host_ms={plain_host:.5f} library_ms={lib:.5f} "
-              f"library_host_ms={lib_host:.5f} bound_ms={bms:.5f} "
-              f"bound_by={by}")
+              f"max_abs_err={err:.3e} (|ref|max {scale:.3g}{note}) "
+              f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f} "
+              f"plain_ms={plain:.5f} plain_host_ms={plain_host:.5f} "
+              f"library_ms={lib:.5f} library_host_ms={lib_host:.5f} "
+              f"bound_ms={bms:.5f} bound_by={by}")
         max_err_seen = max(max_err_seen, err)
         add_times(totals, uses, {"ms": ms, "host_ms": host,
                                    "plain_ms": plain, "library_ms": lib,
                                    "bound_ms": bms}, by)
-    return totals, max_err_seen, tol_rel
+        del x, wt, taps, bias, gamma, beta
+    return totals, max_err_seen
 
 
 def counts():
@@ -711,18 +872,20 @@ def reset_counts():
     deconv_igdn_cuda.launches = 0
 
 
-def seeded_model(device, seed, conv=CONV):
+def seeded_model(device, seed, conv=CONV, dtype=None):
     """The bench config (at `conv` channels) from `seed`, its conv kernels
     scaled by `weights.scale_conv_kernels` (encoder 4, hyperprior 10,
     decoder 3): at the init scale every y of the untrained model rounds to
     0 and the decode is all zeros; scaled, 43% of y and 36% of z symbols
-    are non-zero (on the CPU at conv 100)."""
+    are non-zero (on the CPU at conv 100). `dtype`: the activations'
+    (float32 unless given)."""
     from mmnc_tpu_torch import build_model
     from mmnc_tpu_torch.weights import scale_conv_kernels
 
+    kwargs = {} if dtype is None else {"dtype": dtype}
     model = scale_conv_kernels(build_model(
         1, ["rgb"], latent_channels=LATENT, conv_channels=conv,
-        device=device, seed=seed))
+        device=device, seed=seed, **kwargs))
     model.update_bottleneck_values()
     return model
 
@@ -801,14 +964,14 @@ def run_model(torch, profile_dir):
     return launches, model, batches
 
 
-def check_against_cpu(torch, model, cpu, batch, what):
+def check_against_cpu(torch, model, cpu, batch, what, rtol=1e-3, atol=1e-4):
     """The card's path (kernels) against the port's CPU plain path on one
     image: `cpu` is the same codec on the CPU (same seed, so the same
     weights), `batch` {task: NHWC, one image on the card}. y and z from
     the encoder, and each task's decode of the CPU's rounded y.
     Tolerance: float32 sums in another order through ~20 layers, rtol
     1e-3 / atol 1e-4 as tests/test_torch_import.py, relative to the
-    largest value."""
+    largest value (the bf16 phase passes its own)."""
     with torch.no_grad():
         y_g, z_g = model.model.analyze(model._inputs(batch))
         y_c, z_c = cpu.model.analyze(cpu._inputs(
@@ -819,12 +982,13 @@ def check_against_cpu(torch, model, cpu, batch, what):
     for name, g, c in ([("y", y_g, y_c), ("z", z_g, z_c)]
                        + [(f"x_hat {t}", g, c)
                           for t, g, c in zip(model.tasks, r_g, r_c)]):
-        err = (g.cpu() - c).abs().max().item()
+        g, c = g.cpu().float(), c.float()
+        err = (g - c).abs().max().item()
         scale = max(1.0, c.abs().max().item())
         print(f"card vs cpu plain path, {what}: {name} max abs err "
               f"{err:.3e} "
               f"(|cpu|max {c.abs().max().item():.3g})")
-        if not err <= 1e-4 + 1e-3 * scale:
+        if not err <= atol + rtol * scale:
             raise RuntimeError(f"card vs cpu, {what}: {name} err {err}")
 
 
@@ -879,9 +1043,9 @@ def stream_refs(torch, model, batches):
     return refs
 
 
-def check_stream(what, results, refs):
+def check_stream(what, results, refs, tol=1e-5):
     """Each batch's stream bytes are compress's, and each task's x_hat
-    within 1e-5 of decompress's. Returns the largest error."""
+    within `tol` of decompress's. Returns the largest error."""
     if len(results) != len(refs):
         raise RuntimeError(f"stream {what}: {len(results)} results")
     worst = 0.0
@@ -891,7 +1055,7 @@ def check_stream(what, results, refs):
             raise RuntimeError(f"stream {what} batch {k}: {n_bytes} bytes, "
                                f"compress gave {n_ref}")
         err = task_err(x_hats, ref, list(ref))
-        if not err <= 1e-5:
+        if not err <= tol:
             raise RuntimeError(f"stream {what} batch {k}: x_hats vs "
                                f"decompress max abs err {err}")
         worst = max(worst, err)
@@ -899,18 +1063,34 @@ def check_stream(what, results, refs):
 
 
 def stream_layouts(torch, model, batches, refs, per_batch, label,
-                   profile_dir):
+                   profile_dir, tol=1e-5, exact_refs=None):
     """Each stream layout over `batches` after a warm-up: a timed run
     (its launches, `per_batch` a batch, and MP/s counting each 256 x 256
     image once), then a profiled run (device busy share, host ms by
-    pipeline stage), both against compress/decompress (`refs`). Returns
-    {impl: {"mps", "busy", "launches"}}."""
+    pipeline stage), both against compress/decompress (`refs`, x_hats
+    within `tol`). Given `exact_refs` (compress/decompress under
+    deterministic cuDNN), the warm-up runs under deterministic cuDNN too
+    and its x_hats must equal them bitwise. Returns {impl: {"mps", "busy",
+    "launches", "err"}}: "err" the timed and profiled runs' largest x_hat
+    error."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmnc_tpu_torch.models import streaming
 
     out = {}
     for impl in streaming.IMPLS:
+        if exact_refs is not None:
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                results = list(streaming.stream_roundtrip(model, batches,
+                                                          impl=impl))
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            check_stream(f"{impl} {label} (deterministic cuDNN)", results,
+                         exact_refs, 0.0)
+            del results
         # warm-up: every slot's pinned buffers, the coder thread's plans
         list(streaming.stream_roundtrip(model, batches, impl=impl))
         torch.cuda.synchronize()
@@ -924,7 +1104,7 @@ def stream_layouts(torch, model, batches, refs, per_batch, label,
         if launches != want:
             raise RuntimeError(f"stream {impl} {label}: launches {launches},"
                                f" want {want} ({per_batch} a batch)")
-        check_stream(impl, results, refs)
+        err = check_stream(impl, results, refs, tol)
         del results
         images = BATCH * len(batches)
         with SpanTimer(streaming) as spans, profile(
@@ -935,7 +1115,7 @@ def stream_layouts(torch, model, batches, refs, per_batch, label,
                                                       impl=impl))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-        check_stream(impl, results, refs)
+        err = max(err, check_stream(impl, results, refs, tol))
         del results
         with tempfile.TemporaryDirectory() as tmp:
             trace = os.path.join(profile_dir or tmp,
@@ -958,11 +1138,12 @@ def stream_layouts(torch, model, batches, refs, per_batch, label,
               f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
               f"({busy / (wall * 1e3):.3f} of wall), device records "
               f"{sum(e['dur'] for e in events) / 1e3:.3f} ms in "
-              f"{len(events)}")
+              f"{len(events)}; x_hats vs decompress max abs err {err:.4g}"
+              f"{' (bitwise under deterministic cuDNN)' if exact_refs else ''}")
         print(f"stream {impl} {label.split()[0]} host ms per batch by stage "
               f"(summed over threads): {json.dumps(split)}")
         out[impl] = {"mps": mps, "busy": busy / (wall * 1e3),
-                     "launches": launches}
+                     "launches": launches, "err": err}
     return out
 
 
@@ -1086,15 +1267,17 @@ def run_widths(torch):
         del model
 
 
-def train_model(device):
+def train_model(device, dtype=None):
     """The bench config from SEED at the init scale (what training starts
     from), lmbda LMBDA, learning rates LR_MAIN / LR_AUX; the same weights
-    on any device."""
+    on any device; `dtype` the activations' (float32 unless given)."""
     from mmnc_tpu_torch import build_model
 
+    kwargs = {} if dtype is None else {"dtype": dtype}
     return build_model(1, ["rgb"], latent_channels=LATENT, conv_channels=CONV,
                        lmbda=LMBDA, learning_rate_main=LR_MAIN,
-                       learning_rate_aux=LR_AUX, device=device, seed=SEED)
+                       learning_rate_aux=LR_AUX, device=device, seed=SEED,
+                       **kwargs)
 
 
 def train_setup(model, remat=False):
@@ -1356,20 +1539,22 @@ def run_train(torch, profile_dir):
         raise RuntimeError(f"eval step: non-finite logs {logs}")
     print(f"eval step: {json.dumps(logs)}")
     return dict(prof, bound_ms=fwd_bound, backward_bound_ms=bwd_bound,
-                launches=measured)
+                launches=measured, peak_bytes=peak, step_wall_ms=wall * 1e3)
 
 
-def paper_model(name, device, seed=SEED):
+def paper_model(name, device, seed=SEED, dtype=None):
     """Phase 8's codec `name` (PAPER) from `seed`, its conv kernels scaled
     as `seeded_model`'s (at the init scale y rounds to 0), lmbda and
-    learning rates of phase 7, coding tables built."""
+    learning rates of phase 7, coding tables built; `dtype` the
+    activations' (float32 unless given)."""
     from mmnc_tpu_torch import build_model
     from mmnc_tpu_torch.weights import scale_conv_kernels
 
     number, tasks, latent, conv = PAPER[name]
+    kwargs = {} if dtype is None else {"dtype": dtype}
     model = scale_conv_kernels(build_model(
         number, tasks, latent, conv, lmbda=LMBDA, learning_rate_main=LR_MAIN,
-        learning_rate_aux=LR_AUX, device=device, seed=seed))
+        learning_rate_aux=LR_AUX, device=device, seed=seed, **kwargs))
     model.update_bottleneck_values()
     return model
 
@@ -1415,8 +1600,9 @@ def kernel_kind(name):
 def profile_device(torch, fn, trace=None):
     """One call of fn under torch.profiler -> {wall_ms, device_ms (the sum
     of its device records), busy_ms (their union), records, by_kernel (ms
-    of the device records of each `kernel_kind`)}; the chrome trace goes
-    to `trace` if given."""
+    of the device records of each `kernel_kind`), conv_ms (the records
+    launched by cuDNN's convolutions)}; the chrome trace goes to `trace`
+    if given."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1430,8 +1616,10 @@ def profile_device(torch, fn, trace=None):
         path = trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") in DEVICE_WORK]
+            trace_events = json.load(f)["traceEvents"]
+    events = [e for e in trace_events if e.get("cat") in DEVICE_WORK]
+    conv = launched_in_spans(trace_events, lambda n: n.startswith(
+        "aten::cudnn_convolution"))
     by_kernel = {}
     for e in events:
         kind = kernel_kind(e["name"])
@@ -1439,7 +1627,7 @@ def profile_device(torch, fn, trace=None):
     return {"wall_ms": wall * 1e3,
             "device_ms": sum(e["dur"] for e in events) / 1e3,
             "busy_ms": busy_us(events) / 1e3, "records": len(events),
-            "by_kernel": by_kernel}
+            "by_kernel": by_kernel, "conv_ms": conv / 1e3}
 
 
 def run_multitask(torch, profile_dir):
@@ -1574,6 +1762,260 @@ def run_multitask(torch, profile_dir):
     return {"launches": total, "mps": mps, "seconds": seconds,
             "bytes_per_image": n_bytes / images, "y_nonzero": y_nz,
             "z_nonzero": z_nz, "train_launches": train, **prof}
+
+
+# --- phase "bf16": the bf16 activation path ---------------------------------
+
+# GDN computes in float32 and rounds once at the store; its plain version,
+# the JAX package's bf16 chain, rounds at four points: at most one ulp
+# apart, 2^-7 of max(1, |plain|max). deconv+IGDN's epilogue is held to
+# the same on the kernel's own y; its sums are held to cuDNN's, which run
+# in another order, stage by stage (check_deconv_bf16;
+# tests/test_torch_cuda.py holds the kernels to the same)
+BF16_TOL = 2.0 ** -7
+# the card against the port's CPU plain path in bf16 on one image: the
+# kernels round once where the CPU's chain rounds 3-4 times, and such
+# one-ulp differences pass through up to ~20 bf16 layers; 2^-4 of the
+# largest value (the first card run measured 1.2-2.8% for x_hat, y and z,
+# too near 2^-5's 3.1% for a check whose two sides sum in other orders).
+# A timed stream's x_hats against decompress's take the same limit
+# (cuDNN may sum in another order from call to call); under deterministic
+# cuDNN the stream is held to decompress bitwise first
+BF16_CPU_RTOL = 2.0 ** -4
+BF16_TRAIN_STEPS = 6
+
+
+def bf16_round_trips(torch, model, batches, per_call):
+    """compress -> decompress of each batch, the counts set to 0 just
+    before and read just after each call (`per_call`: {"compress",
+    "decompress"}: (GDN, deconv+IGDN)). Returns (seconds, bytes, outputs,
+    the run's launches)."""
+    model.decompress(model.compress(batches[0])[0])  # warm-up
+    torch.cuda.synchronize()
+    total = {"gdn": 0, "deconv_igdn": 0}
+    outs, n_bytes = [], 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        (ans, nb), enc = launched(torch, lambda: model.compress(batch))
+        out, dec = launched(torch, lambda: model.decompress(ans))
+        for call, got in (("compress", enc), ("decompress", dec)):
+            gdn, deconv = per_call[call]
+            if got != {"gdn": gdn, "deconv_igdn": deconv}:
+                raise RuntimeError(f"bf16 {call}: launches {got}, want {gdn}"
+                                   f" GDN and {deconv} deconv+IGDN")
+        for k in total:
+            total[k] += enc[k] + dec[k]
+        outs.append(out)
+        n_bytes += nb
+    return time.perf_counter() - t0, n_bytes, outs, total
+
+
+def check_decode_bitwise(torch, model, batch, what):
+    """In bf16 decompress equals the eval forward bitwise: both run on the
+    same y_hat, under deterministic cuDNN (its transposed conv may
+    otherwise sum in another order from call to call)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x_hats, liks = model(batch)
+        decoded = model.decompress(model.compress(batch)[0])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for t in model.tasks:
+        if x_hats[t].dtype != torch.bfloat16 or not torch.isfinite(
+                x_hats[t]).all():
+            raise RuntimeError(f"bf16 {what} eval forward {t}: "
+                               f"{x_hats[t].dtype} or non-finite")
+        if not torch.equal(decoded[t], x_hats[t]):
+            raise RuntimeError(f"bf16 {what}: decompress {t} differs from "
+                               f"the eval forward")
+    if any(v.dtype != torch.float32 or not (v > 0).all()
+           for v in liks.values()):
+        raise RuntimeError(f"bf16 {what}: likelihoods not float32 and > 0")
+
+
+def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
+    """Phase "bf16": the kernels in bf16 at every launch shape of this
+    phase; the rgb codec at bench width in bf16 (compress -> decompress
+    of phase 4's batches, both stream layouts, decode bitwise equal to
+    the eval forward, MP/s, device ms and busy share beside the float32
+    codec's `f32_model` profiled here, card vs CPU on one image);
+    shared4's round trip in bf16; phase 7's train step in bf16 and
+    BF16_TRAIN_STEPS steps on one batch (the loss falls) with peak memory
+    beside phase 7's (`train`). Returns the kernels' sums and errors and
+    the path's launches."""
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 7)
+    shared4 = paper_layout(*PAPER["shared4"])
+    path = gdn_path_shapes(BATCH)
+    sums, worst = {}, {}
+    sums["gdn"], worst["gdn"] = check_gdn_cases(
+        torch, gen, [([s[:3] for s in path], "trip"),
+                     (gdn_train_shapes(TRAIN_BATCH), "train"),
+                     (mt_gdn_shapes(shared4, BATCH), "shared4")],
+        BF16_TOL, bf16)
+    sums["deconv_igdn"], worst["deconv_igdn"] = check_deconv_cases(
+        torch, gen, [(deconv_path_shapes(BATCH), "trip"),
+                     (mt_deconv_shapes(shared4, BATCH), "shared4")],
+        BF16_TOL, bf16)
+    t_kernels = time.perf_counter() - t_start
+
+    # the rgb codec at bench width
+    model = seeded_model("cuda", SEED, dtype=bf16)
+    check_decode_bitwise(torch, model, batches[0], "rgb")
+    rgb_calls = {"compress": (9, 0), "decompress": (2, 7)}
+    reset_counts()
+    seconds, n_bytes, outs, launches = bf16_round_trips(
+        torch, model, batches, rgb_calls)
+    f32_seconds, f32_bytes, _, _ = bf16_round_trips(
+        torch, f32_model, batches, rgb_calls)
+    images = BATCH * len(batches)
+    mps = images * IMAGE * IMAGE / 1e6 / seconds
+    f32_mps = images * IMAGE * IMAGE / 1e6 / f32_seconds
+    profs = {}
+    for name, m in (("f32", f32_model), ("bf16", model)):
+        profs[name] = profile_device(
+            torch, lambda: m.decompress(m.compress(batches[0])[0]))
+    for name, p in profs.items():
+        print(f"bf16 phase rgb round trip ({name}) profiled: wall "
+              f"{p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms in "
+              f"{p['records']} records, busy {p['busy_ms']:.3f} ms "
+              f"({p['busy_ms'] / p['wall_ms']:.3f} of wall), ms by kernel "
+              f"{json.dumps(p['by_kernel'])}, cuDNN convolutions "
+              f"{p['conv_ms']:.3f} ms ({p['conv_ms'] / p['device_ms']:.3f} "
+              f"of device)")
+    print(f"bf16 rgb latent={LATENT} conv={CONV} {IMAGE}px batch={BATCH} "
+          f"batches={len(batches)}: round trip {seconds:.4f} s, {mps:.3f} "
+          f"MP/s (f32 {f32_mps:.3f} MP/s in this phase), "
+          f"{n_bytes / images:.2f} bytes/image (f32 {f32_bytes / images:.2f}),"
+          f" launches {launches}; decode bitwise equal to the eval forward")
+    refs = stream_refs(torch, model, batches)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exact_refs = stream_refs(torch, model, batches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    scale = max(max(x.float().abs().max().item() for x in r.values())
+                for _, r in refs)
+    streams = stream_layouts(torch, model, batches, refs,
+                             {"gdn": 11, "deconv_igdn": 7},
+                             f"bf16 rgb latent={LATENT} conv={CONV}",
+                             profile_dir, BF16_CPU_RTOL * max(1.0, scale),
+                             exact_refs)
+    check_against_cpu(torch, model, seeded_model("cpu", SEED, dtype=bf16),
+                      {"rgb": batches[0]["rgb"][:1]}, "bf16 rgb",
+                      rtol=BF16_CPU_RTOL, atol=0.0)
+    del model, refs, exact_refs, outs
+
+    # shared4's round trip
+    name = "shared4"
+    model = paper_model(name, "cuda", dtype=bf16)
+    mt_batches = paper_batches(torch, model, BATCHES, SEED)
+    check_decode_bitwise(torch, model, mt_batches[0], name)
+    s4_seconds, s4_bytes, _, s4_launches = bf16_round_trips(
+        torch, model, mt_batches, {k: MT_LAUNCHES[name][k]
+                                   for k in ("compress", "decompress")})
+    s4_mps = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / s4_seconds
+    s4_prof = profile_device(
+        torch, lambda: model.decompress(model.compress(mt_batches[0])[0]))
+    print(f"bf16 {name} {PAPER[name]} batch={BATCH} batches={BATCHES}: "
+          f"round trip {s4_seconds:.4f} s, {s4_mps:.3f} MP/s (phase 8's f32 "
+          f"{mt['mps']:.3f}), {s4_bytes / (BATCH * BATCHES):.2f} bytes/image "
+          f"(f32 {mt['bytes_per_image']:.2f}), launches {s4_launches}; "
+          f"profiled: device {s4_prof['device_ms']:.3f} ms (f32 "
+          f"{mt['device_ms']:.3f}), busy {s4_prof['busy_ms']:.3f} ms "
+          f"({s4_prof['busy_ms'] / s4_prof['wall_ms']:.3f} of wall), cuDNN "
+          f"convolutions {s4_prof['conv_ms']:.3f} ms; decode bitwise equal "
+          f"to the eval forward")
+    del model, mt_batches
+
+    # phase 7's train step in bf16, then steps on one batch
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"rgb": torch.from_numpy(rng.random(
+        (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
+    model = train_model("cuda", dtype=bf16)
+    state, step = train_setup(model)
+    train_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(BF16_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (_, logs), measured = check_launches(
+            torch, "train", lambda: step(state, batch, train_gen))
+        walls.append(time.perf_counter() - t0)
+        losses.append(logs["train/loss"])
+    peak = torch.cuda.max_memory_allocated()
+    if any(p.dtype != torch.float32 for p in model.parameters()) or \
+            logs["train/loss"].dtype != torch.float32:
+        raise RuntimeError("bf16 train: parameters or loss not float32")
+    losses = torch.stack(losses).cpu().tolist()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"bf16 train: losses {losses} not finite or not "
+                           f"falling")
+    wall = float(np.median(walls[2:]))
+    print(f"bf16 train rgb batch={TRAIN_BATCH}: {BF16_TRAIN_STEPS} steps, "
+          f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, launches per step "
+          f"{measured}; step wall (median of steps 3-{BF16_TRAIN_STEPS}) "
+          f"{wall * 1e3:.4f} ms (f32 {train['step_wall_ms']:.4f}), "
+          f"{TRAIN_BATCH / wall:.3f} images/s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (f32 "
+          f"{train['peak_bytes'] / 2 ** 30:.3f})")
+    print(f"bf16 train losses: {json.dumps(losses)}")
+    prof = profile_train_step(torch, step, state, batch, train_gen, None)
+    if prof["gdn_kernels"] != TRAIN_LAUNCHES["train"]["gdn"]:
+        raise RuntimeError(f"bf16 train profile: {prof['gdn_kernels']} GDN "
+                           f"kernel records")
+    print(f"bf16 train step profile: wall {prof['wall_ms']:.3f} ms, device "
+          f"{prof['device_ms']:.3f} ms (f32 {train['device_ms']:.3f}) in "
+          f"{prof['records']} records (f32 {train['records']}), busy "
+          f"{prof['busy_ms'] / prof['wall_ms']:.3f} of wall; GDN kernel "
+          f"{prof['gdn_ms']:.4f} ms (f32 {train['gdn_ms']:.4f}), closed-form "
+          f"backward {prof['gdn_backward_ms']:.4f} ms (f32 "
+          f"{train['gdn_backward_ms']:.4f}), cuDNN convolutions "
+          f"{prof['conv_ms']:.3f} ms "
+          f"({prof['conv_ms'] / prof['device_ms']:.3f} of device; f32 "
+          f"{train['conv_ms'] / train['device_ms']:.3f})")
+    del model, state, step
+    print(f"bf16 phase: {time.perf_counter() - t_start:.1f} s (kernel checks "
+          f"{t_kernels:.1f} s)")
+    return {"sums": sums, "worst": worst, "launches": launches,
+            "mps": mps, "f32_mps": f32_mps, "shared4_mps": s4_mps,
+            "shared4_launches": s4_launches, "train_launches": measured,
+            "profiles": profs, "shared4_profile": s4_prof,
+            "streams": streams, "peak_bytes": peak, "step_wall_ms": wall * 1e3,
+            "train_profile": prof}
+
+
+def bf16_sums(bf, kernel):
+    """The kernels line's bf16 entry of `kernel`: the rgb path's launches
+    (its round trips, counted) and phase "bf16"'s sums over an rgb round
+    trip, a shared4 round trip and a train step."""
+    def part(key):
+        t = bf["sums"][kernel][key]
+        return {"launches_per_call": t["launches"], "ms": t["ms"],
+                "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": max(t["by"], key=t["by"].get),
+                "library_ms": t.get("library_ms")}
+
+    tolerance = f"{BF16_TOL} x max(1, |plain|max)"
+    if kernel == "deconv_igdn":
+        tolerance += (" of the plain epilogue on the kernel's y; the sums "
+                      "round as cuDNN's but at a boundary within float32 "
+                      "summation error; max_abs_err is against the whole "
+                      "plain version")
+    out = {"launches": bf["launches"][kernel],
+           "max_abs_err": bf["worst"][kernel], "tolerance": tolerance,
+           **part("trip"), "shared4": dict(
+               part("shared4"), launches=bf["shared4_launches"][kernel])}
+    if "train" in bf["sums"][kernel]:
+        out["train"] = dict(part("train"),
+                            launches=bf["train_launches"][kernel])
+    return out
 
 
 def compressai_state_dict(torch, model):
@@ -2889,10 +3331,15 @@ def main(argv=None):
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the rgb path")
     run_streaming(torch, model, batches, args.profile)
-    del model, batches
     run_widths(torch)
     train = run_train(torch, args.profile)
     mt = run_multitask(torch, args.profile)
+    bf = run_bf16(torch, model, batches, train, mt, args.profile)
+    for name, n in bf["launches"].items():
+        if n == 0:
+            raise RuntimeError(f"kernel {name} never launched on the bf16 "
+                               f"rgb path")
+    del model, batches
     p5 = run_mt_streaming(torch, args.profile, mt)
     imported = run_import(torch)
     cli = run_cli(torch, args.profile, card)
@@ -2946,7 +3393,12 @@ def main(argv=None):
              f"(its run's launches, a call's, phase 3's sums at a call's "
              f"shapes); p10_compress_*: phase 10 (d)'s sharded compress, "
              f"the ranks' counted call; import_launches: the imported "
-             f"model's round trip of {BATCH}")
+             f"model's round trip of {BATCH}; bf16: phase \"bf16\" (the "
+             f"rgb codec in bf16, {BATCHES} round trips of {BATCH}: its "
+             f"launches; ms, plain_ms, bound_ms (2 bytes an activation "
+             f"value), library_ms summed over one rgb round trip's launches, "
+             f"shared4 one shared4 round trip's, train one train step's at "
+             f"batch {TRAIN_BATCH})")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -2968,7 +3420,8 @@ def main(argv=None):
          "shared4_train_bound_ms": gdn_tot["shared4_train"]["bound_ms"],
          **cli_sums(cli, gdn_tot, "gdn", ("train", "val")),
          **p10_sums(p10, gdn_tot, "gdn"),
-         **new_path_sums(p5, cli, p10, imported, gdn_tot, "gdn")},
+         **new_path_sums(p5, cli, p10, imported, gdn_tot, "gdn"),
+         "bf16": bf16_sums(bf, "gdn")},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -2983,7 +3436,8 @@ def main(argv=None):
              mt["train_launches"]["deconv_igdn"],
          **cli_sums(cli, dec_tot, "deconv_igdn", ("val",)),
          **p10_sums(p10, dec_tot, "deconv_igdn"),
-         **new_path_sums(p5, cli, p10, imported, dec_tot, "deconv_igdn")},
+         **new_path_sums(p5, cli, p10, imported, dec_tot, "deconv_igdn"),
+         "bf16": bf16_sums(bf, "deconv_igdn")},
     ]
     print(json.dumps({"kernels": kernels}))
     print_ok(torch)

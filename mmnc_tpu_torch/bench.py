@@ -11,12 +11,14 @@ one batch of random images on the device, runs `stream_roundtrip` over 2
 warm-up batches with each stream layout (v2, v1), then times `iters`
 batches with each: wall seconds from the first dispatch to the last result
 on the device. The same batches through a plain `compress` -> `decompress`
-loop in one thread are the baseline the pipeline has to beat. Prints one
-JSON line: MP/s per layout and the better one, the loop's MP/s, batch
-size, iters, coder threads, precision, stream bytes per image, the device
-and, on a card, its name and power limit (nvidia-smi). Runs on CUDA unless
-`--device cpu`; a CPU run measures the CPU, not a card. An out-of-memory
-error raises.
+loop in one thread are the baseline the pipeline has to beat. Then the
+same for the bf16 codec (`dtype=torch.bfloat16`, the same weights), as
+bench.py measures bf16 beside f32. Prints one JSON line: MP/s per layout
+and the better one (`value`, `precision` "f32"), the loop's MP/s, the
+same for bf16 (`mps_bf16`, ...), batch size, iters, coder threads, stream
+bytes per image, the device and, on a card, its name and power limit
+(nvidia-smi). Runs on CUDA unless `--device cpu`; a CPU run measures the
+CPU, not a card. An out-of-memory error raises.
 """
 
 import argparse
@@ -77,6 +79,23 @@ def measure_sequential(model, batch, iters: int):
     return _mps(batch, (time.perf_counter() - t0) / iters)
 
 
+def measure_codec(model, batch, iters: int, threads: int):
+    """({impl: MP/s}, {impl: bytes per image}, the loop's MP/s) of one
+    codec, after 2 warm-up batches of each layout."""
+    model.update_bottleneck_values()
+    for impl in IMPLS:  # 2 warm-up batches each: plans, pinned buffers
+        for _ in stream_roundtrip(model, [batch] * 2, impl=impl,
+                                  coder_threads=threads):
+            pass
+    mps, per_image = {}, {}
+    for impl in IMPLS:
+        mps[impl], per_image[impl] = measure(model, batch, impl, iters,
+                                             threads)
+    if len(set(per_image.values())) != 1:
+        raise RuntimeError(f"stream bytes differ between layouts: {per_image}")
+    return mps, per_image, measure_sequential(model, batch, iters)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=64)
@@ -95,27 +114,21 @@ def main(argv=None):
     threads = args.coder_threads
 
     device = resolve_device(args.device)
-    model = build_model(1, ["rgb"], latent_channels=args.latent,
-                        conv_channels=args.conv, device=device, seed=SEED)
-    scale_conv_kernels(model)
-    model.update_bottleneck_values()
     rng = np.random.default_rng(SEED)
     batch = {"rgb": torch.from_numpy(rng.random(
         (args.batch, args.image, args.image, 3), dtype=np.float32)
     ).to(device)}
-
-    for impl in IMPLS:  # 2 warm-up batches each: plans, pinned buffers
-        for _ in stream_roundtrip(model, [batch] * 2, impl=impl,
-                                  coder_threads=threads):
-            pass
-    mps, per_image = {}, {}
-    for impl in IMPLS:
-        mps[impl], per_image[impl] = measure(model, batch, impl, args.iters,
-                                             threads)
-    sequential = measure_sequential(model, batch, args.iters)
-    if len(set(per_image.values())) != 1:
-        raise RuntimeError(f"stream bytes differ between layouts: {per_image}")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = scale_conv_kernels(build_model(
+            1, ["rgb"], latent_channels=args.latent, conv_channels=args.conv,
+            device=device, seed=SEED, dtype=dtype))
+        results[dtype] = measure_codec(model, batch, args.iters, threads)
+        del model
+    mps, per_image, sequential = results[torch.float32]
+    mps_bf16, per_image_bf16, sequential_bf16 = results[torch.bfloat16]
     best = max(mps, key=mps.get)
+    best_bf16 = max(mps_bf16, key=mps_bf16.get)
     print(json.dumps({
         "metric": "streamed compress+decompress throughput (single-task "
                   f"rgb, latent {args.latent}, conv {args.conv}, "
@@ -125,6 +138,10 @@ def main(argv=None):
         "batch_size": args.batch, "iters": args.iters,
         "coder_threads": threads, "precision": "f32",
         "bytes_per_image": per_image[best],
+        "mps_bf16": mps_bf16[best_bf16], "stream_impl_bf16": best_bf16,
+        "mps_bf16_by_stream_impl": mps_bf16,
+        "mps_bf16_compress_decompress": sequential_bf16,
+        "bytes_per_image_bf16": per_image_bf16[best_bf16],
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "card": card() if device.type == "cuda" else None}))

@@ -1,5 +1,6 @@
 // Transposed conv k5/s2 (padding 2, output_padding 1) + optional (I)GDN,
-// NHWC float32, writing the interleaved (B, 2H, 2W, Cout) output directly.
+// NHWC float32 or bfloat16 activations, writing the interleaved (B, 2H, 2W,
+// Cout) output directly.
 //
 // Replaces mmnc_tpu/ops/deconv_igdn_pallas.py:deconv_igdn_pallas (kernel
 // body _kernel). As there, the transposed conv splits into 4 output-parity
@@ -54,9 +55,24 @@
 //   second cluster.sync() keeps each block's partials alive until the
 //   remote reads are done.
 // Plain FMAs, exact f32, no tensor cores.
+//
+// bfloat16 activations (the bf16 model): x and out are bf16; the weights,
+// bias, gamma and beta stay float32 (the layer hands over values rounded to
+// bf16), so the weight staging and gamma's do not change. x widens to
+// float32 as it is staged (plain loads: a bf16 channel at an odd offset is
+// not 4-byte aligned for cp.async, and the split stages' inputs are 1x1 to
+// 4x4), the sums are float32, and y is rounded to bf16 before the epilogue
+// as the unfused chain rounds it: the sum of products (the bf16 conv's
+// output), then that + the bias (the bf16 bias add); the output is rounded
+// once more at the store. (Rounding sum + bias once instead differs from
+// the chain's two roundings in a large share of y values, and the IGDN,
+// which squares y, amplifies that difference.)
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -68,14 +84,48 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmem = 227 * 1024 - 1024;
 constexpr int kMaxChunk = 16;  // Cin channels per staged weight chunk
 
-// kCols: input columns (same parity) per thread, 4 or, for tiles narrower
-// than 4, 1. kGammaL2: gamma stays in global memory (see above).
-template <int kCols, bool kGammaL2>
+// Activation values in float32 arithmetic, and back (round to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename E>
+__device__ __forceinline__ E narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v as the activation type E holds it.
+template <typename E>
+__device__ __forceinline__ float held(float v) {
+  return widen(narrow<E>(v));
+}
+// The sum of products starts at the bias in float32 and at 0 in bf16, and
+// pre_activation makes y of it: itself in float32, in bf16 the sum
+// rounded, plus the bias, rounded.
+template <typename E>
+__device__ __forceinline__ float acc_start(float bias) {
+  return std::is_same<E, float>::value ? bias : 0.f;
+}
+template <typename E>
+__device__ __forceinline__ float pre_activation(float acc, float bias) {
+  return std::is_same<E, float>::value ? acc
+                                       : held<E>(held<E>(acc) + bias);
+}
+
+// E: the activations' type. kCols: input columns (same parity) per thread,
+// 4 or, for tiles narrower than 4, 1. kGammaL2: gamma stays in global
+// memory (see above).
+template <typename E, int kCols, bool kGammaL2>
 __global__ void __launch_bounds__(kThreads)
-deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
+deconv_igdn_kernel(const E* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias,
                    const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ out,
+                   const float* __restrict__ beta, E* __restrict__ out,
                    int h, int wd, int cin, int cout, int ta, int tb,
                    int mode) {
   extern __shared__ float smem[];
@@ -94,7 +144,8 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int p = i / cin;
     const int ia = a0 - 1 + p / wx, ib = b0 - 1 + p % wx;
     x_s[i] = (ia >= 0 && ia < h && ib >= 0 && ib < wd)
-                 ? x[((static_cast<long long>(n) * h + ia) * wd + ib) * cin + ci]
+                 ? widen(x[((static_cast<long long>(n) * h + ia) * wd + ib) *
+                               cin + ci])
                  : 0.f;
   }
   if (mode) {
@@ -125,7 +176,7 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float acc[kCols];
     const float bv = bias[co];
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) acc[k] = bv;
+    for (int k = 0; k < kCols; ++k) acc[k] = acc_start<E>(bv);
     const int col0 = b0 + g * kCols + dw - 1;  // input column of k=0, s=0
     for (int t = 0; t < 3 - dh; ++t) {
       const int ia = a0 + a + t + dh - 1;
@@ -149,7 +200,7 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int k = 0; k < kCols; ++k) {
       const int ocol = 2 * (g * kCols + k) + dw;
-      y_s[(orow * 2 * tb + ocol) * cout + co] = acc[k];
+      y_s[(orow * 2 * tb + ocol) * cout + co] = pre_activation<E>(acc[k], bv);
     }
   }
   __syncthreads();
@@ -174,7 +225,8 @@ deconv_igdn_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
       v = (mode == 1) ? v * sqrtf(norm) : v * rsqrtf(norm);
     }
-    out[((static_cast<long long>(n) * oh + gy) * ow + gx) * cout + o] = v;
+    out[((static_cast<long long>(n) * oh + gy) * ow + gx) * cout + o] =
+        narrow<E>(v);
   }
 }
 
@@ -282,15 +334,15 @@ __host__ __device__ __forceinline__ int split_fixed_floats(
 
 // Grid (S, tiles, B), cluster (S, 1, 1), split_threads(T, cout) threads;
 // cout a multiple of 4; w, gamma and beta 16-byte aligned (bulk copies).
-// chunk: Cin channels per staged weight chunk.
-template <int T>
+// E: the activations' type. chunk: Cin channels per staged weight chunk.
+template <typename E, int T>
 __global__ void __launch_bounds__(256)
-deconv_igdn_split_kernel(const float* __restrict__ x,
+deconv_igdn_split_kernel(const E* __restrict__ x,
                          const float* __restrict__ w,
                          const float* __restrict__ bias,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
-                         float* __restrict__ out, int h, int wd, int cin,
+                         E* __restrict__ out, int h, int wd, int cin,
                          int cout, int mode, int chunk) {
   constexpr int kW = T + 2, kHW = kW * kW;  // input tile + halo
   constexpr int kPix = 4 * T * T;           // output pixels of the tile
@@ -368,13 +420,18 @@ deconv_igdn_split_kernel(const float* __restrict__ x,
     }
   }
 
-  // The input tile (+ halo) of this rank's channels, zero outside the image.
+  // The input tile (+ halo) of this rank's channels, zero outside the
+  // image; float32 by cp.async, bf16 widened by plain loads.
   for (int i = tid; i < cs * kHW; i += nthreads) {
     const int ci = i / kHW, p = i - ci * kHW;
     const int ia = a0 - 1 + p / kW, ib = b0 - 1 + p % kW;
     if (ia >= 0 && ia < h && ib >= 0 && ib < wd) {
-      cp_async4(x_s + i, x + ((static_cast<long long>(n) * h + ia) * wd + ib) *
-                                 cin + c0 + ci);
+      const E* src =
+          x + ((static_cast<long long>(n) * h + ia) * wd + ib) * cin + c0 + ci;
+      if constexpr (std::is_same<E, float>::value)
+        cp_async4(x_s + i, src);
+      else
+        x_s[i] = widen(*src);
     } else {
       x_s[i] = 0.f;
     }
@@ -460,7 +517,10 @@ deconv_igdn_split_kernel(const float* __restrict__ x,
       if (r < splits)
         part[r] = *reinterpret_cast<const float4*>(
             cluster.map_shared_rank(part_s, r) + p * cout + o);
-    float4 v = make_float4(bias[o], bias[o + 1], bias[o + 2], bias[o + 3]);
+    const float4 bv =
+        make_float4(bias[o], bias[o + 1], bias[o + 2], bias[o + 3]);
+    float4 v = make_float4(acc_start<E>(bv.x), acc_start<E>(bv.y),
+                           acc_start<E>(bv.z), acc_start<E>(bv.w));
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       if (r < splits) {
@@ -470,6 +530,8 @@ deconv_igdn_split_kernel(const float* __restrict__ x,
         v.w += part[r].w;
       }
     }
+    v = make_float4(pre_activation<E>(v.x, bv.x), pre_activation<E>(v.y, bv.y),
+                    pre_activation<E>(v.z, bv.z), pre_activation<E>(v.w, bv.w));
     *reinterpret_cast<float4*>(red_s + i * cout + o) = v;
     *reinterpret_cast<float4*>(y2_s + i * cout + o) =
         make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
@@ -509,7 +571,8 @@ deconv_igdn_split_kernel(const float* __restrict__ x,
       if (gy >= oh || gx >= ow) continue;
       float v = red_s[row * cout + o];
       if (mode) v = (mode == 1) ? v * sqrtf(norm[i]) : v * rsqrtf(norm[i]);
-      out[((static_cast<long long>(n) * oh + gy) * ow + gx) * cout + o] = v;
+      out[((static_cast<long long>(n) * oh + gy) * ow + gx) * cout + o] =
+          narrow<E>(v);
     }
   }
 }
@@ -534,38 +597,40 @@ cudaError_t allow_max_smem(Kernel kernel) {
                               kMaxSmem);
 }
 
-template <int kCols, bool kGammaL2>
+template <typename E, int kCols, bool kGammaL2>
 cudaError_t tiled_ready() {
   static const cudaError_t err =
-      allow_max_smem(deconv_igdn_kernel<kCols, kGammaL2>);
+      allow_max_smem(deconv_igdn_kernel<E, kCols, kGammaL2>);
   return err;
 }
 
-template <int kCols, bool kGammaL2>
-int launch_tiled(const float* x, const float* w, const float* bias,
-                 const float* gamma, const float* beta, float* out, int b,
+template <typename E, int kCols, bool kGammaL2>
+int launch_tiled(const void* x, const float* w, const float* bias,
+                 const float* gamma, const float* beta, void* out, int b,
                  int h, int wd, int cin, int cout, int ta, int tb, int mode,
                  size_t smem, cudaStream_t st) {
-  const cudaError_t ready = tiled_ready<kCols, kGammaL2>();
+  const cudaError_t ready = tiled_ready<E, kCols, kGammaL2>();
   if (ready != cudaSuccess) return static_cast<int>(ready);
   const dim3 grid((wd + tb - 1) / tb, (h + ta - 1) / ta, b);
-  deconv_igdn_kernel<kCols, kGammaL2><<<grid, kThreads, smem, st>>>(
-      x, w, bias, gamma, beta, out, h, wd, cin, cout, ta, tb, mode);
+  deconv_igdn_kernel<E, kCols, kGammaL2><<<grid, kThreads, smem, st>>>(
+      static_cast<const E*>(x), w, bias, gamma, beta, static_cast<E*>(out), h,
+      wd, cin, cout, ta, tb, mode);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int T>
+template <typename E, int T>
 cudaError_t split_ready() {
-  static const cudaError_t err = allow_max_smem(deconv_igdn_split_kernel<T>);
+  static const cudaError_t err =
+      allow_max_smem(deconv_igdn_split_kernel<E, T>);
   return err;
 }
 
-template <int T>
-int launch_split(const float* x, const float* w, const float* bias,
-                 const float* gamma, const float* beta, float* out, int b,
+template <typename E, int T>
+int launch_split(const void* x, const float* w, const float* bias,
+                 const float* gamma, const float* beta, void* out, int b,
                  int h, int wd, int cin, int cout, int splits, int mode,
                  cudaStream_t st) {
-  const cudaError_t ready = split_ready<T>();
+  const cudaError_t ready = split_ready<E, T>();
   if (ready != cudaSuccess) return static_cast<int>(ready);
   int c0, cs_max;
   cin_slice(cin, splits, 0, &c0, &cs_max);
@@ -593,45 +658,29 @@ int launch_split(const float* x, const float* w, const float* bias,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, deconv_igdn_split_kernel<T>, x, w, bias, gamma, beta, out, h, wd,
-      cin, cout, mode, chunk);
+      &cfg, deconv_igdn_split_kernel<E, T>, static_cast<const E*>(x), w, bias,
+      gamma, beta, static_cast<E*>(out), h, wd, cin, cout, mode, chunk);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x (b, h, wd, cin), w (5, 5, cin, cout), bias (cout,), gamma (cout, cout)
-// and beta (cout,) (ignored when mode == 0), out (b, 2h, 2wd, cout); all
-// contiguous float32. mode: 0 none, 1 IGDN, 2 GDN. splits == 1: the tiled
-// kernel on ta x tb tiles; a tb that is a multiple of 4 runs 4 columns per
-// thread, any other tb one; gamma_l2 != 0 leaves gamma in global memory
-// (ops/deconv_igdn.py:launch_plan picks it where gamma does not fit beside
-// the tile). splits in {2, 4, 8}: the cluster split-K kernel
-// on ta x tb tiles, ta == tb in {1, 2, 4}, cout a multiple of 4 up to 128,
-// w, gamma and beta 16-byte aligned.
-// Launches on `stream`; returns the launch's CUDA error (0 on success), or
-// cudaErrorInvalidValue for a plan it has no kernel or shared memory for.
-extern "C" int mmnc_deconv_igdn_forward(const float* x, const float* w,
-                                        const float* bias, const float* gamma,
-                                        const float* beta, float* out, int b,
-                                        int h, int wd, int cin, int cout,
-                                        int ta, int tb, int splits, int mode,
-                                        int gamma_l2, void* stream) {
-  if (b <= 0 || h <= 0 || wd <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename E>
+int launch_type(const void* x, const float* w, const float* bias,
+                const float* gamma, const float* beta, void* out, int b,
+                int h, int wd, int cin, int cout, int ta, int tb, int splits,
+                int mode, int gamma_l2, cudaStream_t st) {
   if (splits != 1) {
     const bool ok = (splits == 2 || splits == 4 || splits == 8) && ta == tb &&
                     cout > 0 && cout % 4 == 0 && cout <= 128;
     if (ok && ta == 1)
-      return launch_split<1>(x, w, bias, gamma, beta, out, b, h, wd, cin,
-                             cout, splits, mode, st);
+      return launch_split<E, 1>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                                cout, splits, mode, st);
     if (ok && ta == 2)
-      return launch_split<2>(x, w, bias, gamma, beta, out, b, h, wd, cin,
-                             cout, splits, mode, st);
+      return launch_split<E, 2>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                                cout, splits, mode, st);
     if (ok && ta == 4)
-      return launch_split<4>(x, w, bias, gamma, beta, out, b, h, wd, cin,
-                             cout, splits, mode, st);
+      return launch_split<E, 4>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                                cout, splits, mode, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // ops/deconv_igdn.py:tiled_smem_bytes mirrors this
@@ -644,16 +693,46 @@ extern "C" int mmnc_deconv_igdn_forward(const float* x, const float* w,
   if (ta < 1 || tb < 1 || smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tb % 4 == 0)
-    return gamma_l2 ? launch_tiled<4, true>(x, w, bias, gamma, beta, out, b,
-                                           h, wd, cin, cout, ta, tb, mode,
-                                           smem, st)
-                    : launch_tiled<4, false>(x, w, bias, gamma, beta, out, b,
+    return gamma_l2 ? launch_tiled<E, 4, true>(x, w, bias, gamma, beta, out,
+                                              b, h, wd, cin, cout, ta, tb,
+                                              mode, smem, st)
+                    : launch_tiled<E, 4, false>(x, w, bias, gamma, beta, out,
+                                               b, h, wd, cin, cout, ta, tb,
+                                               mode, smem, st);
+  return gamma_l2 ? launch_tiled<E, 1, true>(x, w, bias, gamma, beta, out, b,
                                             h, wd, cin, cout, ta, tb, mode,
-                                            smem, st);
-  return gamma_l2 ? launch_tiled<1, true>(x, w, bias, gamma, beta, out, b, h,
-                                         wd, cin, cout, ta, tb, mode, smem,
-                                         st)
-                  : launch_tiled<1, false>(x, w, bias, gamma, beta, out, b, h,
-                                          wd, cin, cout, ta, tb, mode, smem,
-                                          st);
+                                            smem, st)
+                  : launch_tiled<E, 1, false>(x, w, bias, gamma, beta, out, b,
+                                             h, wd, cin, cout, ta, tb, mode,
+                                             smem, st);
+}
+
+}  // namespace
+
+// x (b, h, wd, cin) and out (b, 2h, 2wd, cout), float32, or bfloat16 where
+// bf16 != 0; w (5, 5, cin, cout), bias (cout,), gamma (cout, cout) and beta
+// (cout,) (ignored when mode == 0) float32; all contiguous. mode: 0 none,
+// 1 IGDN, 2 GDN. splits == 1: the tiled kernel on ta x tb tiles; a tb that
+// is a multiple of 4 runs 4 columns per thread, any other tb one; gamma_l2
+// != 0 leaves gamma in global memory (ops/deconv_igdn.py:launch_plan picks
+// it where gamma does not fit beside the tile). splits in {2, 4, 8}: the
+// cluster split-K kernel on ta x tb tiles, ta == tb in {1, 2, 4}, cout a
+// multiple of 4 up to 128, w, gamma and beta 16-byte aligned.
+// Launches on `stream`; returns the launch's CUDA error (0 on success), or
+// cudaErrorInvalidValue for a plan it has no kernel or shared memory for.
+extern "C" int mmnc_deconv_igdn_forward(const void* x, const float* w,
+                                        const float* bias, const float* gamma,
+                                        const float* beta, void* out, int b,
+                                        int h, int wd, int cin, int cout,
+                                        int ta, int tb, int splits, int mode,
+                                        int gamma_l2, int bf16,
+                                        void* stream) {
+  if (b <= 0 || h <= 0 || wd <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_type<__nv_bfloat16>(x, w, bias, gamma, beta, out, b, h, wd,
+                                      cin, cout, ta, tb, splits, mode,
+                                      gamma_l2, st);
+  return launch_type<float>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                            cout, ta, tb, splits, mode, gamma_l2, st);
 }

@@ -1,4 +1,4 @@
-// (I)GDN over the rows of a channel-minor (N, C) float32 matrix.
+// (I)GDN over the rows of a channel-minor (N, C) float32 or bfloat16 matrix.
 //
 // Replaces mmnc_tpu/ops/gdn_pallas.py:_gdn_forward (kernel body
 // _gdn_kernel): out[r, o] = x[r, o] * rsqrt(beta[o] + sum_j gamma[o, j] *
@@ -57,11 +57,22 @@
 //   one block per (tile, 56-channel slice), so each block stages only its
 //   gamma rows and a thread's serial work is short.
 //
+// - bfloat16 activations (the bf16 model, ops/layers.py): x and out are
+//   bf16, gamma and beta stay float32 as the layer holds them. Only the
+//   staged row tiles and the stores change type; the squaring relayout
+//   widens each value to float32, so the squares, the product, beta and
+//   the (r)sqrt are float32 and the output is rounded once, at the store
+//   into the stage, as the Pallas kernel rounds its f32 accumulator once.
+//   A tile starts at a multiple of tile_rows (>= 16) rows, so its first
+//   byte is 32-byte aligned in either type; bulk copies move multiples of
+//   16 bytes (8 bf16 values) and plain loads the ragged end's last 1-7.
+//
 // What is left (PERF.md): at the large shapes the product runs near
 // the FMA rate, but squaring, normalising and storing a tile take about as
 // long again and do not overlap the product within a block, and the
 // shared memory they need keeps one block per SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,6 +85,22 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxSmem = 227 * 1024 - 1024;
 
 __host__ __device__ constexpr int padded(int c) { return (c + 3) / 4 * 4; }
+
+// Activation values in float32 arithmetic, and back (round to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename E>
+__device__ __forceinline__ E narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Row stride of the gamma and x^2 tiles: CP floats, plus 4 where CP / 4 is
 // even, so that consecutive rows start in distinct 16-byte bank groups.
@@ -88,14 +115,15 @@ __host__ __device__ constexpr int x2_floats(int c, int tile_rows,
              ? tile_rows * row_stride(padded(c)) : slice * c;
 }
 
-// Floats of shared memory of one block: the ring of raw row tiles (first,
-// so bulk copies land 16-byte aligned), gamma's slice at the padded
-// stride, the x^2 tile and beta's slice. ops/gdn.py:gdn_smem_bytes
-// mirrors it.
-__host__ __device__ constexpr int smem_floats(int c, int tile_rows,
-                                              int slice, int stages) {
-  return stages * tile_rows * c + slice * row_stride(padded(c)) +
-         x2_floats(c, tile_rows, slice) + slice;
+// Bytes of shared memory of one block: the ring of raw row tiles of
+// `elt`-byte values (first, so bulk copies land 16-byte aligned), then
+// float32: gamma's slice at the padded stride, the x^2 tile and beta's
+// slice. ops/gdn.py:gdn_smem_bytes mirrors it.
+__host__ __device__ constexpr int smem_bytes(int c, int tile_rows, int slice,
+                                             int stages, int elt) {
+  return stages * tile_rows * c * elt +
+         4 * (slice * row_stride(padded(c)) + x2_floats(c, tile_rows, slice) +
+              slice);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -133,7 +161,7 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
 
 // One bulk (TMA) copy of `bytes` (a multiple of 16, both ends 16-byte
 // aligned) from global to this block's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           unsigned bytes,
                                           unsigned long long* bar) {
   asm volatile(
@@ -143,15 +171,16 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
       : "memory");
 }
 
-// Rows [0, rows) of `src` (stride c) into `dst` at stride ls and CP
-// columns, squared if kSquare, zero past column c and, up to `rows_out`,
-// past row `rows`. Each warp takes rows warp, warp + nwarps, ...; 4 rows
-// x kJ column chunks of 32 per pass, all loads before the stores, so a
-// warp has up to 4 kJ loads in flight instead of one.
+// Rows [0, rows) of `src` (stride c, float32 or bf16) into the float32
+// `dst` at stride ls and CP columns, squared (in float32) if kSquare, zero
+// past column c and, up to `rows_out`, past row `rows`. Each warp takes
+// rows warp, warp + nwarps, ...; 4 rows x kJ column chunks of 32 per pass,
+// all loads before the stores, so a warp has up to 4 kJ loads in flight
+// instead of one.
 // Columns from j0 on, 32 * kJ of them per call.
-template <int kJ, bool kSquare>
+template <int kJ, bool kSquare, typename S>
 __device__ __forceinline__ void relayout(float* dst, int ls,
-                                         const float* src, int c, int cp,
+                                         const S* src, int c, int cp,
                                          int rows, int rows_out, int warp,
                                          int nwarps, int lane, int j0) {
   for (int r0 = warp; r0 < rows_out; r0 += 4 * nwarps) {
@@ -162,7 +191,7 @@ __device__ __forceinline__ void relayout(float* dst, int ls,
 #pragma unroll
       for (int jj = 0; jj < kJ; ++jj) {
         const int j = j0 + lane + 32 * jj;
-        v[u][jj] = (r < rows && j < c) ? src[r * c + j] : 0.f;
+        v[u][jj] = (r < rows && j < c) ? widen(src[r * c + j]) : 0.f;
       }
     }
 #pragma unroll
@@ -182,13 +211,13 @@ __device__ __forceinline__ void relayout(float* dst, int ls,
 // (stride c) to the same places of `dst` in global memory: each warp
 // stores runs of a row's consecutive floats, 4 rows x kJ chunks of 32 per
 // pass with the loads first; columns from j0 on, 32 * kJ of them per call.
-template <int kJ>
-__device__ __forceinline__ void copy_out(float* dst, const float* src,
-                                         int c, int o0, int cols, int rows,
+template <int kJ, typename E>
+__device__ __forceinline__ void copy_out(E* dst, const E* src, int c,
+                                         int o0, int cols, int rows,
                                          int warp, int nwarps, int lane,
                                          int j0) {
   for (int r0 = warp; r0 < rows; r0 += 4 * nwarps) {
-    float v[4][kJ];
+    E v[4][kJ];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int r = r0 + u * nwarps;
@@ -211,25 +240,27 @@ __device__ __forceinline__ void copy_out(float* dst, const float* src,
   }
 }
 
-// Copy `count` floats from global `src` to shared `dst` onto `bar`: a bulk
-// copy of the first count & ~3, the rest (at most 3) with plain loads
-// before the arrival. Called by one thread.
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             int count,
-                                             unsigned long long* bar) {
-  const int bulk = count & ~3;
+// Copy `count` values from global `src` to shared `dst` onto `bar`: a
+// bulk copy of the first whole 16 bytes' worth (count & ~3 floats, count
+// & ~7 bf16 values), the rest with plain loads before the arrival. Called
+// by one thread.
+template <typename E>
+__device__ __forceinline__ void stage(E* dst, const E* src, int count,
+                                      unsigned long long* bar) {
+  constexpr int kVec = 16 / sizeof(E);
+  const int bulk = count & ~(kVec - 1);
   for (int e = bulk; e < count; ++e) dst[e] = src[e];
-  mbar_expect(bar, bulk * sizeof(float));
-  if (bulk) bulk_copy(dst, src, bulk * sizeof(float), bar);
+  mbar_expect(bar, bulk * sizeof(E));
+  if (bulk) bulk_copy(dst, src, bulk * sizeof(E), bar);
 }
 
 // Grid (blocks per slice, slices); blockDim = tile_rows / (8 * kRM) *
-// slice / 28 warps. kCP: C padded to 4 (0: generic, from c). x and gamma
-// 16-byte aligned.
-template <int kCP, int kRM>
+// slice / 28 warps. E: the activations' type (float or __nv_bfloat16).
+// kCP: C padded to 4 (0: generic, from c). x and gamma 16-byte aligned.
+template <typename E, int kCP, int kRM>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-           const float* __restrict__ beta, float* __restrict__ out, int n,
+gdn_kernel(const E* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, E* __restrict__ out, int n,
            int c, int tile_rows, int slice, int stages, int inverse) {
   constexpr int kWarpRows = 8 * kRM;
   constexpr int kJ = kCP ? (kCP + 31) / 32 : 4;  // 32-column chunks
@@ -242,8 +273,9 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   };
   __shared__ unsigned long long bar_s[kMaxStages + 1];  // ring, gamma
   extern __shared__ float4 smem4[];
-  float* raw_s = reinterpret_cast<float*>(smem4);  // stages x tile_rows*c
-  float* g_s = raw_s + stages * tile_rows * c;     // slice x ls
+  E* raw_s = reinterpret_cast<E*>(smem4);  // stages x tile_rows*c
+  // slice x ls; 32-byte aligned (tile_rows is a multiple of 16)
+  float* g_s = reinterpret_cast<float*>(raw_s + stages * tile_rows * c);
   float* x2_s = g_s + slice * ls;                  // tile_rows x ls
   float* b_s = x2_s + x2_floats(c, tile_rows, slice);  // slice
   unsigned long long* g_bar = &bar_s[kMaxStages];
@@ -267,16 +299,15 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   // Copy this block's k-th tile into stage k % stages.
   auto load = [&](int k) {
     const long long row0 = tile_row0(k);
-    stage_floats(raw_s + (k % stages) * tile_rows * c, x + row0 * c,
-                 tile_count(row0) * c, &bar_s[k % stages]);
+    stage(raw_s + (k % stages) * tile_rows * c, x + row0 * c,
+          tile_count(row0) * c, &bar_s[k % stages]);
   };
 
   if (issuer) {
     for (int s = 0; s <= kMaxStages; ++s) mbar_init(&bar_s[s]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // gamma rows o0 .. o0 + g_rows into the landing area (the x^2 tile)
-    stage_floats(x2_s, gamma + static_cast<long long>(o0) * c, g_rows * c,
-                 g_bar);
+    stage(x2_s, gamma + static_cast<long long>(o0) * c, g_rows * c, g_bar);
     for (int k = 0; k < stages && k < mine; ++k) load(k);
   }
   // beta of the slice; 1 past C (the padded channels are never written,
@@ -303,7 +334,7 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 
   for (int k = 0; k < mine; ++k) {
     const int s = k % stages;
-    float* raw = raw_s + s * tile_rows * c;
+    E* raw = raw_s + s * tile_rows * c;
     const long long row0 = tile_row0(k);
     const int rows = tile_count(row0);
     mbar_wait(&bar_s[s], (k / stages) & 1);
@@ -356,10 +387,11 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
         for (int kk = 0; kk < kCN; ++kk) {
           const int o = o0 + o_base + 4 * kk;
           if (o >= c) continue;
-          // in place: this thread alone reads and writes element (r, o)
-          const float xv = raw[r * c + o];
+          // in place: this thread alone reads and writes element (r, o);
+          // the one rounding to E
+          const float xv = widen(raw[r * c + o]);
           const float t = rsqrtf(acc[i][kk]);
-          raw[r * c + o] = xv * (inverse ? acc[i][kk] * t : t);
+          raw[r * c + o] = narrow<E>(xv * (inverse ? acc[i][kk] * t : t));
         }
       }
     }
@@ -378,80 +410,95 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 
 // cudaFuncSetAttribute once per instantiation (and process: the port runs
 // on one card), not on every launch.
-template <int kCP, int kRM>
+template <typename E, int kCP, int kRM>
 cudaError_t ready() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      gdn_kernel<kCP, kRM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gdn_kernel<E, kCP, kRM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   return err;
 }
 
-template <int kCP, int kRM>
-int launch(const float* x, const float* gamma, const float* beta, float* out,
+template <typename E, int kCP, int kRM>
+int launch(const void* x, const float* gamma, const float* beta, void* out,
            int n, int c, int tile_rows, int slice, int blocks, int stages,
            int inverse, cudaStream_t st, size_t smem) {
-  const cudaError_t err = ready<kCP, kRM>();
+  const cudaError_t err = ready<E, kCP, kRM>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(blocks, (c + slice - 1) / slice);
   const int threads = tile_rows / (8 * kRM) * (slice / kWarpCols) * 32;
-  gdn_kernel<kCP, kRM><<<grid, threads, smem, st>>>(
-      x, gamma, beta, out, n, c, tile_rows, slice, stages, inverse);
+  gdn_kernel<E, kCP, kRM><<<grid, threads, smem, st>>>(
+      static_cast<const E*>(x), gamma, beta, static_cast<E*>(out), n, c,
+      tile_rows, slice, stages, inverse);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kRM>
-int launch_rm(const float* x, const float* gamma, const float* beta,
-              float* out, int n, int c, int tile_rows, int slice, int blocks,
+template <typename E, int kRM>
+int launch_rm(const void* x, const float* gamma, const float* beta,
+              void* out, int n, int c, int tile_rows, int slice, int blocks,
               int stages, int inverse, cudaStream_t st, size_t smem) {
   switch (padded(c)) {
     case 4:
-      return launch<4, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
-                            blocks, stages, inverse, st, smem);
+      return launch<E, 4, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
+                               blocks, stages, inverse, st, smem);
     case 52:
-      return launch<52, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
-                             blocks, stages, inverse, st, smem);
+      return launch<E, 52, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
+                                blocks, stages, inverse, st, smem);
     case 100:
-      return launch<100, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
-                              blocks, stages, inverse, st, smem);
+      return launch<E, 100, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
+                                 blocks, stages, inverse, st, smem);
     case 128:
-      return launch<128, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
-                              blocks, stages, inverse, st, smem);
+      return launch<E, 128, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
+                                 blocks, stages, inverse, st, smem);
     default:
-      return launch<0, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
-                            blocks, stages, inverse, st, smem);
+      return launch<E, 0, kRM>(x, gamma, beta, out, n, c, tile_rows, slice,
+                               blocks, stages, inverse, st, smem);
   }
+}
+
+template <typename E>
+int launch_type(const void* x, const float* gamma, const float* beta,
+                void* out, int n, int c, int rm, int tile_rows, int slice,
+                int blocks, int stages, int inverse, cudaStream_t st,
+                size_t smem) {
+  if (rm == 8)
+    return launch_rm<E, 8>(x, gamma, beta, out, n, c, tile_rows, slice,
+                           blocks, stages, inverse, st, smem);
+  return launch_rm<E, 2>(x, gamma, beta, out, n, c, tile_rows, slice, blocks,
+                         stages, inverse, st, smem);
 }
 
 }  // namespace
 
-// x, out: (n, c) row-major float32; gamma (c, c); beta (c,); x and gamma
-// 16-byte aligned; any c >= 1 whose plan's shared memory fits. The plan
-// (ops/gdn.py:gdn_plan): rm (rows per thread) 2 or 8, tile_rows a multiple
-// of 8 * rm, slice (output channels per block) a multiple of 28, at most
-// 256 threads (tile_rows / (8 * rm) * slice / 28 warps), blocks per slice
-// >= 1, stages 2-4. Launches on `stream`; returns
-// the launch's CUDA error (0 on success), or cudaErrorInvalidValue for a
-// plan it has no kernel or shared memory for.
-extern "C" int mmnc_gdn_forward(const float* x, const float* gamma,
-                                const float* beta, float* out, int n, int c,
+// x, out: (n, c) row-major, float32, or bfloat16 where bf16 != 0; gamma
+// (c, c) and beta (c,) float32; x and gamma 16-byte aligned; any c >= 1
+// whose plan's shared memory fits. The plan (ops/gdn.py:gdn_plan): rm
+// (rows per thread) 2 or 8, tile_rows a multiple of 8 * rm, slice (output
+// channels per block) a multiple of 28, at most 256 threads (tile_rows /
+// (8 * rm) * slice / 28 warps), blocks per slice >= 1, stages 2-4.
+// Launches on `stream`; returns the launch's CUDA error (0 on success), or
+// cudaErrorInvalidValue for a plan it has no kernel or shared memory for.
+extern "C" int mmnc_gdn_forward(const void* x, const float* gamma,
+                                const float* beta, void* out, int n, int c,
                                 int rm, int tile_rows, int slice, int blocks,
-                                int stages, int inverse, void* stream) {
+                                int stages, int inverse, int bf16,
+                                void* stream) {
   if (n <= 0) return 0;
   const int warp_rows = 8 * rm;
   const int threads =
       warp_rows > 0 ? tile_rows / warp_rows * (slice / kWarpCols) * 32 : 0;
-  const size_t smem =
-      static_cast<size_t>(smem_floats(c, tile_rows, slice, stages)) *
-      sizeof(float);
+  const size_t smem = static_cast<size_t>(smem_bytes(
+      c, tile_rows, slice, stages,
+      bf16 ? static_cast<int>(sizeof(__nv_bfloat16)) : 4));
   if (c < 1 || (rm != 2 && rm != 8) || tile_rows < warp_rows ||
       tile_rows % warp_rows || slice < kWarpCols || slice % kWarpCols ||
       threads > kMaxThreads || blocks < 1 || stages < 2 ||
       stages > kMaxStages || smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rm == 8)
-    return launch_rm<8>(x, gamma, beta, out, n, c, tile_rows, slice, blocks,
-                        stages, inverse, st, smem);
-  return launch_rm<2>(x, gamma, beta, out, n, c, tile_rows, slice, blocks,
-                      stages, inverse, st, smem);
+  if (bf16)
+    return launch_type<__nv_bfloat16>(x, gamma, beta, out, n, c, rm,
+                                      tile_rows, slice, blocks, stages,
+                                      inverse, st, smem);
+  return launch_type<float>(x, gamma, beta, out, n, c, rm, tile_rows, slice,
+                            blocks, stages, inverse, st, smem);
 }

@@ -16,6 +16,7 @@ twin share one set of modules. The coding path always uses
 the same top-left corner crop (codecs.py `_compress_device`).
 """
 
+import torch
 import torch.nn as nn
 
 from ..entropy import gaussian_conditional as gc
@@ -25,49 +26,58 @@ from ..ops.layers import GDN, Conv, Deconv, run_layers
 
 
 class AnalysisTransform(nn.Sequential):
-    def __init__(self, n, m):
-        super().__init__(Conv(n, n), GDN(n), Conv(n, n), GDN(n),
-                         Conv(n, n), GDN(n), Conv(n, m))
+    def __init__(self, n, m, dtype=torch.float32):
+        super().__init__(
+            Conv(n, n, dtype=dtype), GDN(n, dtype=dtype),
+            Conv(n, n, dtype=dtype), GDN(n, dtype=dtype),
+            Conv(n, n, dtype=dtype), GDN(n, dtype=dtype),
+            Conv(n, m, dtype=dtype))
 
     def forward(self, x):
         return run_layers(self, x)
 
 
 class SynthesisTransform(nn.Sequential):
-    def __init__(self, m, n, out):
-        super().__init__(Deconv(m, n), GDN(n, inverse=True),
-                         Deconv(n, n), GDN(n, inverse=True),
-                         Deconv(n, n), GDN(n, inverse=True),
-                         Deconv(n, out))
+    def __init__(self, m, n, out, dtype=torch.float32):
+        super().__init__(
+            Deconv(m, n, dtype=dtype), GDN(n, inverse=True, dtype=dtype),
+            Deconv(n, n, dtype=dtype), GDN(n, inverse=True, dtype=dtype),
+            Deconv(n, n, dtype=dtype), GDN(n, inverse=True, dtype=dtype),
+            Deconv(n, out, dtype=dtype))
 
     def forward(self, x):
         return run_layers(self, x)
 
 
 class HyperAnalysis(nn.Sequential):
-    def __init__(self, m, n):
-        super().__init__(Conv(m, n, 3, 1), nn.ReLU(), Conv(n, n), nn.ReLU(),
-                         Conv(n, n))
+    def __init__(self, m, n, dtype=torch.float32):
+        super().__init__(Conv(m, n, 3, 1, dtype), nn.ReLU(),
+                         Conv(n, n, dtype=dtype), nn.ReLU(),
+                         Conv(n, n, dtype=dtype))
 
 
 class HyperSynthesis(nn.Sequential):
-    def __init__(self, n, m):
-        super().__init__(Deconv(n, n), nn.ReLU(), Deconv(n, n), nn.ReLU(),
-                         Conv(n, m, 3, 1), nn.ReLU())
+    def __init__(self, n, m, dtype=torch.float32):
+        super().__init__(Deconv(n, n, dtype=dtype), nn.ReLU(),
+                         Deconv(n, n, dtype=dtype), nn.ReLU(),
+                         Conv(n, m, 3, 1, dtype), nn.ReLU())
 
 
 class ScaleHyperprior(nn.Module):
-    """in_channels -> latent y (M channels) with a hyperprior over scales."""
+    """in_channels -> latent y (M channels) with a hyperprior over scales.
+    `dtype`: the activations' type in g_a, g_s, h_a and h_s; the entropy
+    models compute in float32 (entropy/*.py)."""
 
-    def __init__(self, in_channels, latent_channels, use_gs=True):
+    def __init__(self, in_channels, latent_channels, use_gs=True,
+                 dtype=torch.float32):
         super().__init__()
         n, m = in_channels, latent_channels
         self.use_gs = use_gs
-        self.g_a = AnalysisTransform(n, m)
+        self.g_a = AnalysisTransform(n, m, dtype)
         if use_gs:
-            self.g_s = SynthesisTransform(m, n, n)
-        self.h_a = HyperAnalysis(m, n)
-        self.h_s = HyperSynthesis(n, m)
+            self.g_s = SynthesisTransform(m, n, n, dtype)
+        self.h_a = HyperAnalysis(m, n, dtype)
+        self.h_s = HyperSynthesis(n, m, dtype)
         self.entropy_bottleneck = EntropyBottleneck(n)
 
     def analyze(self, x):

@@ -28,6 +28,14 @@ the streaming round trip (`models/streaming.py`) and the training side:
 the noise-quantized training `forward`, `loss_and_logs` (loss = lmbda *
 rec + rate, codecs.py:295-309) and `aux_loss`, which `train/step.py`
 drives.
+
+`dtype=torch.bfloat16` builds the mixed-precision codec of the JAX
+package's `dtype=jnp.bfloat16` (codecs.py:55-83, 171-204): parameters stay
+float32, the layers' activations are bf16 (the encoder heads cast the
+batch), the entropy models and the losses compute in float32, so the
+likelihoods and the loss are float32 and the x_hats bf16. Rounded y and z
+are coded as in float32. `hyper_parameters` does not record the dtype, as
+the JAX class's does not: a codec rebuilt from a checkpoint is float32.
 """
 
 import copy
@@ -77,7 +85,8 @@ class CodecNet(nn.Module):
     -> output heads (mmnc_tpu/models/codecs.py:44-141), NCHW inside."""
 
     def __init__(self, variant, input_channels, output_channels,
-                 latent_channels, conv_channels, channels_per_task):
+                 latent_channels, conv_channels, channels_per_task,
+                 dtype=torch.float32):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
@@ -87,14 +96,16 @@ class CodecNet(nn.Module):
         self.variant = variant
         self.channels_per_task = channels_per_task
         self.input_heads = nn.ModuleList(
-            [EncoderHead(ic, conv_channels) for ic in input_channels])
+            [EncoderHead(ic, conv_channels, dtype) for ic in input_channels])
         self.compressor = ScaleHyperprior(total, latent_channels,
-                                          use_gs=(variant == "mixed"))
+                                          use_gs=(variant == "mixed"),
+                                          dtype=dtype)
         if variant == "mixed":
-            heads = [DecoderHead(total, oc) for oc in output_channels]
+            heads = [DecoderHead(total, oc, dtype) for oc in output_channels]
         else:
             width = channels_per_task * (2 if variant == "shared" else 1)
-            heads = [UpsampledDecoderHead(width, conv_channels, n_tasks, oc)
+            heads = [UpsampledDecoderHead(width, conv_channels, n_tasks, oc,
+                                          dtype)
                      for oc in output_channels]
         self.output_heads = nn.ModuleList(heads)
 
@@ -156,6 +167,8 @@ class MultiTaskCompressorBase(nn.Module):
     the same seed gives the same model on any device. `lmbda` and the two
     learning rates default to the JAX class's (codecs.py:160-171);
     `train.create_train_state` trains at these rates unless given others.
+    `dtype` is the activations' type, torch.float32 or torch.bfloat16
+    (module docstring); parameters are float32 in either.
     """
 
     variant = "mixed"
@@ -166,8 +179,12 @@ class MultiTaskCompressorBase(nn.Module):
                  conv_channels: int, lmbda: float = 1.0,
                  learning_rate_main: float = 1e-5,
                  learning_rate_aux: float = 1e-3,
-                 legacy_broadcast: bool = True, device=None, seed: int = 0):
+                 legacy_broadcast: bool = True, device=None, seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16,"
+                             f" got {dtype}")
         tasks = tuple(tasks)
         if not len(tasks) == len(tuple(input_channels)) \
                 == len(tuple(output_channels)):
@@ -182,6 +199,7 @@ class MultiTaskCompressorBase(nn.Module):
         self.learning_rate_main = learning_rate_main
         self.learning_rate_aux = learning_rate_aux
         self.legacy_broadcast = legacy_broadcast
+        self.dtype = dtype
         latent_channels, channels_per_task = self._adjust_latent(
             latent_channels)
         self.latent_channels = latent_channels
@@ -190,7 +208,7 @@ class MultiTaskCompressorBase(nn.Module):
                            for t in tasks}
         self.model = CodecNet(self.variant, self.input_channels,
                               self.output_channels, latent_channels,
-                              conv_channels, channels_per_task)
+                              conv_channels, channels_per_task, dtype)
         if self.weighting == "uncertainty":
             self.loss_balancer = LossBalancer(self.n_tasks)
         # self-describing containers (bitstream.py), as the JAX class
@@ -270,12 +288,16 @@ class MultiTaskCompressorBase(nn.Module):
     # forward and losses --------------------------------------------------
 
     def to_device(self, batch):
-        """{task: NHWC array or tensor} -> float32 tensors on the device."""
+        """{task: NHWC array or tensor} -> float32 tensors on the device
+        (the losses' targets, in float32 at any dtype)."""
         return {t: torch.as_tensor(batch[t], dtype=torch.float32,
                                    device=self.device) for t in self.tasks}
 
     def _inputs(self, batch):
-        return [_nchw(x) for x in self.to_device(batch).values()]
+        """The encoder heads' inputs: NCHW in the codec's dtype
+        (mmnc_tpu/models/codecs.py:83)."""
+        return [_nchw(x).to(self.dtype)
+                for x in self.to_device(batch).values()]
 
     def forward(self, batch, training: bool = False, noise=None):
         """{task: NHWC} -> (x_hats {task: NHWC}, likelihoods {"y", "z"}
@@ -317,9 +339,11 @@ class MultiTaskCompressorBase(nn.Module):
 
     def draw_noise(self, batch, generator: torch.Generator):
         """U(-1/2, 1/2) noise {"z", "y"} for a training forward of `batch`,
-        drawn from `generator` (on the model's device), z first."""
+        drawn from `generator` (on the model's device) in the codec's
+        dtype, z first."""
         shapes = self.latent_shapes(batch)
-        return {k: uniform_noise(shapes[k], generator, self.device)
+        return {k: uniform_noise(shapes[k], generator, self.device,
+                                 self.dtype)
                 for k in ("z", "y")}
 
     def loss_and_logs(self, batch, training: bool = True, noise=None):
@@ -448,8 +472,9 @@ class MultiTaskCompressorBase(nn.Module):
     @torch.no_grad()
     def _synthesize_from_symbols(self, y_sym):
         """int16 y symbols (NHWC, on the device) -> {task: NHWC}; the cast
-        to f32 runs on the device (mmnc_tpu/models/codecs.py:430-435)."""
-        return self._decompress_synthesize(y_sym.float())
+        to the codec's dtype runs on the device
+        (mmnc_tpu/models/codecs.py:430-435)."""
+        return self._decompress_synthesize(y_sym.to(self.dtype))
 
     @torch.no_grad()
     def _decompress_synthesize(self, y_hat):
@@ -685,7 +710,7 @@ MODEL_NAME = {cls.__name__: cls for cls in MODEL_NUMBER.values()}
 def build_model(model, tasks, latent_channels, conv_channels, **kwargs):
     """Construct a codec (model number 1-4 or class name) from the task
     registry (mmnc_tpu build_model); kwargs go to the constructor (lmbda,
-    learning rates, legacy_broadcast, device, seed)."""
+    learning rates, legacy_broadcast, device, seed, dtype)."""
     cls = MODEL_NUMBER.get(model) if isinstance(model, int) \
         else MODEL_NAME.get(model)
     if cls is None:

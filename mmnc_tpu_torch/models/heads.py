@@ -16,20 +16,24 @@ Both are `nn.Sequential`s so their state_dict names are the reference's
   stack's 7 layers at indices 0-6 and a DecoderHead(conv_channels) at 7,
   the reference's `model.output_heads.{t}` layout
   (mmnc_tpu/utils/torch_import.py:147-157).
+
+`dtype` is every layer's activation type (ops/layers.py).
 """
 
+import torch
 import torch.nn as nn
 
 from ..ops.layers import GDN, Conv, Deconv, run_layers
 
 
 class EncoderHead(nn.Sequential):
-    def __init__(self, in_channels, conv_channels):
+    def __init__(self, in_channels, conv_channels, dtype=torch.float32):
         c = conv_channels
-        layers = [Conv(in_channels, c // 2, 3, 1), GDN(c // 2)]
+        layers = [Conv(in_channels, c // 2, 3, 1, dtype),
+                  GDN(c // 2, dtype=dtype)]
         width = c // 2
         for _ in range(5):
-            layers += [Conv(width, c), GDN(c)]
+            layers += [Conv(width, c, dtype=dtype), GDN(c, dtype=dtype)]
             width = c
         super().__init__(*layers)
 
@@ -38,39 +42,47 @@ class EncoderHead(nn.Sequential):
 
 
 class DecoderHead(nn.Sequential):
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, dtype=torch.float32):
         mid = in_channels // 2
         out = out_channels
+
+        def igdn(c):
+            return GDN(c, inverse=True, dtype=dtype)
+
         super().__init__(
-            Deconv(in_channels, mid), GDN(mid, inverse=True),
-            Conv(mid, mid, 3, 1), GDN(mid, inverse=True),
-            Deconv(mid, mid), GDN(mid, inverse=True),
-            Conv(mid, mid, 3, 1), GDN(mid, inverse=True),
-            Deconv(mid, out), GDN(out, inverse=True),
-            Deconv(out, out), GDN(out, inverse=True),
-            Conv(out, out, 3, 1))
+            Deconv(in_channels, mid, dtype=dtype), igdn(mid),
+            Conv(mid, mid, 3, 1, dtype), igdn(mid),
+            Deconv(mid, mid, dtype=dtype), igdn(mid),
+            Conv(mid, mid, 3, 1, dtype), igdn(mid),
+            Deconv(mid, out, dtype=dtype), igdn(out),
+            Deconv(out, out, dtype=dtype), igdn(out),
+            Conv(out, out, 3, 1, dtype))
 
     def forward(self, x):
         return run_layers(self, x)
 
 
 class UpsampleStack(nn.Sequential):
-    def __init__(self, in_channels, conv_channels, n_tasks):
+    def __init__(self, in_channels, conv_channels, n_tasks,
+                 dtype=torch.float32):
         cc = conv_channels // n_tasks
         if cc < 1:
             raise ValueError(
                 f"conv_channels ({conv_channels}) must be >= n_tasks "
                 f"({n_tasks}) for the disjoint upsample stack")
-        super().__init__(Deconv(in_channels, cc), GDN(cc, inverse=True),
-                         Deconv(cc, cc), GDN(cc, inverse=True),
-                         Deconv(cc, cc), GDN(cc, inverse=True),
-                         Deconv(cc, conv_channels))
+        super().__init__(
+            Deconv(in_channels, cc, dtype=dtype),
+            GDN(cc, inverse=True, dtype=dtype),
+            Deconv(cc, cc, dtype=dtype), GDN(cc, inverse=True, dtype=dtype),
+            Deconv(cc, cc, dtype=dtype), GDN(cc, inverse=True, dtype=dtype),
+            Deconv(cc, conv_channels, dtype=dtype))
 
     def forward(self, x):
         return run_layers(self, x)
 
 
 class UpsampledDecoderHead(UpsampleStack):
-    def __init__(self, in_channels, conv_channels, n_tasks, out_channels):
-        super().__init__(in_channels, conv_channels, n_tasks)
-        self.append(DecoderHead(conv_channels, out_channels))
+    def __init__(self, in_channels, conv_channels, n_tasks, out_channels,
+                 dtype=torch.float32):
+        super().__init__(in_channels, conv_channels, n_tasks, dtype)
+        self.append(DecoderHead(conv_channels, out_channels, dtype))

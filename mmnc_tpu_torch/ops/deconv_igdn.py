@@ -21,6 +21,15 @@ spatial flip of torch's ConvTranspose2d weight, see `deconv_weight_taps`),
 b (Cout,), gamma (Cout, Cout) [out, in], beta (Cout,); mode is "igdn",
 "gdn" or None. A CPU tensor takes the plain version
 `deconv_igdn_plain`; a CUDA tensor launches the kernel or raises.
+
+bfloat16: x (and the output) may be bf16; w, b, gamma and beta stay
+float32 (the bf16 model's layers hand over values rounded to bf16,
+`ops/layers.py`). The kernel sums in float32, rounds y before the
+epilogue as the unfused chain does (the sum, then + b) and the output
+once at the store; `deconv_igdn_plain` is the JAX package's unfused
+bf16 chain. The launch
+plan does not depend on x's type: the staged input tile is float32 in
+either.
 """
 
 import ctypes
@@ -48,12 +57,36 @@ def _check_mode(mode, gamma, beta):
         raise ValueError(f"mode {mode!r} needs gamma and beta")
 
 
+def bf16_conv(conv, x, w, **geometry):
+    """`conv` (F.conv2d or F.conv_transpose2d) of bf16 x and w, without
+    bias: float32 sums rounded once to bf16, as JAX's bf16 convolution
+    (mmnc_tpu/ops/layers.py:232, 250). On the CUDA card this is cuDNN's
+    bf16 convolution. On the CPU it runs in float32 on the bf16 values and
+    rounds the result: torch's CPU bf16 convolution gave a non-finite
+    weight gradient now and then (in a fresh process's first backward)
+    for h_a's 5x5 stride-2 convolutions of a 1x1 input."""
+    if x.device.type == "cpu":
+        return conv(x.float(), w.float(), **geometry).to(x.dtype)
+    return conv(x, w, **geometry)
+
+
 def deconv_igdn_plain(x, w, b, gamma=None, beta=None, mode="igdn"):
-    """F.conv_transpose2d followed by the plain (I)GDN, NHWC in and out."""
+    """F.conv_transpose2d followed by the plain (I)GDN, NHWC in and out.
+
+    For bf16 x, JAX's unfused chain (mmnc_tpu/ops/layers.py:241-251, then
+    its GDN): the transposed conv of x and w rounded to bf16 (its output
+    rounded), + b rounded to bf16 (rounded again), then `gdn_plain`."""
     _check_mode(mode, gamma, beta)
     weight = w.permute(2, 3, 0, 1).flip(2, 3)  # back to (Cin, Cout, 5, 5)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, b, stride=2,
-                           padding=2, output_padding=1).permute(0, 2, 3, 1)
+    x = x.permute(0, 3, 1, 2)
+    if x.dtype != torch.bfloat16:
+        y = F.conv_transpose2d(x, weight, b, stride=2, padding=2,
+                               output_padding=1)
+    else:
+        y = bf16_conv(F.conv_transpose2d, x, weight.to(x.dtype), stride=2,
+                      padding=2, output_padding=1) + b.to(x.dtype).view(
+                          -1, 1, 1)
+    y = y.permute(0, 2, 3, 1)
     if mode is None:
         return y
     c = y.shape[-1]
@@ -64,7 +97,7 @@ def deconv_igdn_plain(x, w, b, gamma=None, beta=None, mode="igdn"):
 @functools.cache
 def _entry():
     fn = _build.load("deconv_igdn").mmnc_deconv_igdn_forward
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -161,7 +194,8 @@ def cin_slices(cin: int, splits: int):
 
 
 def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
-    """Launch csrc/deconv_igdn.cu on CUDA float32 tensors; raises otherwise.
+    """Launch csrc/deconv_igdn.cu on CUDA tensors: x float32 or bfloat16
+    (the output x's type), w, b, gamma and beta float32; raises otherwise.
 
     `plan` overrides `launch_plan` (chip_smoke.py times one variant
     against the other at the same shape)."""
@@ -171,9 +205,11 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
     if w.shape != (5, 5, cin, cout) or b.shape != (cout,):
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not "
                          f"match x {tuple(x.shape)}")
-    tensors = [x, w, b] + ([gamma, beta] if mode is not None else [])
-    if not all(t.is_cuda and t.dtype == torch.float32 for t in tensors):
-        raise ValueError("deconv_igdn_cuda takes CUDA float32 tensors")
+    params = [w, b] + ([gamma, beta] if mode is not None else [])
+    if not (x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)
+            and all(t.is_cuda and t.dtype == torch.float32 for t in params)):
+        raise ValueError("deconv_igdn_cuda takes CUDA tensors: x float32 or "
+                         "bfloat16, w, b, gamma and beta float32")
     if mode is not None and (gamma.shape != (cout, cout)
                              or beta.shape != (cout,)):
         raise ValueError("gamma/beta do not match Cout")
@@ -199,7 +235,7 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
     rc = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,
                   ta, tb, splits if variant == "split" else 1, _MODES[mode],
-                  int(variant == "tiled_l2"),
+                  int(variant == "tiled_l2"), int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "deconv_igdn")
     deconv_igdn_cuda.launches += 1

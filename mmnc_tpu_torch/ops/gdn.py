@@ -22,6 +22,13 @@ an autograd Function whose backward is the closed form of
 gdn_pallas.py:85-101, written in torch (as the JAX package computes it
 outside its kernel). A CPU tensor takes the plain version `gdn_plain`; a
 CUDA tensor launches the kernel or raises.
+
+bfloat16: x (and the output) may be bf16, gamma and beta stay float32
+(the bf16 model's layer hands over gamma rounded to bf16 values,
+`ops/layers.py:GDN`). The kernel computes in float32 and rounds once, at
+the store; `gdn_plain` follows the JAX package's XLA chain in bf16
+(mmnc_tpu/ops/layers.py:306-314), which rounds at four points; the
+backward computes in float32 and returns dx in x's type.
 """
 
 import ctypes
@@ -59,15 +66,25 @@ class GDNPlan(NamedTuple):
 
 
 def gdn_plain(x2d, gamma, beta, inverse: bool):
-    """The einsum chain: x * (r)sqrt(x^2 @ gamma^T + beta) over (N, C) rows."""
-    norm = (x2d * x2d) @ gamma.t() + beta
-    return x2d * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
+    """The einsum chain: x * (r)sqrt(x^2 @ gamma^T + beta) over (N, C) rows.
+
+    For bf16 x, JAX's chain (mmnc_tpu/ops/layers.py:306-314): x^2 rounded
+    to bf16, its product with gamma rounded to bf16 accumulated in float32
+    (preferred_element_type), + beta in float32, the (r)sqrt rounded to
+    bf16, the product with x rounded to bf16."""
+    if x2d.dtype != torch.bfloat16:
+        norm = (x2d * x2d) @ gamma.t() + beta
+        return x2d * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
+    norm = ((x2d * x2d).float() @ gamma.to(x2d.dtype).float().t()
+            + beta.float())
+    scale = torch.sqrt(norm) if inverse else torch.rsqrt(norm)
+    return x2d * scale.to(x2d.dtype)
 
 
 @functools.cache
 def _entry():
     fn = _build.load("gdn").mmnc_gdn_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,13 +94,15 @@ def _stride(c: int) -> int:
     return cp if (cp // 4) % 2 else cp + 4
 
 
-def gdn_smem_bytes(c: int, plan: GDNPlan) -> int:
-    """Dynamic shared memory of one block (csrc/gdn.cu:smem_floats): the
-    ring of raw row tiles, gamma's slice at a padded stride, the x^2 tile
-    (also gamma's landing area) and beta's slice."""
+def gdn_smem_bytes(c: int, plan: GDNPlan, elt: int = 4) -> int:
+    """Dynamic shared memory of one block (csrc/gdn.cu:smem_bytes): the
+    ring of raw row tiles of `elt`-byte activations, then in float32
+    gamma's slice at a padded stride, the x^2 tile (also gamma's landing
+    area) and beta's slice. Plans are chosen at float32's 4 bytes (the
+    most a tile takes), so a plan fits in either type."""
     _, tr, sl, _, stages = plan
     x2 = max(tr * _stride(c), sl * c)
-    return 4 * (stages * tr * c + sl * _stride(c) + x2 + sl)
+    return elt * stages * tr * c + 4 * (sl * _stride(c) + x2 + sl)
 
 
 def _fits(c: int, plan: GDNPlan) -> bool:
@@ -180,16 +199,19 @@ MAX_CHANNELS = _max_channels()
 
 
 def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
-    """Launch csrc/gdn.cu on CUDA float32 tensors; raises on anything else.
+    """Launch csrc/gdn.cu on CUDA tensors: x float32 or bfloat16 (the
+    output x's type), gamma and beta float32; raises on anything else.
 
     `plan` overrides `gdn_plan` (tests, and chip_smoke.py's check of
-    every variant)."""
+    every variant). The plan does not depend on x's type."""
     n, c = x2d.shape
     if not (x2d.is_cuda and gamma.is_cuda and beta.is_cuda):
         raise ValueError("gdn_cuda takes CUDA tensors")
-    if x2d.dtype != torch.float32 or gamma.dtype != torch.float32 \
-            or beta.dtype != torch.float32:
-        raise ValueError("gdn_cuda takes float32 tensors")
+    if x2d.dtype not in (torch.float32, torch.bfloat16) \
+            or gamma.dtype != torch.float32 or beta.dtype != torch.float32:
+        raise ValueError("gdn_cuda takes float32 or bfloat16 x and float32 "
+                         f"gamma and beta, got {x2d.dtype}, {gamma.dtype}, "
+                         f"{beta.dtype}")
     if gamma.shape != (c, c) or beta.shape != (c,):
         raise ValueError(f"gamma {tuple(gamma.shape)} / beta "
                          f"{tuple(beta.shape)} do not match C={c}")
@@ -208,6 +230,7 @@ def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
     out = torch.empty_like(x2d)
     rc = _entry()(x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                   out.data_ptr(), n, c, *plan, int(inverse),
+                  int(x2d.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check_launch(rc, "gdn")
     gdn_cuda.launches += 1
@@ -235,8 +258,13 @@ class GDNFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        """g may be strided (any layout the next layer's backward gives)."""
+        """g may be strided (any layout the next layer's backward gives).
+        A bf16 x and g are computed with in float32; dx comes back in x's
+        type, dgamma and dbeta in the parameters' float32."""
         x, gamma, beta = ctx.saved_tensors
+        dtype = x.dtype
+        if dtype == torch.bfloat16:
+            x, g = x.float(), g.float()
         x2 = x * x
         norm = x2 @ gamma.t() + beta
         if ctx.inverse:
@@ -251,7 +279,7 @@ class GDNFunction(torch.autograd.Function):
             dx = g * r - x * (u @ gamma)
             dgamma = -0.5 * (u.t() @ x2)
             dbeta = -0.5 * u.sum(0)
-        return dx, dgamma, dbeta, None
+        return dx.to(dtype), dgamma, dbeta, None
 
 
 def gdn(x, gamma, beta, inverse: bool = False):

@@ -14,6 +14,18 @@ k*k*Cin for conv AND deconv, zero biases (torch's own ConvTranspose2d
 init takes fan_in from Cout and draws biases), GDN beta = 1 and
 gamma = 0.1*I in the non-negative reparametrisation. Every draw comes from
 a CPU `torch.Generator`, so a seed gives the same weights on any device.
+
+`dtype` (float32 or bfloat16) is the activations' type, as the JAX
+layers' (layers.py:232-233, 250-251, 300-314): parameters stay float32
+(master weights) and each layer casts its input, weight, bias and gamma
+to `dtype`. In bf16 a conv adds its bias after the conv, so its output is
+rounded twice as JAX's is (F.conv2d with the bias would round once). The
+two kernels take float32 parameters: the layers hand them the values
+rounded to bf16. Under no-grad (decode, eval) a layer keeps what it
+derives from its parameters (the bf16 copies, the deconv taps and GDN's
+effective gamma and beta) until a parameter changes (`_derived`); with
+grad enabled it derives them anew at each call, so that gradients reach
+the float32 parameters.
 """
 
 import math
@@ -23,7 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .bound import lower_bound
-from .deconv_igdn import deconv_igdn, deconv_weight_taps
+from .deconv_igdn import deconv_igdn, deconv_weight_taps, bf16_conv
 from .gdn import gdn
 
 # NonNegativeParametrizer constants (mmnc_tpu/ops/layers.py:259-271)
@@ -42,6 +54,35 @@ def nonneg_forward(reparam, minimum: float = 0.0):
     return out * out - _PEDESTAL
 
 
+def _derived(module, key, make, *params):
+    """`make()`, which derives tensors from `params`. Under no-grad the
+    result is kept on the module and reused while each parameter is the
+    same tensor at the same version (an in-place update, an optimizer step
+    or a load_state_dict bumps the version); with grad enabled it is made
+    anew."""
+    if torch.is_grad_enabled():
+        return make()
+    stamp = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    cache = module.__dict__.setdefault("_derived_cache", {})
+    kept = cache.get(key)
+    if kept is None or kept[0] != stamp:
+        kept = cache[key] = (stamp, make())
+    return kept[1]
+
+
+def _cast_parameters(layer):
+    """A conv layer's weight and bias in its dtype."""
+    return _derived(layer, "cast", lambda: (layer.weight.to(layer.dtype),
+                                            layer.bias.to(layer.dtype)),
+                    layer.weight, layer.bias)
+
+
+def _rounded(t, dtype):
+    """t's values rounded to `dtype`, kept in t's float32 (for the kernels,
+    which take float32 parameters)."""
+    return t if dtype == t.dtype else t.to(dtype).to(t.dtype)
+
+
 def _uniform_(param, limit, generator):
     draw = torch.empty(param.shape, dtype=torch.float32)
     draw.uniform_(-limit, limit, generator=generator)
@@ -51,10 +92,12 @@ def _uniform_(param, limit, generator):
 class Conv(nn.Module):
     """conv(k, s): cross-correlation with padding k//2, weight (O, I, k, k)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size=5, stride=2):
+    def __init__(self, in_channels, out_channels, kernel_size=5, stride=2,
+                 dtype=torch.float32):
         super().__init__()
         k = kernel_size
         self.stride = stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
@@ -65,17 +108,23 @@ class Conv(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride,
-                        self.weight.shape[-1] // 2)
+        pad = self.weight.shape[-1] // 2
+        if self.dtype == torch.float32:
+            return F.conv2d(x, self.weight, self.bias, self.stride, pad)
+        w, b = _cast_parameters(self)
+        return bf16_conv(F.conv2d, x.to(self.dtype), w, stride=self.stride,
+                         padding=pad) + b.view(-1, 1, 1)
 
 
 class Deconv(nn.Module):
     """deconv(k, s): ConvTranspose2d geometry, weight (I, O, k, k)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size=5, stride=2):
+    def __init__(self, in_channels, out_channels, kernel_size=5, stride=2,
+                 dtype=torch.float32):
         super().__init__()
         k = kernel_size
         self.stride = stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k, k))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
@@ -87,20 +136,27 @@ class Deconv(nn.Module):
 
     def forward(self, x):
         k = self.weight.shape[-1]
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                  padding=k // 2,
-                                  output_padding=self.stride - 1)
+        geometry = dict(stride=self.stride, padding=k // 2,
+                        output_padding=self.stride - 1)
+        if self.dtype == torch.float32:
+            return F.conv_transpose2d(x, self.weight, self.bias, **geometry)
+        w, b = _cast_parameters(self)
+        return bf16_conv(F.conv_transpose2d, x.to(self.dtype), w,
+                         **geometry) + b.view(-1, 1, 1)
 
     def fuses_with(self, nxt) -> bool:
         return (isinstance(nxt, GDN) and self.stride == 2
                 and self.weight.shape[-1] == 5)
 
     def forward_fused(self, gdn_layer, x):
-        """This deconv and the (I)GDN after it as one deconv_igdn launch."""
-        gamma, beta = gdn_layer.effective()
-        y = deconv_igdn(x.permute(0, 2, 3, 1), deconv_weight_taps(self.weight),
-                        self.bias, gamma, beta,
-                        "igdn" if gdn_layer.inverse else "gdn")
+        """This deconv and the (I)GDN after it as one deconv_igdn launch
+        (float32 parameters, rounded to bf16 values in a bf16 layer)."""
+        taps, bias = _derived(self, "taps", lambda: (
+            deconv_weight_taps(_rounded(self.weight, self.dtype)),
+            _rounded(self.bias, self.dtype)), self.weight, self.bias)
+        gamma, beta = gdn_layer.kernel_parameters()
+        y = deconv_igdn(x.to(self.dtype).permute(0, 2, 3, 1), taps, bias,
+                        gamma, beta, "igdn" if gdn_layer.inverse else "gdn")
         return y.permute(0, 3, 1, 2)
 
 
@@ -112,9 +168,10 @@ class GDN(nn.Module):
     reference's state_dict.
     """
 
-    def __init__(self, channels, inverse=False):
+    def __init__(self, channels, inverse=False, dtype=torch.float32):
         super().__init__()
         self.inverse = inverse
+        self.dtype = dtype
         self.beta = nn.Parameter(torch.empty(channels))
         self.gamma = nn.Parameter(torch.empty(channels, channels))
 
@@ -129,9 +186,18 @@ class GDN(nn.Module):
         """(gamma, beta) after the non-negative reparametrisation."""
         return nonneg_forward(self.gamma), nonneg_forward(self.beta, _BETA_MIN)
 
+    def kernel_parameters(self):
+        """(gamma rounded to the layer's dtype, held in float32; beta): what
+        the kernels take. beta stays float32, as JAX adds it to the float32
+        product (layers.py:306-310)."""
+        def make():
+            gamma, beta = self.effective()
+            return _rounded(gamma, self.dtype), beta
+        return _derived(self, "effective", make, self.gamma, self.beta)
+
     def forward(self, x):
-        gamma, beta = self.effective()
-        return gdn(x.permute(0, 2, 3, 1), gamma, beta,
+        gamma, beta = self.kernel_parameters()
+        return gdn(x.to(self.dtype).permute(0, 2, 3, 1), gamma, beta,
                    self.inverse).permute(0, 3, 1, 2)
 
 

@@ -12,17 +12,21 @@ as `jnp.round` does.
 import torch
 
 
-def uniform_noise(shape, generator: torch.Generator, device=None):
-    """U(-1/2, 1/2) float32 noise of `shape` drawn from `generator` on
-    `device` (the generator's own device unless given)."""
+def uniform_noise(shape, generator: torch.Generator, device=None,
+                  dtype=torch.float32):
+    """U(-1/2, 1/2) noise of `shape` and `dtype` (the activations', as
+    mmnc_tpu/ops/quant.py:14 draws it) from `generator` on `device` (the
+    generator's own device unless given)."""
     device = generator.device if device is None else device
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
     return out.uniform_(-0.5, 0.5, generator=generator)
 
 
 def quantize_noise(x, noise):
-    """x + noise, the noise U(-1/2, 1/2) of x's shape (`uniform_noise`)."""
-    return x + noise
+    """x + noise, the noise U(-1/2, 1/2) of x's shape (`uniform_noise`),
+    in x's type: JAX draws it in x's dtype, so a bf16 x stays bf16 (torch
+    would promote bf16 + float32 to float32)."""
+    return x + noise.to(x.dtype)
 
 
 def quantize_round(x, medians=None):

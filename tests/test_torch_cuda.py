@@ -816,3 +816,149 @@ def test_sharded_compress_across_cards_equals_one_process(device):
         for name, g, w in zip(("y", "z", "indexes", "max_abs"), got, want):
             assert g.dtype == w.dtype, name
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+# --- the bf16 activation path ----------------------------------------------
+# GDN computes in float32 and rounds once at the store; its plain version
+# is the JAX package's bf16 chain, which rounds at four points: at most
+# one bf16 ulp apart, within 2^-7 of max(1, |plain|). deconv+IGDN is held
+# stage by stage as chip_smoke.py holds it (`check_deconv_bf16`): its
+# sums rounded as cuDNN's but where the exact sum lies within float32
+# summation error of a bf16 rounding boundary (the two sum in other
+# orders), y bitwise the rounded sum plus the bias, rounded, and the
+# output within 2^-7 of the plain epilogue on the kernel's own y. The
+# parameters hold bf16 values, as the bf16 layers hand them over.
+BF16_TOL = 2.0 ** -7
+
+
+def _bf16_values(*tensors):
+    return [t.to(torch.bfloat16).float() for t in tensors]
+
+
+@pytest.mark.parametrize("n", [5, 777, 4099, 32768])
+@pytest.mark.parametrize("c", [1, 3, 21, 50, 100, 168])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_kernel_bf16_matches_plain(device, n, c, inverse):
+    """bf16 x (and output), float32 gamma and beta, at the widths of the
+    rgb and shared4 paths and C = 168 (channel-sliced plans); ragged tiles
+    whose last 1-7 values are not a whole 16 bytes; two launches bitwise
+    equal."""
+    import chip_smoke
+
+    x, gamma, beta = _gdn_inputs(device, n, c, n + c)
+    x, (gamma,) = x.to(torch.bfloat16), _bf16_values(gamma)
+    before = gdn_cuda.launches
+    got = gdn(x, gamma, beta, inverse)
+    again = gdn(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    assert gdn_cuda.launches == before + 2
+    chip_smoke.check_close(torch, got, gdn_plain(x, gamma, beta, inverse),
+                           BF16_TOL, "gdn")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("variant", ["rows", "split"])
+@pytest.mark.parametrize("n,c", [(4099, 50), (3001, 100), (61, 37)])
+def test_gdn_kernel_bf16_plans_match_plain(device, variant, n, c):
+    import chip_smoke
+
+    x, gamma, beta = _gdn_inputs(device, n, c, 7)
+    x, (gamma,) = x.to(torch.bfloat16), _bf16_values(gamma)
+    got = gdn_cuda(x, gamma, beta, False, plan=gdn_plan(n, c, variant))
+    chip_smoke.check_close(torch, got, gdn_plain(x, gamma, beta, False),
+                           BF16_TOL, "gdn")
+
+
+@pytest.mark.parametrize("shape,cout,plan", [
+    ((2, 1, 1, 128), 100, "split"), ((8, 2, 2, 100), 100, "split"),
+    ((8, 4, 4, 100), 100, "split"), ((3, 3, 3, 42), 40, "split"),
+    ((2, 16, 16, 100), 50, "tiled"), ((1, 13, 9, 50), 3, "tiled"),
+    ((2, 17, 33, 3), 3, "tiled"), ((2, 16, 16, 42), 21, "tiled"),
+    ((2, 2, 2, 300), 300, "tiled_l2"), ((2, 9, 7, 150), 300, "tiled_l2")])
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+def test_deconv_igdn_kernel_bf16_matches_plain(device, shape, cout, plan,
+                                               mode):
+    """All three variants with bf16 x and output (the split one's staged
+    input by plain loads at odd channel offsets: Cin 42 over clusters of
+    up to 8), and the tiled kernel at the split shapes too, held stage by
+    stage; two launches bitwise equal."""
+    import chip_smoke
+
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    x = x.to(torch.bfloat16)
+    w, b, gamma = _bf16_values(w, b, gamma)
+    chosen = launch_plan(*shape, cout)
+    assert chosen[0] == plan
+    plans = [chosen] + ([("tiled", *tile_shape(*shape[:3], cout), 1)]
+                        if plan == "split" else [])
+    for p in plans:
+        chip_smoke.check_deconv_bf16(torch, x, w, b, gamma, beta, mode, p,
+                                     f"deconv_igdn {shape} {cout} {p}")
+
+
+def test_kernel_wrappers_refuse_other_activation_types(device):
+    """float16 x, or bf16 parameters, raise: nothing is cast behind the
+    caller's back."""
+    x, gamma, beta = _gdn_inputs(device, 64, 50, 0)
+    for args in ((x.half(), gamma, beta), (x.bfloat16(), gamma.bfloat16(),
+                                           beta)):
+        with pytest.raises(ValueError):
+            gdn_cuda(*args, False)
+    x, w, b, gamma, beta = _deconv_inputs(device, (1, 4, 4, 8), 8, 0)
+    for args in ((x.half(), w, b, gamma, beta),
+                 (x.bfloat16(), w.bfloat16(), b, gamma, beta)):
+        with pytest.raises(ValueError):
+            deconv_igdn_cuda(*args, "igdn")
+
+
+def test_bf16_codec_on_card(device):
+    """The bf16 rgb codec (c=4, m=8) on the card: its launches go through
+    the bf16 kernels (9 GDN a compress, 2 GDN + 7 deconv+IGDN a
+    decompress), stream bytes equal compress's, decompress equals the
+    eval forward bitwise under deterministic cuDNN, and the card's y,
+    symbols and x_hats agree with the CPU port's bf16 codec."""
+    models = []
+    for dev in ("cpu", device):
+        model = scale_conv_kernels(build_model(
+            1, ["rgb"], latent_channels=8, conv_channels=4, device=dev,
+            seed=3, dtype=torch.bfloat16))
+        model.update_bottleneck_values()
+        models.append(model)
+    cpu, card = models
+    batch = {"rgb": torch.from_numpy(np.random.default_rng(4).random(
+        (2, 256, 256, 3)).astype(np.float32)).to(device)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x_hat = card(batch)[0]["rgb"]
+        gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
+        ans, n_bytes = card.compress(batch)
+        assert (gdn_cuda.launches - gdn0, deconv_igdn_cuda.launches - dec0) \
+            == (9, 0)
+        decoded = card.decompress(ans)["rgb"]
+        torch.cuda.synchronize()
+        assert (gdn_cuda.launches - gdn0, deconv_igdn_cuda.launches - dec0) \
+            == (11, 7)
+        assert decoded.dtype == torch.bfloat16
+        assert torch.equal(decoded, x_hat)
+        for impl in ("v2", "v1"):
+            (streamed, stream_bytes), = stream_roundtrip(card, [batch],
+                                                         impl=impl)
+            torch.cuda.synchronize()
+            assert stream_bytes == n_bytes and streamed["rgb"].dtype == \
+                torch.bfloat16
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with torch.no_grad():
+        y_card = card.model.analyze(card._inputs(batch))[0].float().cpu()
+        y_cpu = cpu.model.analyze(cpu._inputs(
+            {"rgb": batch["rgb"].cpu()}))[0].float()
+        y_hat = torch.round(y_cpu)
+        r_card = card.model.synthesize_from_y(y_hat.to(device))[0]
+        r_cpu = cpu.model.synthesize_from_y(y_hat)[0]
+    # the kernels round fewer times than the CPU's chain, and the
+    # difference passes through ~20 bf16 layers: 2^-4 of max(1, |cpu|), as
+    # chip_smoke.py's BF16_CPU_RTOL
+    for got, want in ((y_card, y_cpu), (r_card.float().cpu(), r_cpu.float())):
+        err = (got - want).abs().max().item()
+        assert err <= 2.0 ** -4 * max(1.0, want.abs().max().item()), err
