@@ -164,7 +164,12 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--dp-cards N` runs only phase 10 (c) and (d)
 across N cards (one NCCL rank a card, DP_BATCH rows each) against one
-process at the global batch, on a machine with N cards. `--profile DIR`
+process at the global batch, on a machine with N cards. `--time-deconv
+TREE` runs only phase 3's deconv+IGDN checks and times, in float32 and
+bf16, at every launch shape of an rgb and a shared4 round trip of a
+batch of BATCH, on the `mmnc_tpu_torch` of the checkout at TREE ("." for
+this one), and prints one JSON line of them: run it on two checkouts in
+turns within one call to compare their kernels on one card. `--profile DIR`
 also writes torch.profiler summaries
 of one round trip, of each layout's streamed run, of one train step, of
 a shared4 round trip and phase 9's trace of the CLI's steps 5-10 to DIR.
@@ -734,9 +739,9 @@ def split_extra_shapes():
 
 def wide_deconv_shapes():
     """Every deconv+IGDN launch of phase 6's models not on the main path:
-    at conv 192 the tiled plans hold gamma beside 4x4 tiles in up to
-    225 KB of shared memory, at conv 300 g_s's Cout x Cout of gamma does
-    not fit and the plan is "tiled_l2"."""
+    at conv 192 the tiled plans hold gamma and two weight stages of 4
+    channels beside the tile in up to 217 KB of shared memory, at conv 300
+    g_s's Cout x Cout of gamma does not fit and the plan is "tiled_l2"."""
     path = deconv_path_shapes(BATCH)
     return [s for conv in WIDE_CONVS for s in deconv_path_shapes(BATCH, conv)
             if s not in path]
@@ -788,15 +793,33 @@ def check_deconv(torch, b, gen):
     return totals, max_err_seen, tol_rel
 
 
-def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None):
+def plan_note(b, h, w, cin, cout, plan):
+    """A tiled plan's blocks and `tiled_config` (positions a thread, Cin
+    slices, Cin chunk, threads, shared memory), else "" (the split and
+    L2 kernels, and a checkout without `tiled_config`)."""
+    from mmnc_tpu_torch.ops import deconv_igdn
+
+    config = getattr(deconv_igdn, "tiled_config", None)
+    if plan[0] != "tiled" or config is None:
+        return ""
+    c = config(b, h, w, cin, cout, plan[1], plan[2])
+    return (f"blocks={deconv_igdn.tiled_blocks(b, h, w, *plan[1:3], cout)} "
+            f"p={c.p} slices={c.slices} chunk={c.chunk} threads={c.threads} "
+            f"smem={c.smem_bytes}")
+
+
+def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
+                       rows=None):
     """Each distinct shape of `groups` under its launch plan, x float32 or
     `dtype`: float32 against the plain version within tol_rel, bf16 stage
     by stage (check_deconv_bf16; the error reported is against the whole
     plain version), two launches bitwise equal; where the plan is the
-    split kernel the tiled kernel forced at the same shape likewise. Then
-    device ms of the kernel, the plain version and the library call
-    (F.conv_transpose2d in x's type) and the bound (x's bytes and rate),
-    printed and summed by key. Returns (the sums, the largest error)."""
+    split kernel the tiled kernel forced at the same shape likewise
+    (unless forced=False). Then device ms of the kernel, the plain version
+    and the library call (F.conv_transpose2d in x's type) and the bound
+    (x's bytes and rate), printed with the plan (`plan_note`) and summed by
+    key; each shape's numbers also go to the list `rows` if one is given.
+    Returns (the sums, the largest error)."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -810,8 +833,8 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None):
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
                                                      cin, cout, dtype)
         plan = launch_plan(bb, h, w, cin, cout)
-        plans = [plan] + ([("tiled", *tile_shape(bb, h, w, cout), 1)]
-                          if plan[0] == "split" else [])
+        plans = [plan] + ([("tiled", *tile_shape(bb, h, w, cin, cout), 1)]
+                          if forced and plan[0] == "split" else [])
         for p in plans:
             where = (f"deconv_igdn {x.dtype} {(bb, h, w, cin, cout, mode)} "
                      f"plan {p}")
@@ -843,8 +866,9 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None):
             x_nchw, wt_x, bias_x, stride=2, padding=2, output_padding=1))
         bms, by = bound_ms(*deconv_igdn_cost(bb, h, w, cin, cout, mode, elt),
                            rate)
+        detail = plan_note(bb, h, w, cin, cout, plan)
         print(f"kernel deconv_igdn{' bf16' if bf16 else ''} x=({bb},{h},{w},"
-              f"{cin}) Cout={cout} mode={mode} plan={plan} launches="
+              f"{cin}) Cout={cout} mode={mode} plan={plan} {detail} launches="
               f"{json.dumps(uses, separators=(',', ':'))} "
               f"max_abs_err={err:.3e} (|ref|max {scale:.3g}{note}) "
               f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f} "
@@ -855,6 +879,12 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None):
         add_times(totals, uses, {"ms": ms, "host_ms": host,
                                    "plain_ms": plain, "library_ms": lib,
                                    "bound_ms": bms}, by)
+        if rows is not None:
+            rows.append({"shape": [bb, h, w, cin, cout], "mode": mode,
+                         "dtype": "bf16" if bf16 else "f32",
+                         "plan": list(plan), "detail": detail, "uses": uses,
+                         "ms": ms, "library_ms": lib, "plain_ms": plain,
+                         "bound_ms": bms, "max_abs_err": err})
         del x, wt, taps, bias, gamma, beta
     return totals, max_err_seen
 
@@ -3295,7 +3325,14 @@ def main(argv=None):
     parser.add_argument("--dp-cards", type=int, default=None,
                         help="run only phase 10 (c) across this many cards "
                              "(one NCCL rank a card) against one process")
+    parser.add_argument("--time-deconv", metavar="TREE", default=None,
+                        help="run only phase 3's deconv+IGDN checks and "
+                             "times at an rgb and a shared4 round trip's "
+                             "shapes, on the mmnc_tpu_torch of the checkout "
+                             "at TREE")
     args = parser.parse_args(argv)
+    if args.time_deconv:
+        sys.path.insert(0, os.path.abspath(args.time_deconv))
 
     import torch
 
@@ -3315,6 +3352,11 @@ def main(argv=None):
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
+    if args.time_deconv:
+        libs = _build.build(["deconv_igdn"])
+        print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        time_deconv(torch, args.time_deconv, card)
+        return 0
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     if args.dp_cards:
@@ -3442,6 +3484,32 @@ def main(argv=None):
     print(json.dumps({"kernels": kernels}))
     print_ok(torch)
     return 0
+
+
+def time_deconv(torch, tree, card):
+    """`--time-deconv TREE`: phase 3's deconv+IGDN checks and device times
+    (forced plans left out) at every launch shape of an rgb and a shared4
+    round trip of BATCH images, in float32 and in bf16, on the kernel of
+    the checkout at TREE; then one JSON line: each shape's numbers and each
+    trip's sums of the kernel's and the library call's device ms."""
+    from mmnc_tpu_torch.ops import deconv_igdn
+
+    if not deconv_igdn.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {deconv_igdn.__file__}, not {tree}'s")
+    gen = torch.Generator().manual_seed(SEED)
+    groups = [(deconv_path_shapes(BATCH), "trip"),
+              (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), BATCH),
+               "shared4")]
+    rows, sums = [], {}
+    for dtype, tag, tol in ((None, "f32", 1e-4),
+                            (torch.bfloat16, "bf16", BF16_TOL)):
+        tot, _ = check_deconv_cases(torch, gen, groups, tol, dtype,
+                                    forced=False, rows=rows)
+        for key, t in tot.items():
+            sums[f"{tag}_{key}"] = {k: t[k] for k in (
+                "launches", "ms", "library_ms", "plain_ms", "bound_ms")}
+    print(json.dumps({"tree": tree, "card": card, "sums": sums,
+                      "shapes": rows}))
 
 
 def print_ok(torch):

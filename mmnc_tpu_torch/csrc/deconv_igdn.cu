@@ -16,22 +16,67 @@
 // program in VMEM (grid (B,), the 5x5xCinxCout weight resident) and let the
 // sequential grid walk the batch; it could not fit 64x64 and 128x128
 // inputs. The card runs blocks in parallel on 132 SMs, so the work has to
-// be cut finer, two ways:
+// be cut finer, three ways:
 //
-// Tiled (deconv_igdn_kernel; wide stages and 3-channel stages): a block
-// owns a tile of TA x TB input positions, i.e. 2TA x 2TB output pixels
-// times all Cout channels (the IGDN epilogue mixes every channel of a
-// pixel). It stages its input tile with a 1-pixel halo in shared memory,
-// streams the weight from L2 (1 MB at 100x100: read once per tap and input
-// channel and reused for kCols output pixels from a register), accumulates
-// the pre-activation in registers, parks it in shared memory, applies the
-// (I)GDN epilogue with gamma in shared memory and writes each output pixel
-// once, already interleaved: no depth-to-space pass. Taps that fall wholly
-// on the zero padding are skipped. Where Cout x Cout of gamma does not fit
-// beside the tile (Cout above about 230), the kGammaL2 instantiation
-// leaves gamma in global memory and its epilogue reads it through the
-// read-only cache (__ldg; 360 KB at Cout = 300 stays in L2): correct at
-// any width, not tuned.
+// Tiled (deconv_igdn_tiled_kernel; every stage off the split kernel: the
+// wide rgb stages, the 3-channel ones and the multi-task heads' narrow
+// ones, Cout 1-21). A block owns one output-parity plane of a tile of
+// TA x TB input positions with all Cout channels: an output pixel has one
+// parity, and its (I)GDN needs only its own Cout channels, so the
+// epilogue stays on chip while four blocks share a tile. Where Cout <= 4
+// (one channel quad) a block owns the tile's four planes instead: there
+// the work per plane is too small to pay for a block's set-up and its
+// own copy of the input tile. What bounded the earlier kernel (one block
+// per tile and all four parities; an __ldg of one weight per tap and
+// input channel reused for 4 FMAs; one output channel per thread; staging
+// before any FMA) and what this one does:
+// - blocks: tiles are picked per shape (ops/deconv_igdn.py:tile_shape) so
+//   that a launch has at least min(132, B x 4 x ceil(H W / 8)) blocks:
+//   shared4's 16x16 -> 21 at batch 8 runs 256 blocks of 4x8 tiles, not 16.
+//   While a launch has fewer than 32 warps an SM, a block's threads split
+//   Cin into up to 16 slices whose partial sums are added in slice order
+//   in shared memory (the 1x1-4x4 inputs at Cout 10 take 2-16);
+// - weights: the taps of the block's planes that reach the image (9, 6, 6
+//   or 4 a plane; 1 on a 1x1 input) for a chunk of Cin go into shared
+//   memory by cp.async from a per-block tap table, every thread a share of
+//   the (tap, Cin, copy) triples: 16 bytes a copy where Cout is a multiple
+//   of 4 and w 16-byte aligned, 8 where Cout is even, else 4 (a (tap, Cin)
+//   row of Cout floats starts aligned only so), each row padded to Cp = 4
+//   ceil(Cout / 4) floats. Two stages (one where a chunk holds all of
+//   Cin): chunk k + 1 is in flight while chunk k computes. The input tile
+//   (+ 1-pixel halo, zero outside the image) and gamma (transposed,
+//   gT[j][o], by the copies' addresses) come with chunk 0. Index
+//   arithmetic is kept by adds: divisions per copy had cost more
+//   instructions than the FMAs at 16x16 100 -> 50;
+// - register tiles: a thread owns P (1-8) positions along a tile row x 4
+//   output channels (1 where Cout is 1); per input channel and tap row it
+//   reads the P + 2 inputs its 2-3 column taps share (broadcast) and a
+//   float4 of weights per tap, for 4P FMAs a tap;
+// - epilogue: pre-activations and their squares go to shared memory
+//   (over the dead weight stages); a thread then takes the main loop's
+//   positions x 4 channels, reads a float4 of gT and the positions' y^2
+//   per input channel, and stores along the interleaved output's
+//   channels. Four-plane blocks instead take one output pixel a thread in
+//   row-major order, so a warp stores consecutive pixels (per-thread
+//   positions 2 pixels apart cost a 32-byte sector a 4-byte value at
+//   Cout 1), their y rows swizzled against bank conflicts.
+// A thread's sum runs over chunks, then its slice's channels, then taps in
+// kernel-index order; slices are added in order. Chunk, slices and P
+// follow from the shape and tile alone (never the mode: shared memory is
+// counted with gamma's room whatever the mode), so two launches are
+// bitwise equal and a launch with gamma 0 and beta 1 reads back the same
+// sums. ops/deconv_igdn.py:tiled_config mirrors the plan. What bounds it
+// now: the FMA-heavy stages (128x128 17 -> 17, the 50-channel rgb ones)
+// run at 11-17% of the CUDA cores' f32 rate, held back by a block's
+// serial phases (stage, wait, compute, reduce, epilogue) at 2-3 blocks an
+// SM; the small ones by a block's fixed latency.
+//
+// Tiled in L2 (deconv_igdn_l2_kernel): where gamma (Cout x Cout) and the
+// stages do not fit in a block's shared memory beside any tile (Cout above
+// about 225), one block per tile and all four parities, the weight
+// streamed from L2 (__ldg, reused for kCols output pixels), gamma read by
+// the epilogue through the read-only cache (360 KB at Cout = 300 stays in
+// L2): correct at any width, not tuned.
 //
 // Split (deconv_igdn_split_kernel; the latent stages, 1x1 to 4x4 inputs):
 // there the tiles give 8-32 blocks for 132 SMs, and each thread walks every
@@ -117,24 +162,582 @@ __device__ __forceinline__ float pre_activation(float acc, float bias) {
                                        : held<E>(held<E>(acc) + bias);
 }
 
+// ---- copies, barriers and tap geometry ----------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 8 bytes; both ends 8-byte aligned.
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes; both ends 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)));
+}
+
+// The calling thread arrives and announces `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One bulk (TMA) copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to this block's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Input offset of kernel index k along one axis: t + d - 1 with t = k / 2,
+// d = k % 2.
+__host__ __device__ __forceinline__ int tap_offset(int k) {
+  return (k >> 1) + (k & 1) - 1;
+}
+
+// Whether kernel index k reads any in-image input for the tile positions
+// [p0, p0 + t) of an axis of length n (positions past n are not output).
+__host__ __device__ __forceinline__ bool tap_hits(int k, int p0, int t,
+                                                  int n) {
+  const int last = (p0 + t < n ? p0 + t : n) - 1;
+  const int off = tap_offset(k);
+  return p0 + off <= n - 1 && last + off >= 0;
+}
+
+// ---- tiled kernel -------------------------------------------------------
+
+constexpr int kTiledMaxThreads = 256;
+constexpr int kMaxSlices = 16;      // Cin slices of a tiled block
+// Threads a tiled launch aims for: 32 warps an SM on the H100's 132 SMs.
+// Below that, Cin slices add threads to the blocks.
+constexpr int kFillThreads = 132 * 1024;
+constexpr int kMaxTiledChunk = 32;  // Cin channels per staged chunk
+// Shared memory of a tiled block that leaves room for a second block on
+// the SM (each block also holds 1 KB the system reserves).
+constexpr int kHalfSmem = 112 * 1024;
+
+// Taps t < 3 - d (kernel index 2t + d) of parity d that reach the image
+// for the tile positions [p0, p0 + t) of an axis of length n: *t_lo and
+// the count (contiguous: the tile and the image are intervals).
+__host__ __device__ __forceinline__ int parity_taps(int d, int p0, int t,
+                                                    int n, int* t_lo) {
+  int count = 0;
+  *t_lo = 0;
+  for (int tt = 2 - d; tt >= 0; --tt) {
+    if (tap_hits(2 * tt + d, p0, t, n)) {
+      *t_lo = tt;
+      ++count;
+    }
+  }
+  return count;
+}
+
+// Grid (4 x tiles, B), or (tiles, B) where cout <= 4: block (tile, image)
+// owns the parity planes q = 2 dh + dw of a ta x tb tile (q from the
+// block, 4 tile + q, or, where Cout <= 4, all four planes, q from the
+// thread: they share the input tile), all Cout channels. Threads: (slice,
+// plane, position group, channel quad), quad fastest, rounded up to whole
+// warps; see tiled_plan. Dynamic shared memory (floats), from offset 0:
+// the weight stages, nv x chunk x cp each, two (one where a chunk holds
+// all of Cin) (after the main loop the slices' partial sums, then y and
+// y^2, planes x npos x cp each), then the input tile + halo [cin][ta +
+// 2][tb + 2] (rounded up to 4 floats), gT [cout][cp], beta (cp floats).
+// E: the activations' type. kP: positions a thread. kOne: Cout == 1 (one
+// FMA a position, not four).
+template <typename E, int kP, bool kOne>
+__global__ void __launch_bounds__(kTiledMaxThreads)
+deconv_igdn_tiled_kernel(const E* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ gamma,
+                         const float* __restrict__ beta, E* __restrict__ out,
+                         int h, int wd, int cin, int cout, int ta, int tb,
+                         int mode, int slices, int chunk, int nv) {
+  extern __shared__ float4 smem4[];
+  const int cq = (cout + 3) / 4, cp = 4 * cq;
+  const int nq = cq == 1 ? 4 : 1;  // parity planes a block
+  const int npos = ta * tb;
+  const int wx = tb + 2, hw = (ta + 2) * wx;
+  const int stage_floats = nv * chunk * cp;
+  const int nchunks = (cin + chunk - 1) / chunk;
+  const int stages = (nchunks > 1 ? 2 : 1) * stage_floats;
+  const int ys = nq * npos * cp * (slices > 1 ? slices + 2 : 2);
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* x_s = w_s + (stages > ys ? stages : ys);
+  float* g_s = x_s + (hw * cin + 3) / 4 * 4;  // gT[j * cp + o] = gamma[o][j]
+  float* b_s = g_s + cout * cp;                // beta, cp floats
+
+  const int tiles_w = (wd + tb - 1) / tb;
+  const int tile = nq == 4 ? blockIdx.x : blockIdx.x >> 2;
+  const int a0 = tile / tiles_w * ta, b0 = tile % tiles_w * tb;
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  // The block's planes: parity, taps (t_lo.. nt, s_lo.. ns) and first slot
+  // of each in a weight stage.
+  int pq[4], pt_lo[4], pnt[4], ps_lo[4], pns[4], pslot[4];
+  int ntaps = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    pq[u] = nq == 4 ? u : (blockIdx.x & 3);
+    pnt[u] = parity_taps(pq[u] >> 1, a0, ta, h, &pt_lo[u]);
+    pns[u] = parity_taps(pq[u] & 1, b0, tb, wd, &ps_lo[u]);
+    pslot[u] = ntaps;
+    ntaps += u < nq ? pnt[u] * pns[u] : 0;
+  }
+  // tap_s[slot]: offset in w of the slot's tap (kernel index kh * 5 + kw)
+  // for Cin 0, slot = pslot[u] + (t - t_lo) ns + s - s_lo for plane u.
+  __shared__ int tap_s[25];
+  if (tid < ntaps) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int local = tid - pslot[v];
+      if (v < nq && local >= 0 && local < pnt[v] * pns[v]) {
+        const int t = pt_lo[v] + local / pns[v], s = ps_lo[v] + local % pns[v];
+        tap_s[tid] =
+            ((2 * t + (pq[v] >> 1)) * 5 + 2 * s + (pq[v] & 1)) * cin * cout;
+      }
+    }
+  }
+  __syncthreads();
+  // Copy width in floats: a (tap, Cin) row of w starts 16-byte aligned
+  // only where Cout is a multiple of 4, 8-byte aligned where it is even.
+  const unsigned long long wa = reinterpret_cast<unsigned long long>(w);
+  const int width =
+      cout % 4 == 0 && wa % 16 == 0 ? 4 : (cout % 2 == 0 && wa % 8 == 0 ? 2 : 1);
+  const int row_copies = cout / width;
+
+  // Chunk k of the weights, every tap the block's planes read:
+  // w_s[k % 2][slot][c][o] = w[tap][k chunk + c][o]. Copy e = (slot, c,
+  // o), e = tid, tid + nthreads, ...: (slot, c, o) kept by adds. Columns
+  // cout..cp - 1 are left as they are: they feed only the padded
+  // channels' sums, which are never stored.
+  auto stage_chunk = [&](int k) {
+    const int c0 = k * chunk;
+    const int kc = cin - c0 < chunk ? cin - c0 : chunk;
+    const int copies = kc * row_copies;  // of a slot, contiguous in w
+    const int step_slot = nthreads / copies;
+    const int step_r = nthreads - step_slot * copies;
+    const int step_c = step_r / row_copies, step_o = step_r % row_copies;
+    int slot = tid / copies, c = tid % copies / row_copies,
+        o = tid % row_copies;
+    float* dst = w_s + (k & 1) * stage_floats;
+    for (; slot < ntaps;) {
+      float* d = dst + (slot * chunk + c) * cp + o * width;
+      const float* src = w + tap_s[slot] + (c0 + c) * cout + o * width;
+      if (width == 4)
+        cp_async16(d, src);
+      else if (width == 2)
+        cp_async8(d, src);
+      else
+        cp_async4(d, src);
+      o += step_o;
+      c += step_c;
+      slot += step_slot;
+      if (o >= row_copies) {
+        o -= row_copies;
+        ++c;
+      }
+      if (c >= kc) {
+        c -= kc;
+        ++slot;
+      }
+    }
+  };
+
+  // Group 0: chunk 0, gamma (transposed by the copies' addresses) and
+  // beta, and in float32 the input tile.
+  stage_chunk(0);
+  if (mode) {
+    int o = tid / cout, j = tid - o * cout;
+    const int o_by = nthreads / cout, j_by = nthreads - o_by * cout;
+    for (int i = tid; i < cout * cout; i += nthreads) {
+      cp_async4(g_s + j * cp + o, gamma + i);
+      o += o_by;
+      j += j_by;
+      if (j >= cout) {
+        j -= cout;
+        ++o;
+      }
+    }
+    for (int i = tid; i < cout; i += nthreads) cp_async4(b_s + i, beta + i);
+  }
+  // The input tile + halo, zero outside the image: x_s[ci][r][c] =
+  // x[n][a0 - 1 + r][b0 - 1 + c][ci], element i = (r wx + c) cin + ci read
+  // along i (coalesced), (ci, r, c) kept by adds. float32 by cp.async;
+  // bf16 widened by plain loads, 16 in flight a thread (a bf16 channel at
+  // an odd offset is not 4-byte aligned for cp.async).
+  const int xn = hw * cin;
+  const int p_step = nthreads / cin, ci_step = nthreads - p_step * cin;
+  const int r_step = p_step / wx, col_step = p_step - r_step * wx;
+  int ci = tid % cin, r = tid / cin / wx, col = tid / cin % wx;
+  auto next_x = [&]() {
+    ci += ci_step;
+    const int carry = ci >= cin;
+    ci -= carry ? cin : 0;
+    col += col_step + carry;
+    r += r_step;
+    if (col >= wx) {
+      col -= wx;
+      ++r;
+    }
+  };
+  auto x_src = [&]() -> long long {  // -1 outside the image
+    const int ia = a0 - 1 + r, ib = b0 - 1 + col;
+    return ia >= 0 && ia < h && ib >= 0 && ib < wd
+               ? ((static_cast<long long>(n) * h + ia) * wd + ib) * cin + ci
+               : -1;
+  };
+  if constexpr (std::is_same<E, float>::value) {
+    for (int i = tid; i < xn; i += nthreads) {
+      const long long src = x_src();
+      float* dst = x_s + ci * hw + r * wx + col;
+      if (src >= 0)
+        cp_async4(dst, x + src);
+      else
+        *dst = 0.f;
+      next_x();
+    }
+    cp_async_commit();
+  } else {
+    cp_async_commit();
+    constexpr int kBatch = 16;
+    for (int i0 = tid; i0 < xn; i0 += kBatch * nthreads) {
+      float v[kBatch];
+      int dst[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        dst[u] = -1;
+        v[u] = 0.f;
+        if (i0 + u * nthreads < xn) {
+          const long long src = x_src();
+          dst[u] = ci * hw + r * wx + col;
+          if (src >= 0) v[u] = widen(x[src]);
+          next_x();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (dst[u] >= 0) x_s[dst[u]] = v[u];
+    }
+  }
+
+  // thread = (slice, plane u, position group g, channel quad qd), qd
+  // fastest: a warp's threads read one broadcast input value per position
+  // and consecutive float4s of weights. Group g: the kP positions g kP.. of
+  // the tile's row-major order, along one tile row (tb is a multiple of
+  // kP).
+  const int base = npos / kP * cq;  // (group, quad) threads of a plane
+  const int slice = tid / (nq * base), rem = tid - slice * nq * base;
+  const int u = rem / base, g = (rem - u * base) / cq;
+  const int qd = rem - u * base - g * cq;
+  const bool active = slice < slices;
+  int dh = 0, dw = 0, t_lo = 0, nt = 0, s_lo = 0, ns = 0, slot0 = 0;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    if (v == u) {
+      dh = pq[v] >> 1;
+      dw = pq[v] & 1;
+      t_lo = pt_lo[v];
+      nt = pnt[v];
+      s_lo = ps_lo[v];
+      ns = pns[v];
+      slot0 = pslot[v];
+    }
+  }
+  const int xoff = g * kP / tb * wx + g * kP % tb;
+  float bv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    bv[j] = 4 * qd + j < cout ? __ldg(bias + 4 * qd + j) : 0.f;
+  float acc[kP][4];
+#pragma unroll
+  for (int i = 0; i < kP; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i][j] = slices == 1 ? acc_start<E>(bv[j]) : 0.f;
+
+  // Per channel c and tap row t the group's row of kP + ns - 1 inputs is
+  // read once and serves the ns column taps: kP + 2 loads and ns float4s
+  // of weights for 4 kP ns FMAs. Where ns < 3 the last load (at most one
+  // float past the tile row; the tile is followed by gT in shared memory)
+  // feeds no FMA; loading it unconditionally was 4-6% faster than a
+  // predicated load on the H100.
+  for (int k = 0; k < nchunks; ++k) {
+    if (k + 1 < nchunks) {
+      stage_chunk(k + 1);  // its stage was last read before the last sync
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int c0 = k * chunk;
+      const int kc = cin - c0 < chunk ? cin - c0 : chunk;
+      const float* ws =
+          w_s + (k & 1) * stage_floats + slot0 * chunk * cp + 4 * qd;
+      const float* xs = x_s + c0 * hw + (t_lo + dh) * wx + s_lo + dw + xoff;
+#pragma unroll 2
+      for (int c = slice; c < kc; c += slices) {
+        const float* xc = xs + c * hw;
+        const float* wc = ws + c * cp;
+        for (int ti = 0; ti < nt; ++ti) {
+          float xr[kP + 2];
+#pragma unroll
+          for (int i = 0; i < kP + 2; ++i)
+            xr[i] = xc[ti * wx + i];
+#pragma unroll
+          for (int si = 0; si < 3; ++si) {
+            if (si < ns && kOne) {
+              const float wv = wc[(ti * ns + si) * chunk * cp];
+#pragma unroll
+              for (int i = 0; i < kP; ++i)
+                acc[i][0] = fmaf(xr[si + i], wv, acc[i][0]);
+            } else if (si < ns) {
+              const float4 wv = *reinterpret_cast<const float4*>(
+                  wc + (ti * ns + si) * chunk * cp);
+#pragma unroll
+              for (int i = 0; i < kP; ++i) {
+                acc[i][0] = fmaf(xr[si + i], wv.x, acc[i][0]);
+                acc[i][1] = fmaf(xr[si + i], wv.y, acc[i][1]);
+                acc[i][2] = fmaf(xr[si + i], wv.z, acc[i][2]);
+                acc[i][3] = fmaf(xr[si + i], wv.w, acc[i][3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two chunks later
+  }
+
+  // y and y^2 over the dead stages, [plane][position][cp]: with one slice
+  // each thread writes its own; with more, the slices' partial sums first,
+  // then bias + slice 0 + slice 1 + ... in order for each (plane,
+  // position, quad).
+  // Row (plane, position) of y; with four planes of one channel quad and
+  // kP = 8 a warp's threads own rows 8 apart, so rows swap within groups
+  // of 8 (row ^ (row / 8 % 8)) and their float4s fall in distinct banks.
+  const bool swz = nq == 4 && kP == 8;
+  auto yrow = [&](int row) { return swz ? row ^ ((row >> 3) & 7) : row; };
+  const int planes = nq * npos * cp;
+  float* y_s = w_s + (slices > 1 ? slices * planes : 0);
+  float* y2_s = y_s + planes;
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int at = yrow(u * npos + g * kP + i) * cp + 4 * qd;
+      if (slices == 1) {
+        const float4 v = make_float4(pre_activation<E>(acc[i][0], bv[0]),
+                                     pre_activation<E>(acc[i][1], bv[1]),
+                                     pre_activation<E>(acc[i][2], bv[2]),
+                                     pre_activation<E>(acc[i][3], bv[3]));
+        *reinterpret_cast<float4*>(y_s + at) = v;
+        *reinterpret_cast<float4*>(y2_s + at) =
+            make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
+      } else {
+        *reinterpret_cast<float4*>(w_s + slice * planes + at) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
+  if (slices > 1) {
+    __syncthreads();
+    for (int e = tid; e < nq * npos * cq; e += nthreads) {
+      const int r0 = e / cq, o = 4 * (e - r0 * cq), row = yrow(r0);
+      float b4[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b4[j] = o + j < cout ? __ldg(bias + o + j) : 0.f;
+      float4 v = make_float4(acc_start<E>(b4[0]), acc_start<E>(b4[1]),
+                             acc_start<E>(b4[2]), acc_start<E>(b4[3]));
+      for (int r = 0; r < slices; ++r) {
+        const float4 part = *reinterpret_cast<const float4*>(
+            w_s + r * planes + row * cp + o);
+        v.x += part.x;
+        v.y += part.y;
+        v.z += part.z;
+        v.w += part.w;
+      }
+      v = make_float4(pre_activation<E>(v.x, b4[0]),
+                      pre_activation<E>(v.y, b4[1]),
+                      pre_activation<E>(v.z, b4[2]),
+                      pre_activation<E>(v.w, b4[3]));
+      *reinterpret_cast<float4*>(y_s + row * cp + o) = v;
+      *reinterpret_cast<float4*>(y2_s + row * cp + o) =
+          make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
+    }
+  }
+  __syncthreads();
+
+  // epilogue; norm sums over the input channels j in order from beta.
+  const int oh = 2 * h, ow = 2 * wd;
+  if (nq == 4) {
+    // Cout <= 4, four planes: item = output pixel of the tile in row-major
+    // order, so a warp's stores are consecutive pixels.
+    for (int e = tid; e < 4 * npos; e += nthreads) {
+      const int py = e / (2 * tb), px = e - py * 2 * tb;
+      const int ia = a0 + (py >> 1), ib = b0 + (px >> 1);
+      if (ia >= h || ib >= wd) continue;
+      const int at =
+          yrow(((py & 1) * 2 + (px & 1)) * npos + (py >> 1) * tb + (px >> 1)) *
+          4;
+      const float4 y4 = *reinterpret_cast<const float4*>(y_s + at);
+      const float4 s4 = *reinterpret_cast<const float4*>(y2_s + at);
+      const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+      const float y2v[4] = {s4.x, s4.y, s4.z, s4.w};
+      E* dst = out + ((static_cast<long long>(n) * oh + 2 * a0 + py) * ow +
+                      2 * b0 + px) * cout;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        if (o >= cout) break;
+        float r = yv[o];
+        if (mode) {
+          float norm = b_s[o];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < cout) norm = fmaf(g_s[j * 4 + o], y2v[j], norm);
+          r = (mode == 1) ? r * sqrtf(norm) : r * rsqrtf(norm);
+        }
+        dst[o] = narrow<E>(r);
+      }
+    }
+    return;
+  }
+  // one plane: item = (position group, channel quad), the main loop's
+  // roles: per input channel j one float4 of gT (4 output channels) and
+  // the group's kP values of y^2 for 4 kP FMAs. Stores run along an output
+  // pixel's channels.
+  for (int e = tid; e < nq * base; e += nthreads) {
+    const int eu = e / base, eg = (e - eu * base) / cq;
+    const int o = 4 * (e - eu * base - eg * cq);
+    int edh = 0, edw = 0;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (v == eu) {
+        edh = pq[v] >> 1;
+        edw = pq[v] & 1;
+      }
+    }
+    const int row = eg * kP / tb, col0 = eg * kP % tb;
+    const int at = (eu * npos + row * tb + col0) * cp;
+    float norm[kP][4];
+    if (mode) {
+      const float4 b4 = *reinterpret_cast<const float4*>(b_s + o);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        norm[i][0] = b4.x;
+        norm[i][1] = b4.y;
+        norm[i][2] = b4.z;
+        norm[i][3] = b4.w;
+      }
+#pragma unroll 2
+      for (int j = 0; j < cout; ++j) {
+        const float4 g4 = *reinterpret_cast<const float4*>(g_s + j * cp + o);
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const float yy = y2_s[at + i * cp + j];
+          norm[i][0] = fmaf(g4.x, yy, norm[i][0]);
+          norm[i][1] = fmaf(g4.y, yy, norm[i][1]);
+          norm[i][2] = fmaf(g4.z, yy, norm[i][2]);
+          norm[i][3] = fmaf(g4.w, yy, norm[i][3]);
+        }
+      }
+    }
+    const int ia = a0 + row;
+    if (ia >= h) continue;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int ib = b0 + col0 + i;
+      if (ib >= wd) break;
+      const float4 y4 = *reinterpret_cast<const float4*>(y_s + at + i * cp + o);
+      const float v[4] = {y4.x, y4.y, y4.z, y4.w};
+      E* dst = out + ((static_cast<long long>(n) * oh + 2 * ia + edh) * ow +
+                      2 * ib + edw) * cout + o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (o + j >= cout) break;
+        float r = v[j];
+        if (mode) r = (mode == 1) ? r * sqrtf(norm[i][j]) : r * rsqrtf(norm[i][j]);
+        dst[j] = narrow<E>(r);
+      }
+    }
+  }
+}
+
+// ---- tiled kernel with gamma in L2 --------------------------------------
+
 // E: the activations' type. kCols: input columns (same parity) per thread,
-// 4 or, for tiles narrower than 4, 1. kGammaL2: gamma stays in global
-// memory (see above).
-template <typename E, int kCols, bool kGammaL2>
+// 4 or, for tiles narrower than 4, 1.
+template <typename E, int kCols>
 __global__ void __launch_bounds__(kThreads)
-deconv_igdn_kernel(const E* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ gamma,
-                   const float* __restrict__ beta, E* __restrict__ out,
-                   int h, int wd, int cin, int cout, int ta, int tb,
-                   int mode) {
+deconv_igdn_l2_kernel(const E* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta, E* __restrict__ out,
+                      int h, int wd, int cin, int cout, int ta, int tb,
+                      int mode) {
   extern __shared__ float smem[];
   const int hx = ta + 2, wx = tb + 2;
   const int pix = 4 * ta * tb;            // output pixels of the tile
   float* x_s = smem;                      // hx*wx*cin, input tile + halo
   float* y_s = x_s + hx * wx * cin;       // pix*cout, output-pixel order
-  float* g_t = y_s + pix * cout;          // cout*cout, g_t[j*cout+o]
-  float* b_s = g_t + (mode && !kGammaL2 ? cout * cout : 0);  // cout
+  float* b_s = y_s + pix * cout;          // cout
 
   const int n = blockIdx.z;
   const int a0 = blockIdx.y * ta, b0 = blockIdx.x * tb;
@@ -148,16 +751,8 @@ deconv_igdn_kernel(const E* __restrict__ x, const float* __restrict__ w,
                                cin + ci])
                  : 0.f;
   }
-  if (mode) {
-    if (!kGammaL2) {
-      for (int i = threadIdx.x; i < cout * cout; i += blockDim.x) {
-        const int o = i / cout;
-        const int j = i - o * cout;
-        g_t[j * cout + o] = gamma[i];
-      }
-    }
+  if (mode)
     for (int i = threadIdx.x; i < cout; i += blockDim.x) b_s[i] = beta[i];
-  }
   __syncthreads();
 
   // item = (parity q, tile row a, column group g, output channel co);
@@ -220,8 +815,7 @@ deconv_igdn_kernel(const E* __restrict__ x, const float* __restrict__ w,
       const float* gr = gamma + static_cast<long long>(o) * cout;
       for (int j = 0; j < cout; ++j) {
         const float yj = yp[j];
-        const float gv = kGammaL2 ? __ldg(gr + j) : g_t[j * cout + o];
-        norm = fmaf(gv, yj * yj, norm);
+        norm = fmaf(__ldg(gr + j), yj * yj, norm);
       }
       v = (mode == 1) ? v * sqrtf(norm) : v * rsqrtf(norm);
     }
@@ -231,75 +825,6 @@ deconv_igdn_kernel(const E* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---- split kernel -----------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar)));
-}
-
-// The calling thread arrives and announces `bytes` of bulk copies.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One bulk (TMA) copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global to this block's shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Input offset of kernel index k along one axis: t + d - 1 with t = k / 2,
-// d = k % 2.
-__host__ __device__ __forceinline__ int tap_offset(int k) {
-  return (k >> 1) + (k & 1) - 1;
-}
-
-// Whether kernel index k reads any in-image input for the tile positions
-// [p0, p0 + t) of an axis of length n (positions past n are not output).
-__host__ __device__ __forceinline__ bool tap_hits(int k, int p0, int t,
-                                                  int n) {
-  const int last = (p0 + t < n ? p0 + t : n) - 1;
-  const int off = tap_offset(k);
-  return p0 + off <= n - 1 && last + off >= 0;
-}
 
 // Cin slice of cluster rank r: the first cin % s ranks take one channel
 // more (ops/deconv_igdn.py:cin_slices).
@@ -597,22 +1122,149 @@ cudaError_t allow_max_smem(Kernel kernel) {
                               kMaxSmem);
 }
 
-template <typename E, int kCols, bool kGammaL2>
+// Most taps parity d of a tile of t positions reads along an axis of
+// length n, over the tiles.
+int max_parity_taps(int n, int t, int d) {
+  int best = 0, lo;
+  for (int p0 = 0; p0 < n; p0 += t) {
+    const int count = parity_taps(d, p0, t, n, &lo);
+    best = count > best ? count : best;
+  }
+  return best;
+}
+
+// The tiled kernel's plan for ta x tb tiles (ops/deconv_igdn.py:
+// tiled_config mirrors it); threads == 0 where none fits.
+struct TiledPlan {
+  int p;       // positions a thread, along a tile row: the largest of 8,
+               // 4, 2, 1 that divides tb and leaves at least one warp of
+               // threads
+  int slices;  // Cin slices: doubled while the launch has fewer than
+               // kFillThreads threads, the block stays within 256 and a
+               // slice keeps 4 channels, up to 16
+  int chunk;   // Cin channels a stage: the largest of min(Cin, 32), 16, 8
+               // (not below min(Cin, 8)) that fits kHalfSmem, else the
+               // largest of those, 4, 2, 1 that fits kMaxSmem
+  int nv;      // weight rows of a stage: the most taps a block's planes read
+  int threads;
+  int smem_floats;
+};
+
+int tiled_smem_floats(int ta, int tb, int cin, int cout, int nv, int slices,
+                      int chunk) {
+  const int cp = (cout + 3) / 4 * 4, npos = ta * tb;
+  const int nq = cp == 4 ? 4 : 1;
+  const int stages = (chunk < cin ? 2 : 1) * nv * chunk * cp;
+  const int ys = nq * npos * cp * (slices > 1 ? slices + 2 : 2);
+  return (stages > ys ? stages : ys) + ((ta + 2) * (tb + 2) * cin + 3) / 4 * 4 +
+         cout * cp + cp;
+}
+
+TiledPlan tiled_plan(int b, int h, int wd, int cin, int cout, int ta,
+                     int tb) {
+  TiledPlan plan = {};
+  if (ta < 1 || tb < 1 || cin < 1 || cout < 1) return plan;
+  const int npos = ta * tb, cq = (cout + 3) / 4;
+  const int nq = cq == 1 ? 4 : 1;  // parity planes a block
+  int p = 8;
+  while (p > 1 && (tb % p || nq * npos / p * cq < 32)) p /= 2;
+  const int base = nq * npos / p * cq;
+  if (base > kTiledMaxThreads) return plan;
+  const long long blocks =
+      4LL / nq * b * ((h + ta - 1) / ta) * ((wd + tb - 1) / tb);
+  int slices = 1;
+  while (blocks * slices * base < kFillThreads && 2 * slices <= kMaxSlices &&
+         2 * slices * base <= kTiledMaxThreads && 8 * slices <= cin)
+    slices *= 2;
+  // rows of the planes of one block (4) or of any one plane (1)
+  int nv = 0;
+  for (int q = 0; q < 4; ++q) {
+    const int taps =
+        max_parity_taps(h, ta, q >> 1) * max_parity_taps(wd, tb, q & 1);
+    nv = nq == 4 ? nv + taps : (taps > nv ? taps : nv);
+  }
+  const int first = cin < kMaxTiledChunk ? cin : kMaxTiledChunk;
+  const int least = cin < 8 ? cin : 8;
+  const int sizes[6] = {first, 16, 8, 4, 2, 1};
+  int chunk = 0;
+  for (int pass = 0; pass < 2 && !chunk; ++pass)
+    for (int i = 0; i < 6 && !chunk; ++i) {
+      const int c = sizes[i];
+      if (c > first || (pass == 0 && c < least)) continue;
+      const long long bytes =
+          4LL * tiled_smem_floats(ta, tb, cin, cout, nv, slices, c);
+      if (bytes <= (pass == 0 ? kHalfSmem : kMaxSmem)) chunk = c;
+    }
+  if (!chunk) return plan;
+  plan.p = p;
+  plan.slices = slices;
+  plan.chunk = chunk;
+  plan.nv = nv;
+  plan.threads = (slices * base + 31) / 32 * 32;
+  plan.smem_floats = tiled_smem_floats(ta, tb, cin, cout, nv, slices, chunk);
+  return plan;
+}
+
+template <typename E, int kP, bool kOne>
 cudaError_t tiled_ready() {
   static const cudaError_t err =
-      allow_max_smem(deconv_igdn_kernel<E, kCols, kGammaL2>);
+      allow_max_smem(deconv_igdn_tiled_kernel<E, kP, kOne>);
   return err;
 }
 
-template <typename E, int kCols, bool kGammaL2>
+template <typename E, int kP, bool kOne>
 int launch_tiled(const void* x, const float* w, const float* bias,
                  const float* gamma, const float* beta, void* out, int b,
                  int h, int wd, int cin, int cout, int ta, int tb, int mode,
-                 size_t smem, cudaStream_t st) {
-  const cudaError_t ready = tiled_ready<E, kCols, kGammaL2>();
+                 const TiledPlan& plan, cudaStream_t st) {
+  const cudaError_t ready = tiled_ready<E, kP, kOne>();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int tiles = ((h + ta - 1) / ta) * ((wd + tb - 1) / tb);
+  const dim3 grid((cout <= 4 ? 1 : 4) * tiles, b);
+  deconv_igdn_tiled_kernel<E, kP, kOne>
+      <<<grid, plan.threads, plan.smem_floats * sizeof(float), st>>>(
+          static_cast<const E*>(x), w, bias, gamma, beta, static_cast<E*>(out),
+          h, wd, cin, cout, ta, tb, mode, plan.slices, plan.chunk, plan.nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E, bool kOne>
+int launch_tiled_p(const void* x, const float* w, const float* bias,
+                   const float* gamma, const float* beta, void* out, int b,
+                   int h, int wd, int cin, int cout, int ta, int tb, int mode,
+                   const TiledPlan& plan, cudaStream_t st) {
+  switch (plan.p) {
+    case 8:
+      return launch_tiled<E, 8, kOne>(x, w, bias, gamma, beta, out, b, h, wd,
+                                      cin, cout, ta, tb, mode, plan, st);
+    case 4:
+      return launch_tiled<E, 4, kOne>(x, w, bias, gamma, beta, out, b, h, wd,
+                                      cin, cout, ta, tb, mode, plan, st);
+    case 2:
+      return launch_tiled<E, 2, kOne>(x, w, bias, gamma, beta, out, b, h, wd,
+                                      cin, cout, ta, tb, mode, plan, st);
+    default:
+      return launch_tiled<E, 1, kOne>(x, w, bias, gamma, beta, out, b, h, wd,
+                                      cin, cout, ta, tb, mode, plan, st);
+  }
+}
+
+template <typename E, int kCols>
+cudaError_t l2_ready() {
+  static const cudaError_t err =
+      allow_max_smem(deconv_igdn_l2_kernel<E, kCols>);
+  return err;
+}
+
+template <typename E, int kCols>
+int launch_l2(const void* x, const float* w, const float* bias,
+              const float* gamma, const float* beta, void* out, int b, int h,
+              int wd, int cin, int cout, int ta, int tb, int mode, size_t smem,
+              cudaStream_t st) {
+  const cudaError_t ready = l2_ready<E, kCols>();
   if (ready != cudaSuccess) return static_cast<int>(ready);
   const dim3 grid((wd + tb - 1) / tb, (h + ta - 1) / ta, b);
-  deconv_igdn_kernel<E, kCols, kGammaL2><<<grid, kThreads, smem, st>>>(
+  deconv_igdn_l2_kernel<E, kCols><<<grid, kThreads, smem, st>>>(
       static_cast<const E*>(x), w, bias, gamma, beta, static_cast<E*>(out), h,
       wd, cin, cout, ta, tb, mode);
   return static_cast<int>(cudaGetLastError());
@@ -683,28 +1335,27 @@ int launch_type(const void* x, const float* w, const float* bias,
                                 cout, splits, mode, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // ops/deconv_igdn.py:tiled_smem_bytes mirrors this
-  const size_t floats =
-      static_cast<size_t>((ta + 2) * (tb + 2) * cin) +
-      static_cast<size_t>(4 * ta * tb * cout) +
-      (mode ? static_cast<size_t>(cout) : 0) +
-      (mode && !gamma_l2 ? static_cast<size_t>(cout) * cout : 0);
-  const size_t smem = floats * sizeof(float);
-  if (ta < 1 || tb < 1 || smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (tb % 4 == 0)
-    return gamma_l2 ? launch_tiled<E, 4, true>(x, w, bias, gamma, beta, out,
-                                              b, h, wd, cin, cout, ta, tb,
-                                              mode, smem, st)
-                    : launch_tiled<E, 4, false>(x, w, bias, gamma, beta, out,
-                                               b, h, wd, cin, cout, ta, tb,
-                                               mode, smem, st);
-  return gamma_l2 ? launch_tiled<E, 1, true>(x, w, bias, gamma, beta, out, b,
-                                            h, wd, cin, cout, ta, tb, mode,
-                                            smem, st)
-                  : launch_tiled<E, 1, false>(x, w, bias, gamma, beta, out, b,
-                                             h, wd, cin, cout, ta, tb, mode,
-                                             smem, st);
+  if (gamma_l2) {
+    // ops/deconv_igdn.py:l2_smem_bytes mirrors this
+    const size_t floats = static_cast<size_t>((ta + 2) * (tb + 2) * cin) +
+                          static_cast<size_t>(4 * ta * tb * cout) +
+                          (mode ? static_cast<size_t>(cout) : 0);
+    const size_t smem = floats * sizeof(float);
+    if (ta < 1 || tb < 1 || smem > static_cast<size_t>(kMaxSmem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (tb % 4 == 0)
+      return launch_l2<E, 4>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                             cout, ta, tb, mode, smem, st);
+    return launch_l2<E, 1>(x, w, bias, gamma, beta, out, b, h, wd, cin, cout,
+                           ta, tb, mode, smem, st);
+  }
+  const TiledPlan plan = tiled_plan(b, h, wd, cin, cout, ta, tb);
+  if (!plan.threads) return static_cast<int>(cudaErrorInvalidValue);
+  if (cout == 1)
+    return launch_tiled_p<E, true>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                                   cout, ta, tb, mode, plan, st);
+  return launch_tiled_p<E, false>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                                  cout, ta, tb, mode, plan, st);
 }
 
 }  // namespace
@@ -712,10 +1363,12 @@ int launch_type(const void* x, const float* w, const float* bias,
 // x (b, h, wd, cin) and out (b, 2h, 2wd, cout), float32, or bfloat16 where
 // bf16 != 0; w (5, 5, cin, cout), bias (cout,), gamma (cout, cout) and beta
 // (cout,) (ignored when mode == 0) float32; all contiguous. mode: 0 none,
-// 1 IGDN, 2 GDN. splits == 1: the tiled kernel on ta x tb tiles; a tb that
-// is a multiple of 4 runs 4 columns per thread, any other tb one; gamma_l2
-// != 0 leaves gamma in global memory (ops/deconv_igdn.py:launch_plan picks
-// it where gamma does not fit beside the tile). splits in {2, 4, 8}: the
+// 1 IGDN, 2 GDN. splits == 1: the tiled kernel on ta x tb tiles, one block
+// per tile and parity plane (tiled_plan); gamma_l2 != 0 instead the kernel
+// that leaves gamma in global memory, one block per tile (a tb that is a
+// multiple of 4 runs 4 columns per thread, any other tb one;
+// ops/deconv_igdn.py:launch_plan picks it where the tiled kernel's stages
+// and gamma do not fit in shared memory). splits in {2, 4, 8}: the
 // cluster split-K kernel on ta x tb tiles, ta == tb in {1, 2, 4}, cout a
 // multiple of 4 up to 128, w, gamma and beta 16-byte aligned.
 // Launches on `stream`; returns the launch's CUDA error (0 on success), or

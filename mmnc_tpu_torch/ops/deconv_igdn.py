@@ -3,17 +3,28 @@
 Replaces mmnc_tpu/ops/deconv_igdn_pallas.py:deconv_igdn_pallas (kernel
 body `_kernel`) with the hand-written CUDA kernel `csrc/deconv_igdn.cu`.
 On the H100 the 100- and 50-channel stages are bound by f32 FMAs and the
-3-channel ones by bytes. The kernel has two variants, picked per shape by
-`launch_plan`: "tiled" tiles the output spatially (a 1-pixel input halo
-per tile, all Cout channels of a pixel in one block so the (I)GDN epilogue
-stays on chip; "tiled_l2", the same with gamma left in global memory, for
-Cout too wide to hold Cout x Cout of gamma beside the tile); "split", for
-the latent stages whose tiles would leave
-most SMs idle, gives each tile to a thread-block cluster whose blocks take
-slices of Cin and add their partial sums in rank order through
-distributed shared memory. Both write the interleaved output once. See
-the source for the design. Forward only: the decode path runs it under
-no-grad, training keeps the unfused autograd path.
+3-channel ones by bytes. The kernel has three variants, picked per shape
+by `launch_plan`:
+- "tiled" (every stage off the split kernel): a block owns one output
+  parity plane of a `tile_shape` tile of input positions with all Cout
+  channels (all four planes where Cout <= 4), so the (I)GDN epilogue
+  stays on chip; tiles are picked so a launch has at least min(132, B x
+  4 x ceil(H W / 8)) blocks. It stages the planes' weight taps for chunks
+  of Cin into shared memory by cp.async, double buffered, beside the
+  input tile and gamma; a thread keeps up to 8 positions along a tile row
+  x 4 output channels in registers, and while a launch has few threads
+  they split Cin into slices added in order (`tiled_config`);
+- "tiled_l2", where gamma and the stages fit beside no tile (Cout above
+  about 225): one block per `wide_tiles` tile and all four parities, the
+  weight and gamma read from L2;
+- "split", for the latent stages (Cout 32-128, a multiple of 4) whose
+  tiles would leave most SMs idle: a thread-block cluster per tile whose
+  blocks take slices of Cin and add their partial sums in rank order
+  through distributed shared memory.
+All write the interleaved output once, and each output's sum runs in an
+order set by the shape and the plan alone: two launches are bitwise
+equal. See the source for the design. Forward only: the decode path runs
+it under no-grad, training keeps the unfused autograd path.
 
 `deconv_igdn(x, w, b, gamma, beta, mode)` mirrors `deconv_igdn_pallas`:
 x (B, H, W, Cin) NHWC, w (5, 5, Cin, Cout) in the JAX tap layout (the
@@ -34,6 +45,7 @@ either.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -106,6 +118,17 @@ def _entry():
 _SMS = 132  # H100 SXM streaming multiprocessors
 # dynamic shared memory a block may use (csrc/deconv_igdn.cu:kMaxSmem)
 MAX_SMEM = 227 * 1024 - 1024
+# the tiled kernel's limits (csrc/deconv_igdn.cu): threads a block, Cin
+# slices, Cin channels a stage, and the shared memory that leaves room for
+# a second block on the SM
+TILED_MAX_THREADS, MAX_SLICES, MAX_TILED_CHUNK = 256, 16, 32
+HALF_SMEM = 112 * 1024
+# threads a tiled launch aims for (32 warps an SM); below that, Cin slices
+# add threads to the blocks
+FILL_THREADS = 132 * 1024
+# tiles of the tiled kernel, largest first
+TILES = ((16, 32), (16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2),
+         (1, 2), (1, 1))
 _WIDE_TILES = ((4, 4), (2, 4), (1, 4))
 SPLIT_TILES = (4, 2, 1)  # square tiles the split kernel is built for
 SPLITS = (8, 4, 2)  # cluster sizes up to the portable limit of 8
@@ -119,70 +142,186 @@ _SPLIT_MAX_COUT = 128
 _SPLIT_MAX_BLOCKS = _SMS // 2
 
 
-def tile_shape(b: int, h: int, w: int, cout: int):
-    """(TA, TB) input positions per block.
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    Wide Cout: the largest of 4x4, 2x4, 1x4 that gives at least one block
-    per SM, else 1x4; inputs narrower than 4 take 1x1 tiles and one column
-    per thread. The 1x4 and 1x1 tiles serve the shapes `launch_plan` keeps
-    off the split kernel (Cout not a multiple of 4 or above 128, or more
-    tiles than one split wave holds) and a forced plan. Narrow Cout: 8x16, so 256 threads have (parity,
-    row, column group, channel) items. Never taller or wider than the
-    input. (Chosen from chip_smoke.py runs on an H100 at the decode
-    stages' shapes; see PERF.md.)"""
-    if cout < 32:
-        return min(8, h), min(16, w)
+
+def parity_taps(d: int, p0: int, t: int, n: int):
+    """(t_lo, count): the taps t_lo.. of parity d (kernel indices 2t + d,
+    t < 3 - d, at input offset t + d - 1) that reach an axis of length n
+    from the tile positions [p0, p0 + t) (csrc/deconv_igdn.cu:parity_taps)."""
+    last = min(p0 + t, n) - 1
+    hits = [tt for tt in range(3 - d)
+            if p0 + tt + d - 1 <= n - 1 and last + tt + d - 1 >= 0]
+    return (hits[0] if hits else 0), len(hits)
+
+
+def max_parity_taps(n: int, t: int, d: int) -> int:
+    """The most taps parity d of a tile of t positions reads along an axis
+    of length n, over the tiles."""
+    return max(parity_taps(d, p0, t, n)[1] for p0 in range(0, n, t))
+
+
+def planes(cout: int) -> int:
+    """Parity planes a tiled block owns: all four where Cout <= 4 (one
+    channel quad: the planes share the input tile), else one."""
+    return 4 if cout <= 4 else 1
+
+
+class TiledConfig(NamedTuple):
+    """The tiled kernel's plan of one launch (csrc/deconv_igdn.cu:
+    TiledPlan): positions a thread, Cin slices, Cin channels a stage,
+    weight rows a stage, threads a block, dynamic shared memory."""
+    p: int
+    slices: int
+    chunk: int
+    nv: int
+    threads: int
+    smem_bytes: int
+
+
+def tiled_smem_bytes(ta: int, tb: int, cin: int, cout: int, nv: int,
+                     slices: int, chunk: int) -> int:
+    """Dynamic shared memory of one tiled block: the weight stages (two,
+    one where a chunk holds all of Cin; after the main loop the slices'
+    partial sums, y and y^2 in their place, if larger),
+    the input tile + halo (rounded up to 4 floats), gamma (transposed,
+    rows padded to Cp = 4 ceil(Cout / 4)) and beta (Cp), whatever the mode
+    (csrc/deconv_igdn.cu:tiled_smem_floats mirrors it)."""
+    cp, npos = 4 * _cdiv(cout, 4), ta * tb
+    stages = (2 if chunk < cin else 1) * nv * chunk * cp
+    ys = planes(cout) * npos * cp * (slices + 2 if slices > 1 else 2)
+    return 4 * (max(stages, ys) + 4 * _cdiv((ta + 2) * (tb + 2) * cin, 4)
+                + cout * cp + cp)
+
+
+@functools.cache
+def tiled_config(b: int, h: int, w: int, cin: int, cout: int, ta: int,
+                 tb: int):
+    """The tiled kernel's plan for ta x tb tiles of b h x w inputs, or
+    None where none fits (csrc/deconv_igdn.cu:tiled_plan):
+
+    - p positions a thread, along a tile row: the largest of 8, 4, 2, 1
+      that divides tb and leaves at least 32 (position group, channel
+      quad) threads;
+    - slices of Cin: doubled while the launch has fewer than FILL_THREADS
+      threads, the block keeps to 256 and a slice to 4 channels, up to
+      16;
+    - chunk of Cin a stage: the largest of min(Cin, 32), 16, 8 (not below
+      min(Cin, 8)) within HALF_SMEM, else the largest of those, 4, 2, 1
+      within MAX_SMEM;
+    - nv weight rows a stage, the most taps a block's planes read.
+    Nothing here depends on the mode, so neither does the order of sums."""
+    if min(ta, tb, cin, cout) < 1:
+        return None
+    npos, cq, nq = ta * tb, _cdiv(cout, 4), planes(cout)
+    p = 8
+    while p > 1 and (tb % p or nq * npos // p * cq < 32):
+        p //= 2
+    base = nq * npos // p * cq
+    if base > TILED_MAX_THREADS:
+        return None
+    blocks, slices = tiled_blocks(b, h, w, ta, tb, cout), 1
+    while (blocks * slices * base < FILL_THREADS and 2 * slices <= MAX_SLICES
+           and 2 * slices * base <= TILED_MAX_THREADS and 8 * slices <= cin):
+        slices *= 2
+    taps = [max_parity_taps(h, ta, q >> 1) * max_parity_taps(w, tb, q & 1)
+            for q in range(4)]
+    nv = sum(taps) if nq == 4 else max(taps)
+    first = min(cin, MAX_TILED_CHUNK)
+    sizes = [c for c in (first, 16, 8, 4, 2, 1) if c <= first]
+    for limit, least in ((HALF_SMEM, min(cin, 8)), (MAX_SMEM, 1)):
+        for c in sizes:
+            smem = tiled_smem_bytes(ta, tb, cin, cout, nv, slices, c)
+            if c >= least and smem <= limit:
+                return TiledConfig(p, slices, c, nv,
+                                   _cdiv(slices * base, 32) * 32, smem)
+    return None
+
+
+def tiled_blocks(b: int, h: int, w: int, ta: int, tb: int, cout: int) -> int:
+    """Blocks of a tiled launch: one per image, tile and parity plane, or
+    per image and tile where a block owns the four planes."""
+    return b * 4 // planes(cout) * _cdiv(h, ta) * _cdiv(w, tb)
+
+
+@functools.cache
+def tile_shape(b: int, h: int, w: int, cin: int, cout: int):
+    """(TA, TB) input positions per tiled block, or None where no tile
+    fits: the largest of TILES (each no taller or wider than the input)
+    whose launch has at least min(132, B x 4 x ceil(H W / 8)) blocks, so
+    that while a launch is short of one block per SM no block owns more
+    than 8 positions of a parity plane, and whose plan fits
+    (`tiled_config`)."""
+    need = min(_SMS, b * 4 * _cdiv(h * w, 8))
+    for ta, tb in TILES:
+        ta, tb = min(ta, h), min(tb, w)
+        if (tiled_blocks(b, h, w, ta, tb, cout) >= need
+                and tiled_config(b, h, w, cin, cout, ta, tb)):
+            return ta, tb
+    return None
+
+
+def wide_tiles(b: int, h: int, w: int):
+    """(TA, TB) of the kernel with gamma in L2, one block per tile: the
+    largest of 4x4, 2x4, 1x4 that gives at least one block per SM, else
+    1x4; inputs narrower than 4 take 1x1 tiles and one column per thread.
+    The split kernel is taken only where these tiles give fewer blocks
+    than SMs."""
     if w < 4:
         return 1, 1
     for ta, tb in _WIDE_TILES:
-        if b * -(-h // ta) * -(-w // tb) >= _SMS:
+        if b * _cdiv(h, ta) * _cdiv(w, tb) >= _SMS:
             break
     return min(ta, h), tb
 
 
-def tiled_smem_bytes(ta: int, tb: int, cin: int, cout: int,
-                     gamma_l2: bool, mode="igdn") -> int:
-    """Dynamic shared memory of one tiled block: the input tile + halo,
-    the tile's pre-activations, beta and, unless gamma stays in global
-    memory, Cout x Cout of gamma (csrc/deconv_igdn.cu mirrors it)."""
+def l2_smem_bytes(ta: int, tb: int, cin: int, cout: int, mode="igdn",
+                  gamma=False) -> int:
+    """Dynamic shared memory of one block of the kernel with gamma in L2:
+    the input tile + halo, the tile's pre-activations and beta
+    (csrc/deconv_igdn.cu mirrors it); with gamma=True plus Cout x Cout of
+    gamma, the count by which the split kernel is chosen."""
     floats = (ta + 2) * (tb + 2) * cin + 4 * ta * tb * cout
     if mode is not None:
-        floats += cout + (0 if gamma_l2 else cout * cout)
+        floats += cout + (cout * cout if gamma else 0)
     return 4 * floats
 
 
+@functools.cache
 def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
     """(variant, TA, TB, splits) for one launch.
 
-    "tiled": `tile_shape`'s tiles, one block each, splits 1; "tiled_l2"
-    where gamma would not fit beside such a tile in shared memory (Cout
-    above about 230). "split": the
-    latent stages, where those tiles give fewer blocks than SMs (Cout >= 32,
-    a multiple of 4, at most 128): a cluster of `splits` blocks owns each
-    square tile of SPLIT_TILES (no larger than the input) and each block
-    takes a slice of Cin (`cin_slices`). Of the (tile, splits) pairs with at
-    most _SPLIT_MAX_BLOCKS blocks, the one with the most blocks wins, the
-    larger tile on a tie (fewer weight reads)."""
-    ta, tb = tile_shape(b, h, w, cout)
-    if tiled_smem_bytes(ta, tb, cin, cout, gamma_l2=False) > MAX_SMEM:
-        return "tiled_l2", ta, tb, 1
-    if (cout < 32 or cout > _SPLIT_MAX_COUT or cout % 4
-            or b * -(-h // ta) * -(-w // tb) >= _SMS):
-        return "tiled", ta, tb, 1
-    best = None
-    for t in SPLIT_TILES:
-        if t > 1 and t > min(h, w):
-            continue
-        tiles = b * -(-h // t) * -(-w // t)
-        for s in SPLITS:
-            blocks = tiles * s
-            if blocks <= _SPLIT_MAX_BLOCKS and (best is None
-                                                or blocks > best[0]):
-                best = (blocks, t, s)
-    if best is None:  # too many tiles for one wave even unsplit
-        return "tiled", ta, tb, 1
-    _, t, s = best
-    return "split", t, t, s
+    "split": the latent stages, where `wide_tiles` give fewer blocks than
+    SMs (Cout >= 32, a multiple of 4, at most 128, and those tiles with
+    gamma within MAX_SMEM): a cluster of `splits` blocks owns each square
+    tile of SPLIT_TILES (no larger than the input) and each block takes a
+    slice of Cin (`cin_slices`). Of the (tile, splits) pairs with at most
+    _SPLIT_MAX_BLOCKS blocks, the one with the most blocks wins, the larger
+    tile on a tie (fewer weight reads). "tiled": `tile_shape`'s tiles,
+    splits 1. "tiled_l2": where no tiled plan fits (Cout above about 225),
+    `wide_tiles`."""
+    wa, wb = wide_tiles(b, h, w)
+    if (l2_smem_bytes(wa, wb, cin, cout, gamma=True) <= MAX_SMEM
+            and 32 <= cout <= _SPLIT_MAX_COUT and cout % 4 == 0
+            and b * _cdiv(h, wa) * _cdiv(w, wb) < _SMS):
+        best = None
+        for t in SPLIT_TILES:
+            if t > 1 and t > min(h, w):
+                continue
+            tiles = b * _cdiv(h, t) * _cdiv(w, t)
+            for s in SPLITS:
+                blocks = tiles * s
+                if blocks <= _SPLIT_MAX_BLOCKS and (best is None
+                                                    or blocks > best[0]):
+                    best = (blocks, t, s)
+        if best is not None:
+            _, t, s = best
+            return "split", t, t, s
+    tile = tile_shape(b, h, w, cin, cout)
+    if tile is not None:
+        return ("tiled", *tile, 1)
+    return "tiled_l2", wa, wb, 1
 
 
 def cin_slices(cin: int, splits: int):
@@ -228,9 +367,11 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
         # does not (a view at an odd offset) is copied to one that does
         w, gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
                           for t in (w, gamma, beta))
-    elif (variant not in ("tiled", "tiled_l2") or splits != 1
-          or tiled_smem_bytes(ta, tb, cin, cout, variant == "tiled_l2",
-                              mode) > MAX_SMEM):
+    elif variant == "tiled":
+        if splits != 1 or not tiled_config(bsz, h, wd, cin, cout, ta, tb):
+            raise ValueError(f"plan {plan}: no tiled kernel for it")
+    elif (variant != "tiled_l2" or splits != 1 or min(ta, tb) < 1
+          or l2_smem_bytes(ta, tb, cin, cout, mode) > MAX_SMEM):
         raise ValueError(f"plan {plan}: no kernel for it")
     rc = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,

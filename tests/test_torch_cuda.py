@@ -139,23 +139,33 @@ def _deconv_inputs(device, shape, cout, seed):
     return x, w, b, gamma, beta
 
 
+# the multi-task heads' narrow widths (Cout 1, 3, 10, 17, 21 from Cin 21,
+# 42, 120) on ragged inputs, batch 1 and 2
+_NARROW_DECONVS = [((b, h, w, cin), cout)
+                   for cin in (21, 42, 120) for cout in (1, 3, 10, 17, 21)
+                   for b, h, w in ((1, 5, 7), (2, 17, 17))]
+
+
 @pytest.mark.parametrize("shape,cout", [((2, 1, 1, 100), 100),
                                         ((2, 2, 2, 100), 100),
                                         ((3, 5, 6, 100), 100),
                                         ((2, 8, 8, 100), 50),
                                         ((1, 13, 9, 50), 3),
-                                        ((1, 17, 33, 3), 3)])
+                                        ((1, 17, 33, 3), 3)]
+                         + _NARROW_DECONVS)
 @pytest.mark.parametrize("mode", ["igdn", "gdn", None])
 @pytest.mark.parametrize("tiled", [False, True])
 def test_deconv_igdn_kernel_matches_plain(device, shape, cout, mode, tiled):
     """The launch plan's variant, and the tiled variant at every shape
-    (the small shapes' plan is the split one)."""
+    (the small shapes' plan is the split one); two launches are bitwise
+    equal."""
     x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
-    plan = ("tiled", *tile_shape(shape[0], shape[1], shape[2], cout), 1) \
-        if tiled else None
+    plan = ("tiled", *tile_shape(*shape, cout), 1) if tiled else None
     got = deconv_igdn_cuda(x, w, b, gamma, beta, mode, plan=plan)
+    again = deconv_igdn_cuda(x, w, b, gamma, beta, mode, plan=plan)
     torch.cuda.synchronize()
     _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("shape,cout", [((8, 1, 1, 128), 100),
@@ -447,8 +457,7 @@ def test_deconv_igdn_multitask_shapes_match_plain(device, shape, cout, mode):
     got = deconv_igdn_cuda(x, w, b, gamma, beta, mode)
     torch.cuda.synchronize()
     _close(got, deconv_igdn_plain(x, w, b, gamma, beta, mode))
-    if launch_plan(*shape, cout)[0] == "split":
-        assert torch.equal(got, deconv_igdn_cuda(x, w, b, gamma, beta, mode))
+    assert torch.equal(got, deconv_igdn_cuda(x, w, b, gamma, beta, mode))
 
 
 @pytest.mark.parametrize("lo,hi", [(60, 120), (240, 300), (0, 60)])
@@ -874,14 +883,20 @@ def test_gdn_kernel_bf16_plans_match_plain(device, variant, n, c):
     ((8, 4, 4, 100), 100, "split"), ((3, 3, 3, 42), 40, "split"),
     ((2, 16, 16, 100), 50, "tiled"), ((1, 13, 9, 50), 3, "tiled"),
     ((2, 17, 33, 3), 3, "tiled"), ((2, 16, 16, 42), 21, "tiled"),
-    ((2, 2, 2, 300), 300, "tiled_l2"), ((2, 9, 7, 150), 300, "tiled_l2")])
+    ((2, 2, 2, 300), 300, "tiled_l2"), ((2, 9, 7, 150), 300, "tiled_l2"),
+    ((1, 5, 7, 21), 1, "tiled"), ((2, 17, 17, 42), 3, "tiled"),
+    ((1, 5, 7, 120), 10, "tiled"), ((2, 17, 17, 21), 17, "tiled"),
+    ((1, 17, 17, 42), 21, "tiled"), ((1, 1, 1, 120), 10, "tiled"),
+    ((1, 4, 4, 10), 10, "tiled")])
 @pytest.mark.parametrize("mode", ["igdn", "gdn", None])
 def test_deconv_igdn_kernel_bf16_matches_plain(device, shape, cout, plan,
                                                mode):
     """All three variants with bf16 x and output (the split one's staged
     input by plain loads at odd channel offsets: Cin 42 over clusters of
     up to 8), and the tiled kernel at the split shapes too, held stage by
-    stage; two launches bitwise equal."""
+    stage; two launches bitwise equal. The tiled kernel also at the
+    multi-task heads' narrow widths on ragged inputs and at batch 1, with
+    Cin split into slices (the 1x1 and 4x4 inputs at Cout 10)."""
     import chip_smoke
 
     x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
@@ -889,7 +904,7 @@ def test_deconv_igdn_kernel_bf16_matches_plain(device, shape, cout, plan,
     w, b, gamma = _bf16_values(w, b, gamma)
     chosen = launch_plan(*shape, cout)
     assert chosen[0] == plan
-    plans = [chosen] + ([("tiled", *tile_shape(*shape[:3], cout), 1)]
+    plans = [chosen] + ([("tiled", *tile_shape(*shape, cout), 1)]
                         if plan == "split" else [])
     for p in plans:
         chip_smoke.check_deconv_bf16(torch, x, w, b, gamma, beta, mode, p,

@@ -26,8 +26,10 @@ from mmnc_tpu_torch.ops import deconv_igdn as deconv_mod
 from mmnc_tpu_torch.ops.deconv_igdn import (SPLITS, cin_slices, deconv_igdn,
                                             deconv_igdn_cuda,
                                             deconv_igdn_plain,
-                                            deconv_weight_taps, launch_plan,
-                                            tile_shape, tiled_smem_bytes)
+                                            deconv_weight_taps, l2_smem_bytes,
+                                            launch_plan, parity_taps,
+                                            tile_shape, tiled_blocks,
+                                            tiled_config, tiled_smem_bytes)
 from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, MAX_SMEM, MAX_THREADS, SMS,
                                    GDNFunction, GDNPlan, check_plan, gdn,
                                    gdn_cuda, gdn_plain, gdn_plan,
@@ -313,11 +315,16 @@ def test_launch_plan_splits_the_latent_stages(shape, plan):
     assert b * -(-h // t) * -(-w // t) * s <= 132 // 2
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 16, 100, 50), (8, 32, 32, 50, 50),
-                                   (8, 64, 64, 50, 3), (8, 128, 128, 3, 3)])
-def test_launch_plan_keeps_the_tiles_of_the_wide_stages(shape):
-    b, h, w, _, cout = shape
-    assert launch_plan(*shape) == ("tiled", *tile_shape(b, h, w, cout), 1)
+@pytest.mark.parametrize("shape,tile", [
+    ((8, 16, 16, 100, 50), (4, 8)), ((8, 32, 32, 50, 50), (8, 16)),
+    ((8, 64, 64, 50, 3), (8, 16)), ((8, 128, 128, 3, 3), (16, 32))])
+def test_launch_plan_keeps_the_tiles_of_the_wide_stages(shape, tile):
+    """The rgb decoder head's stages at batch 8 take the tiled kernel with
+    256 blocks: one per tile and parity plane, or, at Cout 3, one per tile
+    with its four planes."""
+    assert launch_plan(*shape) == ("tiled", *tile, 1)
+    assert tile_shape(*shape) == tile
+    assert tiled_blocks(*shape[:3], *tile, shape[4]) == 256
 
 
 @pytest.mark.parametrize("cin", [3, 50, 100, 128])
@@ -341,6 +348,350 @@ def test_launch_plan_keeps_tiles_where_the_split_kernel_has_none(shape):
 
 def test_cin_slices_of_100_over_8_are_13_and_12():
     assert [size for _, size in cin_slices(100, 8)] == [13] * 4 + [12] * 4
+
+
+# --- the tiled kernel's plan, grid and arithmetic, as the .cu computes them
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _chip_smoke_deconv_shapes():
+    """Every distinct deconv+IGDN launch shape chip_smoke.py checks: the
+    rgb decompress (`deconv_path_shapes`) and shared4's, mixed's and
+    disjoint's (`mt_deconv_shapes`) at batch 1, 2, 4, 8 and 16, g_s's last
+    deconv, the split kernel's extra shapes, and phase 6's conv 192 and
+    300 models."""
+    import chip_smoke
+
+    shapes = []
+    for b in (1, 2, 4, 8, 16):
+        shapes += chip_smoke.deconv_path_shapes(b)
+        shapes += [(b, 8, 8, chip_smoke.CONV, chip_smoke.CONV, None)]
+        for name in ("shared4", "mixed", "disjoint"):
+            shapes += chip_smoke.mt_deconv_shapes(
+                chip_smoke.paper_layout(*chip_smoke.PAPER[name]), b)
+    shapes += chip_smoke.split_extra_shapes() + chip_smoke.wide_deconv_shapes()
+    return sorted(set(shapes), key=str)
+
+
+_SMOKE_DECONV_SHAPES = _chip_smoke_deconv_shapes()
+
+
+def _output_writes(b, h, w, cout, plan):
+    """How many times the launch of `plan` writes each output pixel of one
+    image ((2h, 2w) counts; every image's block rows are the same), its
+    grid and block indices taken as csrc/deconv_igdn.cu takes them."""
+    variant, ta, tb, splits = plan
+    ys, xs = [], []
+    if variant == "tiled" and deconv_mod.planes(cout) == 4:
+        # grid (tiles, B): block x = tile, the thread's plane its parity
+        tiles_w = _cdiv(w, tb)
+        tile = np.repeat(np.arange(_cdiv(h, ta) * tiles_w), 4)
+        q = np.tile(np.arange(4), len(tile) // 4)
+    elif variant == "tiled":  # grid (4 x tiles, B); block x = 4 tile + parity
+        tiles_w = _cdiv(w, tb)
+        bx = np.arange(4 * _cdiv(h, ta) * tiles_w)
+        q, tile = bx & 3, bx >> 2
+    if variant == "tiled":
+        a0, b0 = tile // tiles_w * ta, tile % tiles_w * tb
+        pos = np.arange(ta * tb)
+        ia = a0[:, None] + pos[None] // tb
+        ib = b0[:, None] + pos[None] % tb
+        keep = (ia < h) & (ib < w)  # the epilogue's test
+        ys = (2 * ia + (q >> 1)[:, None])[keep]
+        xs = (2 * ib + (q & 1)[:, None])[keep]
+    elif variant == "split":  # grid (S, tiles, B); rank r: p = r + i S
+        t, tiles_w = ta, _cdiv(w, ta)
+        pix, npr = 4 * t * t, _cdiv(4 * t * t, splits)
+        for tile in range(_cdiv(h, t) * tiles_w):
+            a0, b0 = tile // tiles_w * t, tile % tiles_w * t
+            for r in range(splits):
+                for i in range(npr):
+                    p = r + i * splits
+                    gy, gx = 2 * a0 + p // (2 * t), 2 * b0 + p % (2 * t)
+                    if p < pix and gy < 2 * h and gx < 2 * w:
+                        ys.append(gy)
+                        xs.append(gx)
+    else:  # tiled_l2: grid (tiles_w, tiles_h, B), all 4 parities a block
+        for a0 in range(0, h, ta):
+            for b0 in range(0, w, tb):
+                for p in range(4 * ta * tb):
+                    gy, gx = 2 * a0 + p // (2 * tb), 2 * b0 + p % (2 * tb)
+                    if gy < 2 * h and gx < 2 * w:
+                        ys.append(gy)
+                        xs.append(gx)
+    count = np.zeros((2 * h, 2 * w), np.int64)
+    np.add.at(count, (np.asarray(ys, np.int64), np.asarray(xs, np.int64)), 1)
+    return count
+
+
+@pytest.mark.parametrize("shape", _SMOKE_DECONV_SHAPES, ids=str)
+def test_deconv_plan_of_every_checked_shape_covers_the_output_once(shape):
+    """Each launch shape chip_smoke.py checks: its plan has a kernel (the
+    wrapper's test), fits in a block's shared memory, writes every output
+    pixel of every parity once, and, where it is the tiled kernel, gives at
+    least min(132, B x 4 x ceil(H W / 8)) blocks."""
+    b, h, w, cin, cout, mode = shape
+    plan = launch_plan(b, h, w, cin, cout)
+    variant, ta, tb, splits = plan
+    if variant == "tiled":
+        config = tiled_config(b, h, w, cin, cout, ta, tb)
+        assert config is not None and splits == 1
+        assert config.smem_bytes <= deconv_mod.MAX_SMEM
+        assert 32 <= config.threads <= deconv_mod.TILED_MAX_THREADS
+        assert tiled_blocks(b, h, w, ta, tb, cout) >= min(
+            132, b * 4 * _cdiv(h * w, 8))
+    elif variant == "tiled_l2":
+        assert splits == 1
+        assert l2_smem_bytes(ta, tb, cin, cout, mode) <= deconv_mod.MAX_SMEM
+    else:
+        assert variant == "split" and splits in SPLITS and ta == tb
+    assert (_output_writes(b, h, w, cout, plan) == 1).all()
+
+
+def _emulate_tiled(x, w, bias, gamma, beta, mode, ta, tb):
+    """csrc/deconv_igdn.cu's tiled kernel run block by block and thread by
+    thread on numpy arrays in float64: the same plan (`tiled_config`),
+    grid, planes, tap ranges, flat shared-memory addresses (unwritten words
+    NaN), copies, thread roles, slices and epilogue. Returns (out, stores
+    per output value)."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    c = tiled_config(bsz, h, wd, cin, cout, ta, tb)
+    kp, slices, chunk, nv = c.p, c.slices, c.chunk, c.nv
+    cq, nq = _cdiv(cout, 4), deconv_mod.planes(cout)
+    cp, npos, wx = 4 * cq, ta * tb, tb + 2
+    hw = (ta + 2) * wx
+    stage_floats = nv * chunk * cp
+    ys_floats = nq * npos * cp * (slices + 2 if slices > 1 else 2)
+    x_at = max((2 if chunk < cin else 1) * stage_floats, ys_floats)
+    g_at = x_at + 4 * _cdiv(hw * cin, 4)
+    b_at = g_at + cout * cp
+    assert c.smem_bytes == 4 * (b_at + cp)
+    wf, gf = w.reshape(-1), gamma.reshape(-1)
+    out = np.full((bsz, 2 * h, 2 * wd, cout), np.nan)
+    stores = np.zeros(out.shape, np.int64)
+    tiles_w = _cdiv(wd, tb)
+    base = npos // kp * cq
+    nchunks = _cdiv(cin, chunk)
+    width = 4 if cout % 4 == 0 else 2 if cout % 2 == 0 else 1
+    for n in range(bsz):
+        for bx in range(4 // nq * _cdiv(h, ta) * tiles_w):
+            smem = np.full(c.smem_bytes // 4, np.nan)
+            tile = bx if nq == 4 else bx >> 2
+            a0, b0 = tile // tiles_w * ta, tile % tiles_w * tb
+            pl, slot = [], 0  # (dh, dw, t_lo, nt, s_lo, ns, first slot)
+            for u in range(nq):
+                q = u if nq == 4 else bx & 3
+                t_lo, nt = parity_taps(q >> 1, a0, ta, h)
+                s_lo, ns = parity_taps(q & 1, b0, tb, wd)
+                pl.append((q >> 1, q & 1, t_lo, nt, s_lo, ns, slot))
+                slot += nt * ns
+            assert slot <= nv
+
+            def stage(k):
+                c0 = k * chunk
+                copies = min(chunk, cin - c0) * (cout // width)
+                for dh, dw, t_lo, nt, s_lo, ns, slot0 in pl:
+                    for slot in range(nt * ns):
+                        t, s = t_lo + slot // ns, s_lo + slot % ns
+                        src = (((2 * t + dh) * 5 + 2 * s + dw) * cin
+                               + c0) * cout
+                        dst = (k & 1) * stage_floats + (slot0 + slot) * \
+                            chunk * cp
+                        for tid in range(c.threads):
+                            ci, o = divmod(tid, cout // width)
+                            for e in range(tid, copies, c.threads):
+                                at = dst + ci * cp + o * width
+                                smem[at:at + width] = \
+                                    wf[src + width * e:src + width * (e + 1)]
+                                ci, o = divmod(ci * (cout // width) + o
+                                               + c.threads, cout // width)
+
+            stage(0)
+            if mode:
+                for i in range(cout * cout):
+                    o, j = divmod(i, cout)
+                    smem[g_at + j * cp + o] = gf[i]
+                smem[b_at:b_at + cout] = beta
+            for tid in range(c.threads):  # (ci, r, col) kept by adds
+                ci, r, col = tid % cin, tid // cin // wx, tid // cin % wx
+                p_step, ci_step = divmod(c.threads, cin)
+                for i in range(tid, hw * cin, c.threads):
+                    assert (r * wx + col) * cin + ci == i
+                    ia, ib = a0 - 1 + r, b0 - 1 + col
+                    inside = 0 <= ia < h and 0 <= ib < wd
+                    smem[x_at + ci * hw + r * wx + col] = (
+                        x[n, ia, ib, ci] if inside else 0.0)
+                    ci += ci_step
+                    carry = int(ci >= cin)
+                    ci -= cin * carry
+                    col += p_step % wx + carry
+                    r += p_step // wx
+                    if col >= wx:
+                        col -= wx
+                        r += 1
+            roles = []
+            for tid in range(c.threads):
+                sl, rem = divmod(tid, nq * base)
+                u, g = rem // base, rem % base // cq
+                qd = rem - u * base - g * cq
+                if sl >= slices:
+                    continue
+                bv = np.array([bias[4 * qd + j] if 4 * qd + j < cout else 0.0
+                               for j in range(4)])
+                roles.append((sl, u, g, qd, np.tile(
+                    bv if slices == 1 else np.zeros(4), (kp, 1))))
+            for k in range(nchunks):
+                if k + 1 < nchunks:
+                    stage(k + 1)
+                c0 = k * chunk
+                kc = min(chunk, cin - c0)
+                for sl, u, g, qd, acc in roles:
+                    dh, dw, t_lo, nt, s_lo, ns, slot0 = pl[u]
+                    xoff = g * kp // tb * wx + g * kp % tb
+                    ws = (k & 1) * stage_floats + slot0 * chunk * cp + 4 * qd
+                    xs = x_at + c0 * hw + (t_lo + dh) * wx + s_lo + dw + xoff
+                    for ci in range(sl, kc, slices):
+                        for ti in range(nt):
+                            at = xs + ci * hw + ti * wx
+                            xr = smem[at:at + kp + ns - 1]
+                            for si in range(ns):
+                                wp = ws + ci * cp + (ti * ns + si) * chunk * cp
+                                acc += xr[si:si + kp, None] * smem[wp:wp + 4]
+            size = nq * npos * cp
+            y_at = slices * size if slices > 1 else 0
+            y2_at = y_at + size
+
+            def yrow(row):
+                return row ^ (row >> 3 & 7) if nq == 4 and kp == 8 else row
+
+            for sl, u, g, qd, acc in roles:
+                for i in range(kp):
+                    at = yrow(u * npos + g * kp + i) * cp + 4 * qd
+                    if slices == 1:
+                        smem[y_at + at:y_at + at + 4] = acc[i]
+                        smem[y2_at + at:y2_at + at + 4] = acc[i] ** 2
+                    else:
+                        smem[sl * size + at:sl * size + at + 4] = acc[i]
+            if slices > 1:
+                for e in range(nq * npos * cq):
+                    row, o = yrow(e // cq), 4 * (e % cq)
+                    v = np.array([bias[o + j] if o + j < cout else 0.0
+                                  for j in range(4)])
+                    for r in range(slices):
+                        at = r * size + row * cp + o
+                        v = v + smem[at:at + 4]
+                    smem[y_at + row * cp + o:y_at + row * cp + o + 4] = v
+                    smem[y2_at + row * cp + o:y2_at + row * cp + o + 4] = \
+                        v ** 2
+            for e in range(4 * npos if nq == 4 else 0):  # by pixel
+                py, px = divmod(e, 2 * tb)
+                ia, ib = a0 + (py >> 1), b0 + (px >> 1)
+                if ia >= h or ib >= wd:
+                    continue
+                at = yrow(((py & 1) * 2 + (px & 1)) * npos
+                          + (py >> 1) * tb + (px >> 1)) * 4
+                for o in range(cout):
+                    v = smem[y_at + at + o]
+                    if mode:
+                        norm = smem[b_at + o] + sum(
+                            smem[g_at + j * 4 + o] * smem[y2_at + at + j]
+                            for j in range(cout))
+                        v = (v * np.sqrt(norm) if mode == "igdn"
+                             else v / np.sqrt(norm))
+                    out[n, 2 * a0 + py, 2 * b0 + px, o] = v
+                    stores[n, 2 * a0 + py, 2 * b0 + px, o] += 1
+            for e in range(nq * base if nq == 1 else 0):
+                eu, rem = divmod(e, base)
+                eg, o = rem // cq, 4 * (rem % cq)
+                dh, dw = pl[eu][:2]
+                row, col0 = eg * kp // tb, eg * kp % tb
+                for i in range(kp):
+                    at = (eu * npos + row * tb + col0 + i) * cp
+                    ia, ib = a0 + row, b0 + col0 + i
+                    if ia >= h or ib >= wd:
+                        continue
+                    for j in range(4):
+                        if o + j >= cout:
+                            break
+                        v = smem[y_at + at + o + j]
+                        if mode:
+                            norm = smem[b_at + o + j] + sum(
+                                smem[g_at + jj * cp + o + j]
+                                * smem[y2_at + at + jj] for jj in range(cout))
+                            v = (v * np.sqrt(norm) if mode == "igdn"
+                                 else v / np.sqrt(norm))
+                        out[n, 2 * ia + dh, 2 * ib + dw, o + j] = v
+                        stores[n, 2 * ia + dh, 2 * ib + dw, o + j] += 1
+    return out, stores
+
+
+@pytest.mark.parametrize("shape,cout,tile", [
+    ((1, 3, 5, 6), 5, (2, 4)),      # ragged tiles, Cout not a multiple of 4
+    ((1, 1, 1, 40), 3, (1, 1)),     # a 1x1 input: one tap, 4 Cin slices
+    ((2, 2, 2, 10), 10, (2, 2)),    # shared4's 2x2 stage, 2 slices
+    ((1, 5, 7, 9), 8, (8, 16)),     # a tile taller and wider than the input
+    ((1, 4, 4, 70), 4, (4, 4)),     # Cin in 3 chunks, 16-byte copies
+    ((1, 6, 5, 3), 1, (4, 4)),      # Cout 1
+    ((1, 8, 9, 2), 3, (8, 8))])     # four planes, 8 positions a thread
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+def test_tiled_kernel_as_emulated_matches_plain(shape, cout, tile, mode):
+    """The tiled kernel's indexing, emulated (`_emulate_tiled`), computes
+    the plain version's output in float64 and stores every output value
+    once."""
+    x, w, b, gamma, beta = _deconv_case(shape, cout, seed=cout)
+    if shape == (1, 4, 4, 70):
+        assert tiled_config(1, 4, 4, 70, cout, *tile).chunk < 70 // 2
+    got, stores = _emulate_tiled(x.astype(np.float64), w.astype(np.float64),
+                                 b.astype(np.float64),
+                                 gamma.astype(np.float64),
+                                 beta.astype(np.float64), mode, *tile)
+    want = deconv_igdn_plain(
+        torch.from_numpy(x).double(), torch.from_numpy(w).double(),
+        torch.from_numpy(b).double(), torch.from_numpy(gamma).double(),
+        torch.from_numpy(beta).double(), mode).numpy()
+    assert (stores == 1).all()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("h,w,t", [(1, 1, 1), (2, 2, 2), (3, 5, 2),
+                                   (16, 16, 8), (17, 17, 4), (5, 7, 16)])
+def test_parity_taps_are_the_taps_that_reach_the_image(h, w, t):
+    """For each tile start and parity: the taps whose input offset reaches
+    an in-image input from some in-image position of the tile, and the
+    most of them over the launch (`max_parity_taps`, the stage's rows)."""
+    for n in (h, w):
+        for p0 in range(0, n, t):
+            positions = range(p0, min(p0 + t, n))
+            for d in (0, 1):
+                want = [tt for tt in range(3 - d)
+                        if any(0 <= p + tt + d - 1 < n for p in positions)]
+                t_lo, count = parity_taps(d, p0, t, n)
+                assert list(range(t_lo, t_lo + count)) == want
+    assert deconv_mod.max_parity_taps(1, 1, 0) == 1
+    assert deconv_mod.max_parity_taps(1, 1, 1) == 1
+    assert deconv_mod.max_parity_taps(16, 8, 0) == 3
+    assert deconv_mod.max_parity_taps(16, 8, 1) == 2
+
+
+@pytest.mark.parametrize("shape,plan,config", [
+    ((8, 16, 16, 42, 21), ("tiled", 4, 8, 1), (4, 4, 32, 9, 192)),
+    ((8, 32, 32, 21, 21), ("tiled", 8, 16, 1), (8, 2, 21, 9, 192)),
+    ((8, 1, 1, 120, 10), ("tiled", 1, 1, 1), (1, 16, 32, 1, 64)),
+    ((8, 2, 2, 10, 10), ("tiled", 2, 2, 1), (1, 2, 10, 9, 32)),
+    ((8, 4, 4, 10, 10), ("tiled", 2, 4, 1), (1, 2, 10, 9, 64)),
+    ((8, 128, 128, 17, 17), ("tiled", 16, 16, 1), (8, 1, 17, 9, 160)),
+    ((8, 64, 64, 21, 1), ("tiled", 8, 16, 1), (8, 4, 21, 25, 256)),
+    ((8, 16, 16, 100, 50), ("tiled", 4, 8, 1), (8, 4, 16, 9, 224))])
+def test_tiled_plan_of_shared4_and_rgb_stages(shape, plan, config):
+    """shared4's decoder stages at batch 8 (and rgb's 16x16 -> 50): 4x8
+    tiles (256 blocks) at 16x16; Cin slices while a launch has fewer
+    threads than 32 warps an SM; the 1x1 input reading one tap; at Cout 1
+    a block's four planes reading all 25 taps."""
+    assert launch_plan(*shape) == plan
+    assert tiled_config(*shape, *plan[1:3])[:5] == config
 
 
 # --- launch plan of the GDN kernel ----------------------------------------
@@ -478,29 +829,35 @@ _WIDE_DECONVS = [(8, 1, 1, 128, 300), (8, 2, 2, 300, 300),
 
 @pytest.mark.parametrize("shape", _WIDE_DECONVS)
 def test_deconv_launch_plan_fits_wide_cout(shape):
-    """Where Cout x Cout of gamma does not fit beside the tile the plan
-    leaves gamma in global memory ("tiled_l2"); either way the block's
-    shared memory fits."""
+    """Where no tiled plan fits gamma and the weight stages in shared
+    memory beside any tile ("tiled_l2": Cout 300 and wider) gamma stays in
+    global memory; either way the block's shared memory fits."""
     b, h, w, cin, cout = shape
     variant, ta, tb, splits = launch_plan(*shape)
-    assert splits == 1 and (ta, tb) == tile_shape(b, h, w, cout)
-    with_gamma = tiled_smem_bytes(ta, tb, cin, cout, gamma_l2=False)
-    assert variant == ("tiled" if with_gamma <= deconv_mod.MAX_SMEM
-                       else "tiled_l2")
-    assert tiled_smem_bytes(ta, tb, cin, cout,
-                            variant == "tiled_l2") <= deconv_mod.MAX_SMEM
-    if cout == 300:
+    assert splits == 1
+    tile = tile_shape(b, h, w, cin, cout)
+    assert variant == ("tiled" if tile else "tiled_l2")
+    if tile:
+        assert (ta, tb) == tile
+        assert tiled_config(b, h, w, cin, cout, ta, tb).smem_bytes <= \
+            deconv_mod.MAX_SMEM
+    else:
+        assert (ta, tb) == deconv_mod.wide_tiles(b, h, w)
+        assert l2_smem_bytes(ta, tb, cin, cout) <= deconv_mod.MAX_SMEM
+    if cout >= 300:
         assert variant == "tiled_l2"
 
 
 def test_deconv_tiled_smem_at_the_widest_tile():
-    """A 4x4 tile with Cin = Cout = 192 and gamma in shared memory: 225,024
-    bytes of the 231,424 a block may have; at Cout = 300 gamma alone
-    (360 KB) does not fit."""
-    assert tiled_smem_bytes(4, 4, 192, 192, gamma_l2=False) == 225024
-    assert tiled_smem_bytes(4, 4, 192, 192, gamma_l2=False) <= \
+    """A 4x4 tile with Cin = Cout = 192 (64 images: 256 blocks) and gamma
+    in shared memory: two weight stages of 4 channels, 231,168 bytes of the
+    231,424 a block may have; at Cout = 300 gamma alone (360 KB) does not
+    fit, and the kernel with gamma in L2 holds the tile, y and beta."""
+    config = tiled_config(64, 4, 4, 192, 192, 4, 4)
+    assert tile_shape(64, 4, 4, 192, 192) == (4, 4)
+    assert config.chunk == 4 and config.smem_bytes == 231168
+    assert tiled_smem_bytes(4, 4, 192, 192, 9, 1, 4) == 231168 <= \
         deconv_mod.MAX_SMEM
-    assert tiled_smem_bytes(1, 1, 300, 300, gamma_l2=False) > \
-        deconv_mod.MAX_SMEM
-    assert tiled_smem_bytes(1, 1, 300, 300, gamma_l2=True, mode=None) == \
+    assert tiled_config(8, 1, 1, 300, 300, 1, 1) is None
+    assert l2_smem_bytes(1, 1, 300, 300, mode=None) == \
         4 * (9 * 300 + 4 * 300)
