@@ -66,6 +66,22 @@ Phases, each of which exits non-zero on failure:
          (cuDNN deterministic for both): loss and parameters within 1e-5
          relative, 36 GDN launches;
      (d) the eval step: finite logs, 11 GDN and 7 deconv+IGDN launches;
+     (e) the K-step call as one CUDA graph (`make_multi_train_step` on the
+         card): under deterministic cuDNN, from one seed state each, six
+         calls (a warm-up, a capture, replays) at K = 4 and at K = 1
+         against 6 x K eager `make_train_step` steps with the same
+         per-step noise, train metrics on: each call's loss and every
+         parameter within 1e-6 x max|p|; 18 x K GDN launches counted for
+         the warm-up and the capture and none for a replay, whose 18 x K
+         GDN kernel records (0 deconv+IGDN) come from its graph in a
+         profiled replay; a call's wall (median of the replays), a step's,
+         images/s, a profiled call's device ms and busy share, the
+         capture's ms and peak memory, graphed beside eager; at K = 1
+         every update of both sides also held to the CPU port's Adam
+         (not capturable) stepped on the card's gradients: parameters,
+         moments and step counts within rtol 1e-4 / atol 1e-6; the K = 1
+         pair again under cuDNN's default, timed only; then three remat
+         calls at K = 2 against eager remat steps;
   8. multitask, the paper's configs (scripts/rd_paper_sweep.py:39-53) from
      seed 0, conv kernels scaled, random inputs in valid ranges. shared4
      (model 4; rgb, depth, normal, semantic; latent 300, conv 42), the main
@@ -93,20 +109,26 @@ Phases, each of which exits non-zero on failure:
      prerendered through the train CLI's `get_loaders`; `python -m
      mmnc_tpu_torch.cli.train` (called as `main`) for CLI_EPOCHS epochs at
      batch CLI_BATCH with validation, image grids, a checkpoint and the
-     profiler over steps 5-10: finite, falling losses, 63 GDN launches a
-     train step and the eval forward's 35 GDN + 28 deconv+IGDN a
-     validation step (MT_LAUNCHES), steps/s and images/s (StepTimer p50),
+     profiler over steps 5-10: finite, falling losses; a warm-up call, a
+     capture, then graph replays, 63 GDN launches counted for the first
+     two and none for a replay, whose 63 GDN kernel records come from its
+     graph (steps 5-10's trace); the eval forward's 35 GDN + 28
+     deconv+IGDN a validation step (MT_LAUNCHES), steps/s and images/s
+     (StepTimer p50),
      the loader's wait a step, the profiled steps' device time and busy
      share, peak memory, checkpoint save ms; `fit` to the middle and
      resumed, against an uninterrupted run (deterministic cuDNN;
      parameters and Adam moments within 1e-6 x max|p|), and a resume with
      more epochs keeping the saved horizon (restore ms); the training set
      as a DeviceResidentDataset (batches bitwise equal to the CPU port's,
-     4 fit steps without the prefetch queue); the train CLI again at K = 1
-     and at --steps-per-call CLI_K under deterministic cuDNN (final
-     parameters within 1e-6 x max|p|, logged steps 0, 4, 8, 12, 63 x 4
-     GDN a call, each run's call p50 and images/s) and once at
-     CLI_K_CLAMPED for one epoch (clamped to its 8 batches); every
+     4 fit steps without the prefetch queue); the train CLI again under
+     deterministic cuDNN as an eager reference (the loop's multi-step
+     made of eager steps) and graphed at K = 1 and at --steps-per-call
+     CLI_K (final parameters within 1e-6 x max|p| of the eager run's,
+     logged steps 0, 4, 8, 12, 63 x K GDN a call counted or, replayed,
+     from the profiler's graph records; StepTimer p50, images/s and the
+     K = 1 runs' busy share of steps 5-10, graphed beside eager) and once
+     at CLI_K_CLAMPED for one epoch (clamped to its 8 batches); every
      prefetched batch bitwise equal to its host batch; the compress CLI
      on the checkpoint
      (2 batches: finite bpps > 0, MP/s, launches), and its bytes on a batch
@@ -150,7 +172,10 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
      phase 7's train step in bf16 for BF16_TRAIN_STEPS steps on one batch
      (18 GDN a step, the loss falls, parameters and loss float32), its
      step wall, peak memory and one profiled step (device ms, GDN, its
-     backward, cuDNN's share) beside phase 7's;
+     backward, cuDNN's share) beside phase 7's; a warm-up and a graphed
+     call of the bf16 step at K = 2 against eager bf16 steps under
+     deterministic cuDNN (parameters within 1e-6 x max|p|, losses finite
+     and float32);
  11. print a {"kernels": [...]} line (launches: the shared4 run; times
      summed over a shared4 round trip, the rgb path's beside them; cli_*:
      phase 9's launches and phase 3's times at its train and validation
@@ -164,7 +189,10 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--dp-cards N` runs only phase 10 (c) and (d)
 across N cards (one NCCL rank a card, DP_BATCH rows each) against one
-process at the global batch, on a machine with N cards. `--time-deconv
+process at the global batch, on a machine with N cards. The single
+process's fit replays CUDA graphs (its launch totals add each replay's
+graph launches, a call's count as a profiled replay's records show it);
+a rank's steps stay eager. `--time-deconv
 TREE` runs only phase 3's deconv+IGDN checks and times, in float32 and
 bf16, at every launch shape of an rgb and a shared4 round trip of a
 batch of BATCH, on the `mmnc_tpu_torch` of the checkout at TREE ("." for
@@ -220,6 +248,10 @@ TRAIN_BATCH, TRAIN_STEPS, LMBDA, LR_MAIN, LR_AUX, CLIP = (
 TRAIN_LAUNCHES = {"train": {"gdn": 18, "deconv_igdn": 0},
                   "remat": {"gdn": 36, "deconv_igdn": 0},
                   "eval": {"gdn": 11, "deconv_igdn": 7}}
+# phase 7 (e): calls of a graphed run (a warm-up, a capture, replays; the
+# last one profiled) at each K, and the remat run's
+GRAPH_CALLS, GRAPH_KS = 6, (4, 1)
+GRAPH_REMAT_CALLS, GRAPH_REMAT_K = 3, 2
 # phase 8: the paper's configs (scripts/rd_paper_sweep.py:39-53), name ->
 # (model number, tasks, latent M, conv C); shared4 is the main path
 TASKS3 = ("rgb", "depth_euclidean", "normal")
@@ -237,6 +269,10 @@ CLI_DEVICE = "cuda"
 # phase 9: the train CLI with --steps-per-call CLI_K against K = 1, and
 # with CLI_K_CLAMPED (more than an epoch's 8 batches: clamped to 8)
 CLI_K, CLI_K_CLAMPED = 4, 12
+# phase 9: the CLI's runs of the same steps: (run name, K, eager): the
+# eager reference, and the graphed calls at K = 1 and CLI_K
+CLI_RUNS = (("cli_eager", 1, True), ("cli_k1", 1, False),
+            (f"cli_k{CLI_K}", CLI_K, False))
 # phase 10: rd_sweep's sweep at shared4 on CLEVR-style scenes (two lambdas,
 # one epoch of 4 steps of 16, validation on one batch), the analysis on
 # its checkpoints (a batch of ANALYSIS_BATCH on the card and on the CPU;
@@ -1572,6 +1608,237 @@ def run_train(torch, profile_dir):
                 launches=measured, peak_bytes=peak, step_wall_ms=wall * 1e3)
 
 
+def cpu_adam_twin(build, model):
+    """A CPU copy of `model` (build("cpu"), the card's parameters loaded)
+    under the CPU port's Adam (`create_train_state` on the CPU: not
+    capturable, the rate a float): the reference the card's updates are
+    held to on the card's own gradients."""
+    from mmnc_tpu_torch.train import create_train_state
+
+    twin = build("cpu")
+    twin.load_state_dict(model.state_dict())
+    return twin, create_train_state(twin, TRAIN_STEPS)
+
+
+def hold_update_to_cpu(model, state, twin, twin_state, what):
+    """After a card update: step the twin's CPU Adam once on the gradients
+    that update read (the card parameters' .grad, clipped in place), at
+    the twin's schedule, and hold every parameter, Adam moment and step
+    count of the card's state to the twin's within rtol 1e-4 / atol 1e-6
+    (the CPU tests' bound against optax). The twin carries on from its
+    own values, so the differences add up over the calls. -> the worst
+    |card - cpu| / (1e-6 + 1e-4 |cpu|) (at most 1)."""
+    for p, q in zip(model.parameters(), twin.parameters()):
+        q.grad = None if p.grad is None else p.grad.detach().cpu()
+    twin_state.apply_gradients()
+    if twin_state.step != state.step:
+        raise RuntimeError(f"{what}: the card's state at step {state.step}, "
+                           f"the CPU twin's at {twin_state.step}")
+    worst = 0.0
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        got_state, want_state = state.optimizer.state[p], \
+            twin_state.optimizer.state[q]
+        if got_state.keys() != want_state.keys():
+            raise RuntimeError(f"{what}: {name}'s Adam state "
+                               f"{sorted(got_state)} vs the CPU's "
+                               f"{sorted(want_state)}")
+        for key, got, want in [("param", p, q), *(
+                (k, got_state[k], want_state[k]) for k in sorted(got_state))]:
+            got = got.detach().cpu().double()
+            want = want.detach().double()
+            ratio = ((got - want).abs()
+                     / (1e-6 + 1e-4 * want.abs())).max().item()
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{what}: {name} {key} differs from the "
+                                   f"CPU port's Adam by {ratio} x (1e-6 + "
+                                   f"1e-4 |cpu|)")
+            worst = max(worst, ratio)
+    return worst
+
+
+def graphed_vs_eager(torch, build, batch, k, calls, remat=False,
+                     timed=False, checked=True, cpu_adam=False):
+    """Under deterministic cuDNN, from one seed state each (build(device),
+    TRAIN_STEPS scheduled, clip CLIP, train metrics on): `calls` calls of
+    `make_multi_train_step` at K = k on `batch` (a warm-up, a capture,
+    replays) against as many calls of `eager_multi_step` (k eager
+    `make_train_step` steps, the generator reseeded at step_seed(SEED,
+    step) before each, which is what the multi-step draws). Checks the calls' kinds (`multi_step.stats`),
+    each call's loss (its last step's) within 1e-6 relative of the eager
+    one, every parameter within 1e-6 x max|p| of its tensor, the losses
+    finite and float32, and the counted launches: TRAIN_LAUNCHES x k for
+    each eager call, the warm-up and the capture, 0 for a replay. With
+    `timed`, the last call of each side runs under torch.profiler, and
+    the replay's kernel records launched by its graph must be TRAIN_
+    LAUNCHES x k. Not `checked`: cuDNN as it is set (by default free to
+    pick nondeterministic algorithms), and the losses and parameters are
+    compared but not held to the bound (a timing run). With `cpu_adam`
+    (k = 1: a call's gradients are its one update's) every update of both
+    sides is held to the CPU port's Adam on the card's gradients
+    (`hold_update_to_cpu`). -> {side: {walls (synchronised call seconds),
+    launches (a call's counts), peak (bytes), profile, cpu_adam (the
+    worst ratio)}}, the graph's capture seconds and the worst loss and
+    parameter differences."""
+    from mmnc_tpu_torch.train import (create_train_state,
+                                      make_multi_train_step)
+
+    per_call = {n: k * c for n, c in
+                TRAIN_LAUNCHES["remat" if remat else "train"].items()}
+    zero = {n: 0 for n in per_call}
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = checked or deterministic
+    try:
+        for side in ("eager", "graphed"):
+            model = build("cuda")
+            state = create_train_state(model, TRAIN_STEPS)
+            gen = torch.Generator(device="cuda")
+            if side == "graphed":
+                multi = make_multi_train_step(model, k, compute_metrics=True,
+                                              clip_norm=CLIP, remat=remat)
+            else:
+                multi = eager_multi_step(model, k, compute_metrics=True,
+                                         clip_norm=CLIP, remat=remat)
+
+            def call():
+                return multi(state, [batch] * k, gen, SEED)[1]
+
+            twin = cpu_adam_twin(build, model) if cpu_adam else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = {"walls": [], "launches": [], "hows": [], "losses": [],
+                   "profile": None, "cpu_adam": None}
+            stats = getattr(multi, "stats", None)
+            for i in range(calls):
+                before = dict(stats) if stats is not None else None
+                out = []
+                if timed and i == calls - 1:
+                    reset_counts()
+                    run["profile"] = profile_device(
+                        torch, lambda: out.append(call()))
+                    run["launches"].append(counts())
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logs, got = launched(torch, call)
+                    run["walls"].append(time.perf_counter() - t0)
+                    out.append(logs)
+                    run["launches"].append(got)
+                run["hows"].append(call_kind(stats, before))
+                run["losses"].append(out[0]["train/loss"])
+                if twin is not None:
+                    run["cpu_adam"] = max(run["cpu_adam"] or 0.0,
+                                          hold_update_to_cpu(
+                                              model, state, *twin,
+                                              f"{side} K={k} call {i}"))
+            run["peak"] = torch.cuda.max_memory_allocated()
+            run["params"] = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+            run["capture_s"] = stats["capture_s"] if stats else []
+            runs[side] = run
+            del model, state, multi, call, twin
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    eager, graphed = runs["eager"], runs["graphed"]
+    want_hows = ["eager", "capture"] + ["replay"] * (calls - 2)
+    if graphed["hows"] != want_hows[:calls]:
+        raise RuntimeError(f"graphed K={k}: calls {graphed['hows']}, want "
+                           f"{want_hows[:calls]}")
+    for side, run in runs.items():
+        for how, got in zip(run["hows"], run["launches"]):
+            want = zero if how == "replay" else per_call
+            if got != want:
+                raise RuntimeError(f"{side} K={k}: a {how} call launched "
+                                   f"{got} through the wrappers, want {want}")
+    if timed and graphed["profile"]["graph"] != per_call:
+        raise RuntimeError(f"graphed K={k}: the profiled replay's graph "
+                           f"launched {graphed['profile']['graph']} (all "
+                           f"kernel records "
+                           f"{graphed['profile']['kernels']}), want "
+                           f"{per_call}")
+    losses = torch.stack([torch.stack(r["losses"]) for r in
+                          (eager, graphed)]).cpu()
+    if losses.dtype != torch.float32 or not torch.isfinite(losses).all():
+        raise RuntimeError(f"graphed K={k}: losses {losses.tolist()}")
+    loss_err = ((losses[1] - losses[0]).abs()
+                / losses[0].abs()).max().item()
+    param_err = max(rel_err(graphed["params"][n], p)
+                    for n, p in eager["params"].items())
+    if checked and not (loss_err <= 1e-6 and param_err <= 1e-6):
+        raise RuntimeError(f"graphed K={k} vs eager: losses max rel diff "
+                           f"{loss_err}, parameters {param_err} x max|p| "
+                           f"(bound 1e-6)")
+    for run in runs.values():
+        del run["params"]
+    return {"eager": eager, "graphed": graphed, "loss_err": loss_err,
+            "param_err": param_err, "losses": losses[1].tolist(),
+            "capture_s": graphed["capture_s"]}
+
+
+def run_graph_train(torch, card):
+    """Phase 7 (e): the K-step call as one CUDA graph against eager steps
+    on phase 7's batch (`graphed_vs_eager`) at each of GRAPH_KS, timed and
+    checked under deterministic cuDNN, at K = 1 with every update of both
+    sides held to the CPU port's Adam on the card's gradients; then K = 1
+    timed only under cuDNN's default (what a user runs: the CLI's default
+    K); then GRAPH_REMAT_CALLS remat calls at K = GRAPH_REMAT_K. Prints,
+    the graphed beside the eager: a call's wall (median of the replays)
+    and a step's, images/s, a profiled call's device ms and busy share,
+    the capture's ms and the peak memory. Returns {K: the graphed
+    profiled replay's graph launches}."""
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"rgb": torch.from_numpy(rng.random(
+        (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
+    out = {}
+    for k, checked in [(k, True) for k in GRAPH_KS] + [(1, False)]:
+        r = graphed_vs_eager(torch, train_model, batch, k, GRAPH_CALLS,
+                             timed=True, checked=checked,
+                             cpu_adam=checked and k == 1)
+        e, g = r["eager"], r["graphed"]
+        line = []
+        for name, run in (("graphed", g), ("eager", e)):
+            call = float(np.median(run["walls"][2:]))
+            prof = run["profile"]
+            line.append(
+                f"{name}: call {call * 1e3:.4f} ms ({call * 1e3 / k:.4f} "
+                f"a step, {k * TRAIN_BATCH / call:.3f} images/s), profiled "
+                f"call device {prof['device_ms']:.3f} ms, busy "
+                f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+                f"({prof['busy_ms'] / prof['wall_ms']:.3f}), its GDN kernel "
+                f"{prof['by_kernel'].get('gdn', 0.0) / k:.4f} ms a step, "
+                f"peak memory {run['peak'] / 2 ** 30:.3f} GiB")
+        mode = ("deterministic cuDNN" if checked else
+                "default cuDNN, timing only")
+        print(f"train graph K={k} rgb batch={TRAIN_BATCH} ({card}; "
+              f"{mode}, metrics on): {GRAPH_CALLS} calls (a "
+              f"warm-up, a capture, replays) vs {GRAPH_CALLS * k} eager "
+              f"steps: losses max rel diff {r['loss_err']:.3e}, parameters "
+              f"max diff {r['param_err']:.3e} x max|p|; launches a call "
+              f"through the wrappers {[c['gdn'] for c in g['launches']]} "
+              f"GDN; the profiled replay's graph launched "
+              f"{g['profile']['graph']}; capture "
+              f"{r['capture_s'][0] * 1e3:.3f} ms; "
+              + (f"every update against the CPU port's Adam on the card's "
+                 f"gradients: worst |diff| {g['cpu_adam']:.3e} (graphed), "
+                 f"{e['cpu_adam']:.3e} (eager) x (1e-6 + 1e-4 |cpu|); "
+                 if g["cpu_adam"] is not None else "") + "; ".join(line)
+              + f"; call walls (s) graphed "
+              f"{json.dumps([round(w, 6) for w in g['walls']])}, eager "
+              f"{json.dumps([round(w, 6) for w in e['walls']])}")
+        out[k] = g["profile"]["graph"]
+    r = graphed_vs_eager(torch, train_model, batch, GRAPH_REMAT_K,
+                         GRAPH_REMAT_CALLS, remat=True)
+    print(f"train graph remat K={GRAPH_REMAT_K} ({card}; deterministic "
+          f"cuDNN): {GRAPH_REMAT_CALLS} calls vs "
+          f"{GRAPH_REMAT_CALLS * GRAPH_REMAT_K} eager remat steps: losses "
+          f"max rel diff {r['loss_err']:.3e}, parameters max diff "
+          f"{r['param_err']:.3e} x max|p|; launches a call through the "
+          f"wrappers {[c['gdn'] for c in r['graphed']['launches']]} GDN; "
+          f"capture {r['capture_s'][0] * 1e3:.3f} ms")
+    return out
+
+
 def paper_model(name, device, seed=SEED, dtype=None):
     """Phase 8's codec `name` (PAPER) from `seed`, its conv kernels scaled
     as `seeded_model`'s (at the init scale y rounds to 0), lmbda and
@@ -1627,12 +1894,32 @@ def kernel_kind(name):
     return "gdn" if "gdn_kernel" in name else "other"
 
 
+def graph_launches(events):
+    """{"gdn": n, "deconv_igdn": n}: the port's kernel records in a chrome
+    trace that a CUDA graph launch started (their correlation id is that
+    of a cudaGraphLaunch call). A replayed graph launches its kernels
+    without the wrappers, whose counters so never see them."""
+    graph = {e["args"]["correlation"] for e in events
+             if e.get("cat", "").startswith("cuda_")
+             and "GraphLaunch" in e.get("name", "")
+             and "correlation" in e.get("args", {})}
+    out = {"gdn": 0, "deconv_igdn": 0}
+    for e in events:
+        if e.get("cat") == "kernel" and \
+                e.get("args", {}).get("correlation") in graph:
+            kind = kernel_kind(e["name"])
+            if kind in out:
+                out[kind] += 1
+    return out
+
+
 def profile_device(torch, fn, trace=None):
     """One call of fn under torch.profiler -> {wall_ms, device_ms (the sum
     of its device records), busy_ms (their union), records, by_kernel (ms
     of the device records of each `kernel_kind`), conv_ms (the records
-    launched by cuDNN's convolutions)}; the chrome trace goes to `trace`
-    if given."""
+    launched by cuDNN's convolutions), graph (`graph_launches`), kernels
+    (kernel records of each `kernel_kind`)}; the chrome trace goes to
+    `trace` if given."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1650,14 +1937,17 @@ def profile_device(torch, fn, trace=None):
     events = [e for e in trace_events if e.get("cat") in DEVICE_WORK]
     conv = launched_in_spans(trace_events, lambda n: n.startswith(
         "aten::cudnn_convolution"))
-    by_kernel = {}
+    by_kernel, kernels = {}, {}
     for e in events:
         kind = kernel_kind(e["name"])
         by_kernel[kind] = by_kernel.get(kind, 0.0) + e["dur"] / 1e3
+        if e.get("cat") == "kernel":
+            kernels[kind] = kernels.get(kind, 0) + 1
     return {"wall_ms": wall * 1e3,
             "device_ms": sum(e["dur"] for e in events) / 1e3,
             "busy_ms": busy_us(events) / 1e3, "records": len(events),
-            "by_kernel": by_kernel, "conv_ms": conv / 1e3}
+            "by_kernel": by_kernel, "conv_ms": conv / 1e3,
+            "graph": graph_launches(trace_events), "kernels": kernels}
 
 
 def run_multitask(torch, profile_dir):
@@ -1813,6 +2103,7 @@ BF16_TOL = 2.0 ** -7
 # cuDNN the stream is held to decompress bitwise first
 BF16_CPU_RTOL = 2.0 ** -4
 BF16_TRAIN_STEPS = 6
+BF16_GRAPH_K = 2  # the bf16 step as a graph: K of a graphed call
 
 
 def bf16_round_trips(torch, model, batches, per_call):
@@ -2010,6 +2301,17 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
           f"({prof['conv_ms'] / prof['device_ms']:.3f} of device; f32 "
           f"{train['conv_ms'] / train['device_ms']:.3f})")
     del model, state, step
+    # the bf16 step as a graph: a warm-up call and a graphed one (a capture
+    # and its replay) of K = BF16_GRAPH_K against eager bf16 steps
+    graph = graphed_vs_eager(torch, lambda d: train_model(d, dtype=bf16),
+                             batch, BF16_GRAPH_K, 2)
+    print(f"bf16 train graph K={BF16_GRAPH_K} (deterministic cuDNN): a "
+          f"warm-up and a graphed call vs {2 * BF16_GRAPH_K} eager bf16 "
+          f"steps: losses {json.dumps(graph['losses'])} (float32), max rel "
+          f"diff {graph['loss_err']:.3e}, parameters max diff "
+          f"{graph['param_err']:.3e} x max|p|; launches a call through the "
+          f"wrappers {[c['gdn'] for c in graph['graphed']['launches']]} GDN;"
+          f" capture {graph['capture_s'][0] * 1e3:.3f} ms")
     print(f"bf16 phase: {time.perf_counter() - t_start:.1f} s (kernel checks "
           f"{t_kernels:.1f} s)")
     return {"sums": sums, "worst": worst, "launches": launches,
@@ -2140,33 +2442,90 @@ def cli_argv(tmp, *extra):
             os.path.join(tmp, "cache"), "--device", CLI_DEVICE, *extra]
 
 
+def call_kind(stats, before):
+    """What a call of a multi-step did, from its `stats` before and after:
+    "replay" (a graph replayed: its launches bypass the counters),
+    "capture" (captured, then replayed) or "eager" (a warm-up, or eager
+    steps: the mesh path, the CPU, or no stats at all)."""
+    if stats is None or before is None:
+        return "eager"
+    if stats["captures"] != before["captures"]:
+        return "capture"
+    return "replay" if stats["replays"] != before["replays"] else "eager"
+
+
+def eager_multi_step(model, steps_per_call, compute_metrics=False,
+                     clip_norm=None, remat=False, mesh=None):
+    """The loop's multi-step as `steps_per_call` eager `make_train_step`
+    calls, the generator reseeded at step_seed(seed, step) before each:
+    the reference a graphed call is held to."""
+    from mmnc_tpu_torch.train import make_train_step
+    from mmnc_tpu_torch.train.step import step_seed
+
+    one = make_train_step(model, compute_metrics=compute_metrics,
+                          clip_norm=clip_norm, remat=remat, mesh=mesh)
+
+    def multi(state, group, generator, seed):
+        logs = None
+        for batch in group:
+            generator.manual_seed(step_seed(seed, state.step))
+            state, logs = one(state, batch, generator)
+        return state, logs
+
+    return multi
+
+
 @contextlib.contextmanager
-def counted_steps(torch, per_step, walls=None):
+def counted_steps(torch, per_step, eager=False, profile_replay=False):
     """Wrap the train loop's train call (`steps_per_call` steps) and eval
-    step so each appends its launches ("train" or "eval", counts) to
-    `per_step`: the counts read just before the call and just after it,
-    on a synchronised card, and subtracted (the run's totals keep
-    counting); `walls`, if given, gets each train call's synchronised
-    wall seconds. The steps themselves are unchanged."""
+    step so each appends {"kind": "train" or "eval", "launches", "how",
+    "step", "graph", "wall"} to `per_step`: the launch counts read just
+    before the call and just after it, on a synchronised card, and
+    subtracted (the run's totals keep counting); `call_kind` of a train
+    call ("eval" for an eval step); the state's step before a train call;
+    the call's synchronised wall seconds. A replayed graph launches its
+    kernels without the counters: with `profile_replay` the first replay
+    runs under torch.profiler (its wall None) and "graph" holds its
+    graph's kernel records (`graph_launches`). With `eager` the loop's
+    multi-step is `eager_multi_step`; otherwise the steps themselves are
+    unchanged."""
     from mmnc_tpu_torch.train import loop
 
     names = {"train": "make_multi_train_step", "eval": "make_eval_step"}
-    makers = {kind: getattr(loop, name) for kind, name in names.items()}
+    originals = {kind: getattr(loop, name) for kind, name in names.items()}
+    makers = dict(originals, **({"train": eager_multi_step} if eager
+                                else {}))
+    pending = [profile_replay]
 
     def wrap(make, kind):
         def made(*args, **kwargs):
             step = make(*args, **kwargs)
+            stats = getattr(step, "stats", None)
 
             def counted(*a, **k):
+                before_stats = dict(stats) if stats is not None else None
+                entry = {"kind": kind, "step": a[0].step if kind == "train"
+                         else None, "graph": None}
+                profile = (pending[0] and stats is not None
+                           and stats["captures"] > 0)
                 torch.cuda.synchronize()
                 before, t0 = counts(), time.perf_counter()
-                out = step(*a, **k)
+                if profile:
+                    holder = []
+                    prof = profile_device(torch,
+                                          lambda: holder.append(step(*a, **k)))
+                    out = holder[0]
+                    entry["graph"] = prof["graph"]
+                    pending[0] = False
+                else:
+                    out = step(*a, **k)
                 torch.cuda.synchronize()
                 after = counts()
-                if walls is not None and kind != "eval":
-                    walls.append(time.perf_counter() - t0)
-                per_step.append((kind, {n: after[n] - before[n]
-                                        for n in after}))
+                entry["wall"] = None if profile else time.perf_counter() - t0
+                entry["launches"] = {n: after[n] - before[n] for n in after}
+                entry["how"] = (call_kind(stats, before_stats)
+                                if kind == "train" else "eval")
+                per_step.append(entry)
                 return out
             return counted
         return made
@@ -2177,20 +2536,54 @@ def counted_steps(torch, per_step, walls=None):
         yield
     finally:
         for kind, name in names.items():
-            setattr(loop, name, makers[kind])
+            setattr(loop, name, originals[kind])
+
+
+def check_calls(per_step, want, what, k=1, profiled=False):
+    """Each counted call of a run against its launches: a train call's
+    counts are `want["train"]` x k unless it replayed (0: its kernels run
+    in its graph), and a profiled replay's graph records are that; an
+    eval step's `want["eval"]`. With `profiled`, a run that replayed must
+    have profiled a replay. Raises on a mismatch."""
+    per_call = {n: k * c for n, c in want["train"].items()}
+    zero = {n: 0 for n in per_call}
+    replays = [e for e in per_step if e["how"] == "replay"]
+    if profiled and replays and not any(e["graph"] for e in replays):
+        raise RuntimeError(f"{what}: {len(replays)} replays, none profiled")
+    for e in per_step:
+        if e["kind"] == "eval":
+            expect = want["eval"]
+        else:
+            expect = zero if e["how"] == "replay" else per_call
+        if e["launches"] != expect or e["graph"] not in (None, per_call):
+            raise RuntimeError(f"{what}: a {e['how']} call at step "
+                               f"{e['step']} launched {e['launches']} "
+                               f"through the wrappers (want {expect}), its "
+                               f"graph {e['graph']} (want {per_call})")
+
+
+def graph_launched(per_step, per_call):
+    """The port's kernel launches that a run's replayed train calls made
+    in their graphs, which the wrappers' counters never see: `per_call`
+    (a call's counts, as a profiled replay's or a trace's graph records
+    showed them) for each replay among `per_step` (`counted_steps`'
+    entries), the profiled one included."""
+    n = sum(e["kind"] == "train" and e["how"] == "replay" for e in per_step)
+    return {k: n * c for k, c in per_call.items()}
 
 
 def trace_summary(path):
     """A profiler trace of the loop's steps 5-10 -> (device ms, busy ms,
-    wall ms: the span of every record in it)."""
+    wall ms: the span of every record in it, `graph_launches`)."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if "dur" in e and "ts" in e]
+        events = json.load(f)["traceEvents"]
+    graph = graph_launches(events)
+    events = [e for e in events if "dur" in e and "ts" in e]
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
     wall = (max(e["ts"] + e["dur"] for e in events)
             - min(e["ts"] for e in events))
     return (sum(e["dur"] for e in device) / 1e3, busy_us(device) / 1e3,
-            wall / 1e3)
+            wall / 1e3, graph)
 
 
 def cli_model(device):
@@ -2332,89 +2725,140 @@ def check_prefetch(torch, train_set):
           f"host batches (consumer wait {stats['wait_s'] * 1e3:.3f} ms)")
 
 
-def cli_k_run(torch, tmp, k, *extra):
-    """The train CLI at --steps-per-call k (run name cli_k{k}) under
+def cli_k_run(torch, tmp, name, k, *extra, eager=False,
+              profile_replay=False):
+    """The train CLI at --steps-per-call k as run `name` under
     deterministic cuDNN, each train call counted and timed
-    (`counted_steps`) -> (state, per-call launches, call walls s, run
-    launches, stdout)."""
+    (`counted_steps`, which `eager` and `profile_replay` are handed to) ->
+    (state, the counted calls, run launches, stdout, fit's stats)."""
     from mmnc_tpu_torch.cli import train as train_cli
 
-    per_step, walls, out = [], [], io.StringIO()
+    per_step, out, stats = [], io.StringIO(), {}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         torch.cuda.synchronize()
         reset_counts()
-        with counted_steps(torch, per_step, walls), \
+        with counted_steps(torch, per_step, eager, profile_replay), \
                 contextlib.redirect_stdout(out):
             state = train_cli.main(cli_argv(
                 tmp, "--log-every", "1", "--steps-per-call", str(k), "-w",
-                f"cli_k{k}", *extra))
+                name, *extra), stats=stats)
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return state, per_step, walls, counts(), out.getvalue()
+    return state, per_step, counts(), out.getvalue(), stats
+
+
+def shared4_launches():
+    """MT_LAUNCHES' shared4 train and eval steps as {kind: counts}."""
+    return {kind: dict(zip(("gdn", "deconv_igdn"),
+                           MT_LAUNCHES["shared4"][kind]))
+            for kind in ("train", "eval")}
 
 
 def check_steps_per_call(torch, tmp, card):
-    """Phase 9 (3b): the train CLI at K = 1 and at --steps-per-call
-    CLI_K, the same 16 steps, seed and scenes, under deterministic cuDNN:
-    final parameters within 1e-6 x max|p| (check_resume's bound), the
-    logged steps JAX's cadence gives (the first step of each call), 63 x
-    K GDN launches a call; each run's synchronised train-call p50 and
-    images/s. Then --steps-per-call CLI_K_CLAMPED for one epoch: clamped
-    to its 8 batches, one call. Returns the K = CLI_K run's launches and
-    its launches a call."""
+    """Phase 9 (3b): the same 16 steps, seed and scenes through the train
+    CLI under deterministic cuDNN, three ways (CLI_RUNS): an eager
+    reference (the loop's multi-step made of eager `make_train_step`
+    calls, `eager_multi_step`), and graphed at K = 1 and at
+    --steps-per-call CLI_K (a warm-up, a capture, replays). Both graphed
+    runs' final parameters within 1e-6 x max|p| of the eager run's
+    (check_resume's bound); the logged steps JAX's cadence gives (the
+    first step of each call); each call's launches (`check_calls`: 63 x K
+    through the wrappers unless replayed; the K = CLI_K run's first replay
+    profiled, its graph's records 63 x K; the K = 1 runs' traces of steps
+    5-10 hold 63 graph-launched GDN records a replayed step in them).
+    Prints each run's StepTimer p50 and images/s, its synchronised call
+    p50, and for the K = 1 runs the busy share of steps 5-10, graphed
+    beside eager. Then --steps-per-call CLI_K_CLAMPED for one epoch:
+    clamped to its 8 batches, one call (the warm-up, eager). Returns the
+    K = CLI_K run's launches and its launches a call."""
     t0 = time.perf_counter()
     steps = CLI_EPOCHS * (CLI_TRAIN_SIZE // CLI_BATCH)
     per_epoch = CLI_TRAIN_SIZE // CLI_BATCH
-    train = MT_LAUNCHES["shared4"]["train"]
+    want = shared4_launches()
     runs = {}
-    for k in (1, CLI_K):
-        state, per_step, walls, launches, _ = cli_k_run(
-            torch, tmp, k, "--epochs", str(CLI_EPOCHS))
-        want = {"gdn": k * train[0], "deconv_igdn": k * train[1]}
-        calls = [c for kd, c in per_step if kd == "train"]
+    for name, k, eager in CLI_RUNS:
+        extra = ["--epochs", str(CLI_EPOCHS)]
+        if k == 1:
+            extra += ["--profile-dir", os.path.join(tmp, f"profile_{name}")]
+        state, per_step, launches, _, stats = cli_k_run(
+            torch, tmp, name, k, *extra, eager=eager, profile_replay=k > 1)
+        calls = [e for e in per_step if e["kind"] == "train"]
+        hows = [e["how"] for e in calls]
+        want_hows = ["eager"] * len(calls) if eager else (
+            ["eager", "capture"] + ["replay"] * len(calls))[:len(calls)]
         if state.step != steps or len(calls) != steps // k or \
-                any(c != want for c in calls):
-            raise RuntimeError(f"cli --steps-per-call {k}: {state.step} "
-                               f"steps, calls {calls}, want {steps // k} of "
-                               f"{want}")
-        with open(os.path.join(tmp, "runs", f"cli_k{k}",
-                               f"cli_k{k}.metrics.jsonl")) as f:
+                hows != want_hows:
+            raise RuntimeError(f"cli {name}: {state.step} steps, calls "
+                               f"{hows}, want {want_hows}")
+        check_calls(per_step, want, f"cli {name}", k, profiled=k > 1)
+        per_call = {n: k * c for n, c in want["train"].items()}
+        graph = graph_launched(per_step, per_call)
+        with open(os.path.join(tmp, "runs", name,
+                               f"{name}.metrics.jsonl")) as f:
             logged = [r["step"] for r in map(json.loads, f)
                       if "train/loss" in r]
         if logged != list(range(0, steps, k)):
-            raise RuntimeError(f"cli --steps-per-call {k}: logged steps "
-                               f"{logged}")
-        params = [p.detach() for g in state.optimizer.param_groups
-                  for p in g["params"]]
-        runs[k] = (params, float(np.median(walls)), launches, want)
-    worst = max(max_rel_diff(q, p) for p, q in zip(runs[1][0],
-                                                   runs[CLI_K][0]))
-    if not worst <= 1e-6:
-        raise RuntimeError(f"cli --steps-per-call {CLI_K} vs 1: parameters "
-                           f"max rel diff {worst} over 1e-6")
-    state, per_step, _, _, out = cli_k_run(
-        torch, tmp, CLI_K_CLAMPED, "--epochs", "1", "--no-metrics")
-    calls = [c for kd, c in per_step if kd == "train"]
+            raise RuntimeError(f"cli {name}: logged steps {logged}")
+        row = {"params": [p.detach() for g in state.optimizer.param_groups
+                          for p in g["params"]],
+               # the steady calls: replays, or an eager run's from its
+               # third (as StepTimer), the profiled replay left out
+               "call_p50": float(np.median([
+                   e["wall"] for e in calls[2:] if e["wall"] is not None])),
+               "launches": {n: c + graph[n] for n, c in launches.items()},
+               "graph_launches": graph, "per_call": per_call, "k": k,
+               "p50": stats["step_timer"]["p50_s"]}
+        if k == 1:
+            dev_ms, busy_ms, wall_ms, graph = trace_summary(stats["trace"])
+            replayed = sum(e["how"] == "replay" for e in calls
+                           if 5 <= e["step"] <= 10)
+            expect = {n: replayed * c for n, c in want["train"].items()}
+            if graph != expect:
+                raise RuntimeError(f"cli {name}: steps 5-10's trace holds "
+                                   f"{graph} graph-launched records, want "
+                                   f"{expect}")
+            row.update(busy=busy_ms / wall_ms, device_ms=dev_ms / 6)
+        runs[name] = row
+    ref = runs["cli_eager"]["params"]
+    worst = {name: max(max_rel_diff(q, p) for p, q in
+                       zip(ref, runs[name]["params"]))
+             for name, _, eager in CLI_RUNS if not eager}
+    if not all(w <= 1e-6 for w in worst.values()):
+        raise RuntimeError(f"cli graphed vs eager: parameters max rel diff "
+                           f"{worst} over 1e-6")
+    state, per_step, _, out, _ = cli_k_run(
+        torch, tmp, f"cli_k{CLI_K_CLAMPED}", CLI_K_CLAMPED, "--epochs", "1",
+        "--no-metrics")
+    calls = [e for e in per_step if e["kind"] == "train"]
     note = f"steps_per_call {CLI_K_CLAMPED} > {per_epoch} batches/epoch"
     if state.step != per_epoch or len(calls) != 1 or note not in out or \
-            calls[0]["gdn"] != per_epoch * train[0]:
+            calls[0]["launches"]["gdn"] != per_epoch * want["train"]["gdn"]:
         raise RuntimeError(f"cli --steps-per-call {CLI_K_CLAMPED}: "
                            f"{state.step} steps, calls {calls}, output "
                            f"{out!r}")
-    p1, pk = runs[1][1], runs[CLI_K][1]
-    print(f"cli --steps-per-call {CLI_K} ({card}, deterministic cuDNN): "
-          f"{steps} steps in {steps // CLI_K} calls of {runs[CLI_K][3]} "
-          f"launches, logged steps {list(range(0, steps, CLI_K))}, final "
-          f"parameters vs K = 1 max rel diff {worst:.3e}; call p50 "
-          f"{pk * 1e3:.3f} ms ({CLI_K * CLI_BATCH / pk:.3f} images/s) vs "
-          f"K = 1 step p50 {p1 * 1e3:.3f} ms ({CLI_BATCH / p1:.3f} "
-          f"images/s), synchronised calls; --steps-per-call "
-          f"{CLI_K_CLAMPED}: clamped to {per_epoch} ({note}), one call of "
-          f"{calls[0]} launches; {time.perf_counter() - t0:.3f} s")
-    return {"launches": runs[CLI_K][2], "per_call": runs[CLI_K][3]}
+    for name, row in runs.items():
+        k = row["k"]
+        busy = (f", steps 5-10: device {row['device_ms']:.3f} ms a step, "
+                f"busy {row['busy']:.3f}" if "busy" in row else "")
+        print(f"cli {name} ({card}, deterministic cuDNN, K = {k}): "
+              f"{steps} steps in {steps // k} calls ({row['per_call']} a "
+              f"call); StepTimer p50 {row['p50'] * 1e3:.3f} ms a call "
+              f"({k * CLI_BATCH / row['p50']:.3f} images/s), synchronised "
+              f"call p50 (from the third call) {row['call_p50'] * 1e3:.3f} ms "
+              f"({k * CLI_BATCH / row['call_p50']:.3f} images/s){busy}; "
+              f"launches {row['launches']}, {row['graph_launches']} of them "
+              f"in replayed graphs"
+              + (f"; final parameters vs the eager run max rel diff "
+                 f"{worst[name]:.3e}" if name in worst else ""))
+    print(f"cli --steps-per-call {CLI_K_CLAMPED}: clamped to {per_epoch} "
+          f"({note}), one call of {calls[0]['launches']} launches; "
+          f"{time.perf_counter() - t0:.3f} s")
+    k_run = runs[f"cli_k{CLI_K}"]
+    return {"launches": k_run["launches"], "per_call": k_run["per_call"],
+            "graph_launches": k_run["graph_launches"]}
 
 
 def run_cli(torch, profile_dir, card):
@@ -2454,16 +2898,15 @@ def run_cli(torch, profile_dir, card):
         steps = CLI_EPOCHS * (CLI_TRAIN_SIZE // CLI_BATCH)
         if state.step != steps:
             raise RuntimeError(f"train CLI: {state.step} steps, want {steps}")
-        want = {k: {"gdn": g, "deconv_igdn": d}
-                for k, (g, d) in MT_LAUNCHES["shared4"].items()}
-        kinds = [k for k, _ in per_step]
+        want = shared4_launches()
+        kinds = [e["kind"] for e in per_step]
+        hows = [e["how"] for e in per_step if e["kind"] == "train"]
         if kinds.count("train") != steps or kinds.count("eval") != \
-                CLI_EPOCHS * (CLI_VAL_SIZE // CLI_BATCH):
-            raise RuntimeError(f"train CLI ran {kinds}")
-        for kind, got in per_step:
-            if got != want[kind]:
-                raise RuntimeError(f"train CLI {kind} step: launches {got}, "
-                                   f"want {want[kind]}")
+                CLI_EPOCHS * (CLI_VAL_SIZE // CLI_BATCH) or \
+                hows != ["eager", "capture"] + ["replay"] * (steps - 2):
+            raise RuntimeError(f"train CLI ran {kinds}, its train calls "
+                               f"{hows}")
+        check_calls(per_step, want, "train CLI")
         run_dir = os.path.join(tmp, "runs", "cli")
         with open(os.path.join(run_dir, "cli.metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -2488,7 +2931,7 @@ def run_cli(torch, profile_dir, card):
         launches = counts()
         grid_evals = 2 * CLI_EPOCHS  # one val and one train batch an epoch
         for k in launches:
-            expect = sum(c[k] for _, c in per_step) \
+            expect = sum(e["launches"][k] for e in per_step) \
                 + grid_evals * want["eval"][k]
             if launches[k] == 0 or launches[k] != expect:
                 raise RuntimeError(f"train CLI: {launches[k]} {k} launches, "
@@ -2500,7 +2943,16 @@ def run_cli(torch, profile_dir, card):
         firsts = [w for i, w in enumerate(waits) if i % per_epoch == 0]
         rest = [w for i, w in enumerate(waits) if i % per_epoch]
         ckpt_mb = os.path.getsize(os.path.join(ckpt, "state.pt")) / 1e6
-        dev_ms, busy_ms, wall_ms = trace_summary(stats["trace"])
+        dev_ms, busy_ms, wall_ms, graph = trace_summary(stats["trace"])
+        # the profiler's window, steps 5-10: replays all
+        replayed = {k: 6 * n for k, n in want["train"].items()}
+        if graph != replayed:
+            raise RuntimeError(f"train CLI: steps 5-10's trace holds "
+                               f"{graph} graph-launched records, want "
+                               f"{replayed}")
+        in_graphs = graph_launched(per_step, want["train"])
+        counted = launches
+        launches = {k: n + in_graphs[k] for k, n in counted.items()}
         print(f"cli train {PAPER['shared4']} batch={CLI_BATCH} "
               f"{CLI_EPOCHS} epochs ({card}): {steps} steps in "
               f"{seconds:.3f} s "
@@ -2512,13 +2964,20 @@ def run_cli(torch, profile_dir, card):
               f"{json.dumps([round(w * 1e3, 3) for w in firsts])} ms, the "
               f"others' median {np.median(rest) * 1e3:.4f} ms); launches a "
               f"train step "
-              f"{want['train']}, a val step {want['eval']}, run {launches}; "
+              f"{want['train']}, a val step {want['eval']}, run {launches} "
+              f"({counted} through the wrappers, {in_graphs} in replayed "
+              f"graphs); "
               f"peak memory {peak / 2 ** 30:.3f} GiB; checkpoint "
               f"({ckpt_mb:.3f} MB) save ms "
               f"{json.dumps([round(t, 3) for t in stats['save_ms']])}")
-        print(f"cli profiled steps 5-10: device {dev_ms:.3f} ms "
-              f"({dev_ms / 6:.3f} a step), busy {busy_ms:.3f} ms of "
-              f"{wall_ms:.3f} ms ({busy_ms / wall_ms:.3f})")
+        counted = [e["launches"]["gdn"] for e in per_step
+                   if e["kind"] == "train"]
+        print(f"cli profiled steps 5-10 (graph replays): device "
+              f"{dev_ms:.3f} ms ({dev_ms / 6:.3f} a step), busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms "
+              f"({busy_ms / wall_ms:.3f}); graph-launched kernel records "
+              f"{graph}; GDN launches a train call through the wrappers "
+              f"{counted} (a warm-up, a capture, replays)")
         print(f"cli losses: {json.dumps(losses)}")
 
         save_ms, restore_ms = check_resume(torch, train_set, tmp)
@@ -2570,7 +3029,8 @@ def run_cli(torch, profile_dir, card):
               f"{est:.6f}; launches {c_launches}; first batch "
               f"{os.path.getsize(out)} bytes; a batch of {CLI_COMPARE_BATCH}: "
               f"{len(small['cpu'])} bytes, card equal to the CPU port's")
-        return {"launches": launches, "per_step": want, "timer": timer,
+        return {"launches": launches, "graph_launches": in_graphs,
+                "per_step": want, "timer": timer,
                 "wait_ms": wait * 1e3, "device_ms": dev_ms,
                 "busy": busy_ms / wall_ms, "peak": peak,
                 "save_ms": save_ms, "restore_ms": restore_ms,
@@ -2606,26 +3066,24 @@ def run_sweep(torch, tmp, card):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    with counted_steps(torch, per_step):
+    with counted_steps(torch, per_step, profile_replay=True):
         points = rd_sweep.sweep(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = counts()
-    want = {k: {"gdn": g, "deconv_igdn": d}
-            for k, (g, d) in MT_LAUNCHES["shared4"].items()}
+    counted = counts()
+    want = shared4_launches()
     n = {"train": len(RD_LMBDAS) * (RD_TRAIN_SIZE // RD_BATCH),
          "eval": len(RD_LMBDAS) * (RD_VAL_SIZE // RD_BATCH)}
-    kinds = [k for k, _ in per_step]
+    kinds = [e["kind"] for e in per_step]
     if {k: kinds.count(k) for k in n} != n or len(kinds) != sum(n.values()):
         raise RuntimeError(f"sweep ran {kinds}, want {n}")
-    for kind, got in per_step:
-        if got != want[kind]:
-            raise RuntimeError(f"sweep {kind} step: launches {got}, want "
-                               f"{want[kind]}")
-    for k in launches:
-        if launches[k] != sum(c[k] for _, c in per_step):
-            raise RuntimeError(f"sweep: {launches[k]} {k} launches outside "
+    check_calls(per_step, want, "sweep", profiled=True)
+    for k in counted:
+        if counted[k] != sum(e["launches"][k] for e in per_step):
+            raise RuntimeError(f"sweep: {counted[k]} {k} launches outside "
                                f"its steps' {per_step}")
+    in_graphs = graph_launched(per_step, want["train"])
+    launches = {k: c + in_graphs[k] for k, c in counted.items()}
     if [p["lmbda"] for p in points] != list(RD_LMBDAS):
         raise RuntimeError(f"sweep points {points}")
     for p in points:
@@ -2648,8 +3106,10 @@ def run_sweep(torch, tmp, card):
           f"{n['train'] // len(RD_LMBDAS)} steps of {RD_BATCH} and "
           f"{n['eval'] // len(RD_LMBDAS)} validation step each ({card}): "
           f"{seconds:.3f} s (rendering, model builds, train steps with "
-          f"metrics, validation, checkpoints); launches {launches}, a "
-          f"train step {want['train']}, a val step {want['eval']}")
+          f"metrics, validation, checkpoints); launches {launches} "
+          f"({in_graphs} of them in replayed graphs, a profiled replay's "
+          f"records showing a call's), a train step {want['train']}, a val "
+          f"step {want['eval']}")
     for p in points:
         print(f"p10 sweep point: {json.dumps(p)}")
     return {"ckpts": ckpts, "launches": launches, "n": n,
@@ -2859,9 +3319,12 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
     train metrics on; then DP_TIMED_STEPS synchronised steps and one
     profiled step. A rank of `parallel.launch`, or (mesh None) the single
     process. -> {"trace": rank 0's logged train losses (one a call: the
-    last step's), "params": the parameters after fit, "launches": fit's,
-    "all_launches": with the timed and profiled steps', "step_ms",
-    "profile"}."""
+    last step's), "params": the parameters after fit, "launches": fit's
+    (counted through the wrappers: none of a replayed call's),
+    "replayed": fit's steps in replayed graph calls, "all_launches": with
+    the replayed calls' graph launches (`graph_launched`; the first
+    replay profiled, `check_calls`) and the timed and profiled steps',
+    "step_ms", "profile"}."""
     import torch
 
     from mmnc_tpu_torch.data import (BatchLoader, SyntheticMultiTaskDataset,
@@ -2883,13 +3346,24 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
         model = cli_model(device)
         torch.cuda.synchronize(device)
         reset_counts()
-        state, _ = fit(model, BatchLoader(data, batch_size), epochs=1,
-                       max_steps=steps,
-                       run_name=name, out_dir=out_dir, log_every=1,
-                       log_images=False, steps_per_call=steps_per_call,
-                       n_devices=None if mesh is None else mesh.world_size)
+        per_step = []
+        with counted_steps(torch, per_step, profile_replay=True):
+            state, _ = fit(model, BatchLoader(data, batch_size), epochs=1,
+                           max_steps=steps, run_name=name, out_dir=out_dir,
+                           log_every=1, log_images=False,
+                           steps_per_call=steps_per_call,
+                           n_devices=None if mesh is None
+                           else mesh.world_size)
         torch.cuda.synchronize(device)
         launches = counts()
+        # steps whose launches ran in a replayed graph (the single process
+        # on a card; a rank's steps stay eager)
+        replayed = steps_per_call * sum(e["how"] == "replay"
+                                        for e in per_step)
+        want = shared4_launches()
+        check_calls(per_step, want, name, steps_per_call, profiled=True)
+        in_graphs = graph_launched(per_step, {
+            k: steps_per_call * c for k, c in want["train"].items()})
         params = {k: v.detach().cpu().numpy()
                   for k, v in model.state_dict().items()}
         trace = []
@@ -2917,8 +3391,9 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return {"trace": trace, "params": params, "launches": launches,
-            "all_launches": counts(), "step_ms": float(np.median(walls)),
-            "profile": prof}
+            "replayed": replayed,
+            "all_launches": {k: c + in_graphs[k] for k, c in counts().items()},
+            "step_ms": float(np.median(walls)), "profile": prof}
 
 
 def compress_batch(torch, model, batch_size, device):
@@ -3031,15 +3506,17 @@ def dp_scenes(tmp, n):
 
 def check_dp(single, ranks, steps, what, k=1):
     """The ranks' fit (`k` steps a call) against the single process's (one
-    a call): each run's launches (`steps` train steps of 63 GDN), the loss
+    a call): each run's launches (63 GDN a step, none counted for the
+    single process's replayed graph calls; a rank's steps are eager), the loss
     trace within rtol 1e-4 (a call logs its last step's loss), the
     parameters within rtol 2e-4 / atol 2e-6 (tests/test_train.py:95-103),
     every rank's bitwise equal. Returns the largest parameter diff."""
     train = MT_LAUNCHES["shared4"]["train"]
-    want = {"gdn": steps * train[0], "deconv_igdn": steps * train[1]}
     for name, run in [("single", single), *((f"rank {r}", run)
                                             for r, run in enumerate(ranks))]:
-        if run["launches"] != want:
+        counted = steps - run["replayed"]
+        want = {"gdn": counted * train[0], "deconv_igdn": counted * train[1]}
+        if run["launches"] != want or (name != "single" and run["replayed"]):
             raise RuntimeError(f"{what} {name}: launches {run['launches']}, "
                                f"want {want}")
     lead = ranks[0]
@@ -3364,28 +3841,40 @@ def main(argv=None):
         print_ok(torch)
         return 0
 
-    gen = torch.Generator().manual_seed(SEED)
-    gdn_tot, gdn_err, gdn_tol = check_gdn(torch, BATCH, gen)
-    dec_tot, dec_err, dec_tol = check_deconv(torch, BATCH, gen)
+    phase_s = {}
 
-    launches, model, batches = run_model(torch, args.profile)
+    def timed(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = round(time.perf_counter() - t, 3)
+        return out
+
+    gen = torch.Generator().manual_seed(SEED)
+    gdn_tot, gdn_err, gdn_tol = timed("3 gdn", check_gdn, torch, BATCH, gen)
+    dec_tot, dec_err, dec_tol = timed("3 deconv_igdn", check_deconv, torch,
+                                      BATCH, gen)
+
+    launches, model, batches = timed("4", run_model, torch, args.profile)
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the rgb path")
-    run_streaming(torch, model, batches, args.profile)
-    run_widths(torch)
-    train = run_train(torch, args.profile)
-    mt = run_multitask(torch, args.profile)
-    bf = run_bf16(torch, model, batches, train, mt, args.profile)
+    timed("5", run_streaming, torch, model, batches, args.profile)
+    timed("6", run_widths, torch)
+    train = timed("7 (a)-(d)", run_train, torch, args.profile)
+    train["graph"] = timed("7 (e)", run_graph_train, torch, card)
+    mt = timed("8", run_multitask, torch, args.profile)
+    bf = timed("bf16", run_bf16, torch, model, batches, train, mt,
+               args.profile)
     for name, n in bf["launches"].items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the bf16 "
                                f"rgb path")
     del model, batches
-    p5 = run_mt_streaming(torch, args.profile, mt)
-    imported = run_import(torch)
-    cli = run_cli(torch, args.profile, card)
-    p10 = run_phase10(torch, card)
+    p5 = timed("5 shared4", run_mt_streaming, torch, args.profile, mt)
+    imported = timed("import", run_import, torch)
+    cli = timed("9", run_cli, torch, args.profile, card)
+    p10 = timed("10", run_phase10, torch, card)
+    print(f"phase seconds: {json.dumps(phase_s)}")
     for name, n in mt["launches"].items():
         # phase 3 summed its times over the launches its shape lists give
         per_trip = dec_tot if name == "deconv_igdn" else gdn_tot
@@ -3418,21 +3907,29 @@ def main(argv=None):
              f"launches (device time, torch.profiler; host_ms: CUDA events "
              f"over back-to-back calls); rgb: the same for phase 4's bench "
              f"config (launches over its {BATCHES} round trips); train_*: "
-             f"phase 7, batch {TRAIN_BATCH}; train_step_ms, "
+             f"phase 7, batch {TRAIN_BATCH}; train_graph_launches_per_call"
+             f": a replayed call's kernel records launched by its graph "
+             f"(phase 7 (e), torch.profiler); train_step_ms, "
              f"train_backward_ms: in one profiled step; train_isolated_ms, "
              f"train_plain_ms: phase 3 at the step's shapes; "
              f"shared4_train_*: phase 8's step at batch {MT_TRAIN_BATCH}; "
              f"cli_*: phase 9 (the train CLI at shared4, batch {CLI_BATCH}): "
-             f"cli_launches over its run, *_per_step a train and a "
+             f"cli_launches over its run, the wrappers' counts and, for "
+             f"each replayed train call, the launches its graph made (a "
+             f"call's count, as the replays' graph records in the profiled "
+             f"steps 5-10 show it), *_per_step a train and a "
              f"validation step, cli_*_isolated_ms and cli_*_plain_ms phase 3 "
              f"at those steps' shapes; p10_*: phase 10 (the sweep, the "
              f"analysis and data parallelism at shared4): p10_launches "
-             f"counted over it, every process's, p10_ms, p10_plain_ms and "
+             f"over it, every process's, the replayed calls' graph launches "
+             f"included (a call's count each, as a profiled replay's "
+             f"records showed it), p10_ms, p10_plain_ms and "
              f"p10_bound_ms phase 3's sums over those launches; p5_shared4_*"
              f": phase 5's shared4 stream (v2, {BATCHES} batches of "
              f"{BATCH}), its launches and phase 3's sums over them; "
              f"cli_k4_*: phase 9's train CLI at --steps-per-call {CLI_K} "
-             f"(its run's launches, a call's, phase 3's sums at a call's "
+             f"(its run's launches, its replays' graph launches included as "
+             f"cli_launches', a call's, phase 3's sums at a call's "
              f"shapes); p10_compress_*: phase 10 (d)'s sharded compress, "
              f"the ranks' counted call; import_launches: the imported "
              f"model's round trip of {BATCH}; bf16: phase \"bf16\" (the "
@@ -3456,6 +3953,8 @@ def main(argv=None):
          "train_bound_ms": train["bound_ms"],
          "train_backward_ms": train["gdn_backward_ms"],
          "train_backward_bound_ms": train["backward_bound_ms"],
+         "train_graph_launches_per_call": {
+             f"K={k}": v["gdn"] for k, v in train["graph"].items()},
          "shared4_train_launches_per_step": mt["train_launches"]["gdn"],
          "shared4_train_isolated_ms": gdn_tot["shared4_train"]["ms"],
          "shared4_train_plain_ms": gdn_tot["shared4_train"]["plain_ms"],

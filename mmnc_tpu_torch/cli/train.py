@@ -9,7 +9,8 @@ with no card and no --device it raises. `-g N` trains data-parallel on N
 ranks, one process each (`parallel.launch`): rank r on card r, or N CPU
 ranks with --device cpu; --batch-size is the global batch, which the
 ranks split. `--steps-per-call K` runs K train steps per call of the
-step (`make_multi_train_step`), with `-g N` too.
+step (`make_multi_train_step`), with `-g N` too; on a card (one process)
+a call replays one CUDA graph of its K steps.
 """
 
 import argparse
@@ -71,8 +72,9 @@ def parse_args(argv):
     p.add_argument("--no-metrics", action="store_true")
     p.add_argument("--log-every", default=10, type=int)
     p.add_argument("--steps-per-call", default=1, type=int,
-                   help="optimizer steps per call of the train step "
-                        "(clamped to the batches of an epoch)")
+                   help="optimizer steps per call of the train step, "
+                        "on a card one CUDA graph replay (clamped to the "
+                        "batches of an epoch)")
     p.add_argument("--profile-dir", default=None)
     p.add_argument("-n", "--num-workers", default=4, type=int,
                    help="thread workers for sample fetch (reference "

@@ -16,7 +16,10 @@ stream, so the caching allocator does not hand its memory to the side
 stream while the step still reads it. The pinned buffers come from
 torch's caching host allocator, which records an event on the copy's
 stream and reuses a block only after that event, so a buffer is neither
-reused nor freed while its copy is in flight.
+reused nor freed while its copy is in flight. A train call that the
+consumer captures into a CUDA graph meanwhile (`train/step.py`) captures
+in torch's "thread_local" mode, so this thread's pinned allocations and
+copies on its own stream neither join nor break the capture.
 """
 
 import queue

@@ -203,7 +203,12 @@ def gdn_cuda(x2d, gamma, beta, inverse: bool, plan: GDNPlan = None):
     output x's type), gamma and beta float32; raises on anything else.
 
     `plan` overrides `gdn_plan` (tests, and chip_smoke.py's check of
-    every variant). The plan does not depend on x's type."""
+    every variant). The plan does not depend on x's type.
+
+    It launches on the current stream, so under a CUDA graph capture
+    (`train/step.py`) the launch is a node of the graph, and its
+    alignment copy comes from the graph's memory pool; `launches` counts
+    the capture once and a replay never."""
     n, c = x2d.shape
     if not (x2d.is_cuda and gamma.is_cuda and beta.is_cuda):
         raise ValueError("gdn_cuda takes CUDA tensors")

@@ -25,8 +25,11 @@ def squared_error_stats(pred, target):
     """PSNR's sufficient statistics: (summed squared error, count), a
     float64 (2,) tensor; statistics of several shards add up."""
     sse = torch.sum((pred.float() - target.float()) ** 2)
-    return torch.stack([sse.double(), sse.new_tensor(pred.numel(),
-                                                     dtype=torch.float64)])
+    # the count filled on the device: no copy from the host, which a
+    # captured train step could not make
+    count = torch.full((), pred.numel(), dtype=torch.float64,
+                       device=sse.device)
+    return torch.stack([sse.double(), count])
 
 
 def psnr_from_stats(stats, data_range: float):

@@ -24,7 +24,10 @@ Where it differs from the JAX loop, and why:
 * every call of the train step is one of `make_multi_train_step`, on
   `steps_per_call` K consecutive batches (a rank its own rows) handed
   over as a list of the K staged batches rather than a stacked copy; K =
-  1 is a group of one, so one path serves both. The loop's cadences are
+  1 is a group of one, so one path serves both. On a card without a mesh
+  each call after the first two (a warm-up, a capture) replays one CUDA
+  graph of its K steps (`train/step.py`); its staged batches are copied
+  into the graph's inputs on the card. The loop's cadences are
   the JAX loop's, read at the step before the call: logs are pulled, and
   the profiler window opened and closed, on calls whose first step is a
   multiple of `log_every` or equals 5 / 10; `max_steps`, the divergence

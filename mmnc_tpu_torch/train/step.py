@@ -6,19 +6,47 @@ backward, an optional global-norm clip, the two-group Adam update and the
 train metrics. Nothing in it waits for the device: the logs are 0-d
 tensors on the device, read by the caller when it needs them. Under a
 data-parallel mesh (`parallel/`) a rank's step equals the single-process
-step on the global batch (`make_train_step`). `make_multi_train_step`
-runs K such steps, eagerly one after another, in one call.
+step on the global batch (`make_train_step`).
+
+`make_multi_train_step` runs K such steps in one call. On a card without
+a mesh the call is one CUDA graph, the counterpart of the JAX package's
+one compiled scan a dispatch (mmnc_tpu/train/step.py:88-131): the ~2000
+launches of a step are replayed without the host. The first call of a
+signature (K, the micro-batches' shapes and types, the step's options,
+cuDNN's determinism) runs the K steps eagerly on the capture stream: it
+is a real call, and the warm-up that builds the kernels, sets their
+launch attributes, lets cuDNN choose its algorithms and makes Adam's
+state. The second captures the K steps into a graph and replays it; every
+later call copies its micro-batches, its noise and its K main-group rates
+into the graph's static inputs, replays it and copies the logs out. The
+noise is drawn outside the graph, from the generator reseeded at each
+micro-step's `step_seed`, exactly as K eager steps draw it (2K small
+launches; it keeps the graph free of a generator's state). The graph
+lives on the `TrainState`, one at a time: a call of another signature
+drops it and warms up anew, and so does `load_state_dict`, which
+replaces Adam's tensors. Nothing falls back: a capture or a replay that
+fails raises. Under a mesh the call stays eager, by design: the gloo
+all-reduce of the gradients runs on the host and cannot be captured.
+`make_train_step` stays eager: it is the reference a graphed call is
+held to (on the card both run one capturable Adam, which the card's
+tests hold to the CPU's Adam on the same gradients).
 
 With grad enabled every layer runs on its own (`ops/layers.py:run_layers`
 fuses deconv->IGDN only under no-grad, as the JAX package trains unfused):
 a train step launches the GDN kernel once per (I)GDN of the forward and
-the deconv+IGDN kernel never. The GDN backward is its closed form in torch
+the deconv+IGDN kernel never; in a graphed call those launches are nodes
+of the graph (the kernel's launch counter counts a capture once and a
+replay never). The GDN backward is its closed form in torch
 (`ops/gdn.py:GDNFunction`). The eval step runs under no-grad and takes
 both kernels.
 """
 
+import functools
+import time
+
 import torch
 import torch.distributed as dist
+from torch.autograd.graph import increment_version
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import metrics as M
@@ -110,10 +138,64 @@ def _all_reduce_gradients(grads, mesh):
             g.copy_(chunk.view(g.shape))
 
 
+def _draw_noise(model, batch, generator, mesh):
+    """The step's noise from `generator`: the batch's, or under a mesh the
+    global batch's (`_global_noise`)."""
+    return (model.draw_noise(batch, generator) if mesh is None
+            else _global_noise(model, batch, generator, mesh))
+
+
+def _rank_noise(noise, mesh):
+    """The rank's rows of the global batch's noise (all of it without a
+    mesh)."""
+    if mesh is None:
+        return noise
+    rows = mesh.rows(noise["y"].shape[0])
+    return {k: v[rows] for k, v in noise.items()}
+
+
+def _make_update(model, compute_metrics, clip_norm, remat, mesh):
+    """update(state, batch, noise, lr=None) -> logs: one step's work on a
+    batch on the device, its noise (the rank's rows under a mesh) and the
+    main group's rate (`TrainState.apply_gradients`). It reads nothing
+    from the host, so it can be captured."""
+
+    def loss_fn(batch, noise):
+        main_loss, (logs, x_hats, _) = model.loss_and_logs(
+            batch, training=True, noise=noise)
+        aux = model.aux_loss()
+        logs["aux_loss"] = aux
+        return main_loss + aux, logs, x_hats
+
+    params = list(model.parameters())
+
+    def update(state, batch, noise, lr=None):
+        state.optimizer.zero_grad(set_to_none=True)
+        if remat:
+            # the region draws no random numbers (the noise is an input),
+            # so no generator state is kept for its recomputation
+            loss, logs, x_hats = checkpoint(loss_fn, batch, noise,
+                                            use_reentrant=False,
+                                            preserve_rng_state=False)
+        else:
+            loss, logs, x_hats = loss_fn(batch, noise)
+        loss.backward()
+        grads = [p.grad for p in params if p.grad is not None]
+        if mesh is not None:
+            _all_reduce_gradients(grads, mesh)
+        if clip_norm is not None:
+            logs["grad_norm"] = _clip_grads(grads, clip_norm)
+        state.apply_gradients(lr)
+        return _step_logs(model, logs, batch, x_hats, "train",
+                          compute_metrics, mesh)
+
+    return update
+
+
 def make_train_step(model, compute_metrics: bool = True, clip_norm=None,
                     remat: bool = False, mesh=None):
     """Returns train_step(state, batch, generator=None, noise=None) ->
-    (state, logs).
+    (state, logs), eager.
 
     The step's noise ({"z", "y"} NHWC, U(-1/2, 1/2)) is `noise` if given,
     else drawn from `generator` (a torch.Generator on the model's device).
@@ -130,41 +212,15 @@ def make_train_step(model, compute_metrics: bool = True, clip_norm=None,
     the backward and before the clip, which so sees the global norm, and
     every rank's Adam makes the same update; the logs are the global
     batch's (`_step_logs`)."""
-
-    def loss_fn(batch, noise):
-        main_loss, (logs, x_hats, _) = model.loss_and_logs(
-            batch, training=True, noise=noise)
-        aux = model.aux_loss()
-        logs["aux_loss"] = aux
-        return main_loss + aux, logs, x_hats
-
-    params = list(model.parameters())
+    update = _make_update(model, compute_metrics, clip_norm, remat, mesh)
 
     def train_step(state: TrainState, batch, generator=None, noise=None):
         batch = model.to_device(batch)
         if noise is None:
             if generator is None:
                 raise ValueError("train_step needs a generator or noise")
-            noise = (model.draw_noise(batch, generator) if mesh is None
-                     else _global_noise(model, batch, generator, mesh))
-        if mesh is not None:
-            rows = mesh.rows(noise["y"].shape[0])
-            noise = {k: v[rows] for k, v in noise.items()}
-        state.optimizer.zero_grad(set_to_none=True)
-        if remat:
-            loss, logs, x_hats = checkpoint(loss_fn, batch, noise,
-                                            use_reentrant=False)
-        else:
-            loss, logs, x_hats = loss_fn(batch, noise)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if mesh is not None:
-            _all_reduce_gradients(grads, mesh)
-        if clip_norm is not None:
-            logs["grad_norm"] = _clip_grads(grads, clip_norm)
-        state.apply_gradients()
-        return state, _step_logs(model, logs, batch, x_hats, "train",
-                                 compute_metrics, mesh)
+            noise = _draw_noise(model, batch, generator, mesh)
+        return state, update(state, batch, _rank_noise(noise, mesh))
 
     return train_step
 
@@ -184,38 +240,176 @@ def _micro_batches(super_batch, k: int):
     return batches
 
 
+def step_noises(model, batches, generator, seed: int, step: int, mesh=None):
+    """The noise of the steps step, step + 1, ... on `batches`, drawn
+    ahead: before each, `generator` reseeded at step_seed(seed, step + i),
+    as that many single steps of a run seeded `seed` draw it (under a mesh
+    the global batch's)."""
+    noises = []
+    for i, batch in enumerate(batches):
+        generator.manual_seed(step_seed(seed, step + i))
+        noises.append(_draw_noise(model, batch, generator, mesh))
+    return noises
+
+
+def graph_signature(batches, compute_metrics, clip_norm, remat):
+    """What a captured call depends on beside the model and its optimizer:
+    K, each micro-batch's shapes and types, the step's options and
+    whether cuDNN is deterministic (its algorithms are chosen at the
+    warm-up and kept by the graph)."""
+    return (tuple(tuple((t, tuple(x.shape), x.dtype) for t, x in b.items())
+                  for b in batches),
+            compute_metrics, clip_norm, remat,
+            torch.backends.cudnn.deterministic)
+
+
+WARMED = "warmed"  # in `TrainState.graph`: warmed up, not yet captured
+
+
+def _on_card(model) -> bool:
+    return model.device.type == "cuda"
+
+
+@functools.cache
+def _capture_stream(device):
+    """The side stream a device's train calls warm up and are captured on
+    (one for the process: the port runs on one card a process)."""
+    return torch.cuda.Stream(device)
+
+
+def _warm_up(body, state, batches, noises, lrs, stream):
+    """The first call of a signature: `body` eagerly on `stream`, the one
+    the graph is captured on, so that what it sets up lazily (per-stream
+    cuBLAS workspaces among it) is there before the capture."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        logs = body(state, batches, noises, lrs)
+    current.wait_stream(stream)
+    return logs
+
+
+class _TrainGraph:
+    """A captured K-step call: its static inputs (the micro-batches, their
+    noise, the K main-group rates), the graph and its logs.
+
+    The capture runs in torch's "thread_local" error mode: only this
+    thread is barred from calls that are unsafe while a stream captures,
+    so the prefetch thread (`data/loader.py`) may pin memory and copy on
+    its own stream meanwhile."""
+
+    def __init__(self, body, state, batches, noises, stream):
+        t0 = time.perf_counter()
+        self.batches = [{t: torch.empty_like(x) for t, x in b.items()}
+                        for b in batches]
+        self.noises = [{k: torch.empty_like(v) for k, v in n.items()}
+                       for n in noises]
+        self.lrs = torch.empty(len(batches), dtype=torch.float32,
+                               device=stream.device)
+        self.graph = torch.cuda.CUDAGraph()
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.logs = body(state, self.batches, self.noises,
+                             list(self.lrs))
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self, params, batches, noises, lrs):
+        """Copy the call's inputs in (device to device; the rates from
+        pinned memory, without a sync), replay, mark the parameters as
+        changed in place (`ops/layers.py:_derived` keys on their version),
+        and return a copy of the logs, which the next replay overwrites."""
+        for statics, given in ((self.batches, batches),
+                               (self.noises, noises)):
+            for static, x in zip(statics, given):
+                for k, v in x.items():
+                    static[k].copy_(v)
+        self.lrs.copy_(torch.tensor(lrs, dtype=torch.float32,
+                                    pin_memory=True), non_blocking=True)
+        self.graph.replay()
+        for p in params:
+            increment_version(p)
+        return {k: v.clone() for k, v in self.logs.items()}
+
+
 def make_multi_train_step(model, steps_per_call: int,
                           compute_metrics: bool = False, clip_norm=None,
                           remat: bool = False, mesh=None):
     """Returns multi_step(state, super_batch, generator=None, seed=None,
     noise=None) -> (state, logs of the last micro-step): K =
     `steps_per_call` train steps in one call (mmnc_tpu/train/step.py:
-    88-131), each `make_train_step`'s step, run eagerly one after another.
+    88-131), each equal to `make_train_step`'s step.
 
     `super_batch` is {task: (K, B, ...)} as the JAX multi-step takes it, or
     a sequence of K batches ({task: (B, ...)}; `fit` hands it that, which
-    needs no stacking copy). Each micro-step draws its noise from
-    `generator` reseeded at step_seed(seed, state.step) just before it, so
-    K steps in one call equal K single steps of a run seeded `seed`;
-    `noise` ({"y", "z"} NHWC), if given, is every micro-step's noise
-    instead. Under a `mesh` the micro-batches are the rank's rows and
-    every micro-step is the mesh step (the single-process step on the
-    global micro-batch)."""
-    one = make_train_step(model, compute_metrics=compute_metrics,
-                          clip_norm=clip_norm, remat=remat, mesh=mesh)
+    needs no stacking copy). Micro-step i's noise is drawn from
+    `generator` reseeded at step_seed(seed, state.step + i), all K before
+    the first step (`step_noises`), so K steps in one call equal K single
+    steps of a run seeded `seed`; `noise` ({"y", "z"} NHWC), if given, is
+    every micro-step's noise instead. Micro-step i's main rate is the
+    schedule's at state.step + i.
+
+    On a card without a mesh the call is a CUDA graph (see the module's
+    docstring): a warm-up call, then a capture, then replays.
+    `multi_step.stats` counts its "eager" calls (warm-ups included),
+    "captures" and "replays" (a capture replays too) and keeps each
+    capture's host seconds ("capture_s"). On the CPU, and under a `mesh`
+    (the micro-batches the rank's rows, every micro-step the mesh step),
+    the K steps run eagerly."""
+    update = _make_update(model, compute_metrics, clip_norm, remat, mesh)
+    params = list(model.parameters())
+    graphed = mesh is None and _on_card(model)
+    stats = {"eager": 0, "captures": 0, "replays": 0, "capture_s": []}
+
+    def body(state, batches, noises, lrs):
+        logs = None
+        for batch, noise, lr in zip(batches, noises, lrs):
+            logs = update(state, batch, noise, lr)
+        return logs
+
+    def graphed_call(state, batches, noises, lrs):
+        key = graph_signature(batches, compute_metrics, clip_norm, remat)
+        stream = _capture_stream(model.device)
+        if state.graph is None or state.graph[0] != key:
+            state.drop_graph()
+            stats["eager"] += 1
+            logs = _warm_up(body, state, batches, noises, lrs, stream)
+            state.graph = (key, WARMED)
+            return logs
+        graph = state.graph[1]
+        if graph is WARMED:
+            graph = _TrainGraph(body, state, batches, noises, stream)
+            stats["captures"] += 1
+            stats["capture_s"].append(graph.capture_s)
+            state.graph = (key, graph)
+        stats["replays"] += 1
+        return graph.replay(params, batches, noises, lrs)
 
     def multi_step(state: TrainState, super_batch, generator=None,
                    seed=None, noise=None):
         if noise is None and (generator is None or seed is None):
             raise ValueError("multi_step needs a generator and a seed, or "
                              "noise")
-        logs = None
-        for batch in _micro_batches(super_batch, steps_per_call):
-            if noise is None:
-                generator.manual_seed(step_seed(seed, state.step))
-            state, logs = one(state, batch, generator, noise)
+        batches = [model.to_device(b)
+                   for b in _micro_batches(super_batch, steps_per_call)]
+        noises = ([noise] * steps_per_call if noise is not None else
+                  step_noises(model, batches, generator, seed, state.step,
+                              mesh))
+        noises = [_rank_noise(n, mesh) for n in noises]
+        lrs = state.learning_rates(steps_per_call)
+        step = state.step
+        try:
+            if graphed:
+                logs = graphed_call(state, batches, noises, lrs)
+            else:
+                stats["eager"] += 1
+                logs = body(state, batches, noises, lrs)
+        finally:
+            state.step = step
+        state.step += steps_per_call
         return state, logs
 
+    multi_step.stats = stats
     return multi_step
 
 

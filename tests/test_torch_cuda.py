@@ -9,7 +9,14 @@ than cuBLAS/cuDNN, so 1e-4 relative to the largest output. The model
 tests at the end hold the card's integers (symbols, indexes, stream
 bytes) exactly equal to the CPU port's, and a train step on the card
 to the CPU port's (logs within rtol 1e-4, each gradient within 1e-3 x
-max|g_cpu| of its tensor, as chip_smoke.py's phase 7).
+max|g_cpu| of its tensor, as chip_smoke.py's phase 7). The graph tests
+hold a K-step call replayed as one CUDA graph to eager steps (within
+1e-6 x max|p|, chip_smoke's bound), find its GDN launches among the
+profiler's records of the graph, and check that a step that cannot be
+captured raises. The card's Adam (capturable) is held to the CPU port's
+(not capturable) on the card's own gradients, graphed and eager, within
+rtol 1e-4 / atol 1e-6, and a checkpoint the card writes resumes on the
+CPU and back.
 """
 
 import numpy as np
@@ -977,3 +984,267 @@ def test_bf16_codec_on_card(device):
     for got, want in ((y_card, y_cpu), (r_card.float().cpu(), r_cpu.float())):
         err = (got - want).abs().max().item()
         assert err <= 2.0 ** -4 * max(1.0, want.abs().max().item()), err
+
+
+# --- the K-step call as one CUDA graph --------------------------------------
+
+def _graph_model(device):
+    return scale_conv_kernels(build_model(
+        1, ["rgb"], latent_channels=8, conv_channels=4, lmbda=1e-2,
+        device=device, seed=3))
+
+
+def _graph_batches(device, n):
+    rng = np.random.default_rng(8)
+    return [{"rgb": torch.from_numpy(rng.random(
+        (2, 256, 256, 3), dtype=np.float32)).to(device)} for _ in range(n)]
+
+
+def test_graphed_multi_step_equals_eager_steps(device):
+    """Three calls of K = 2 (a warm-up, a capture, a replay) against six
+    eager steps reseeded at step_seed(seed, step), under deterministic
+    cuDNN: losses and parameters within 1e-6 x max|p| (chip_smoke's
+    bound); 2 x 18 GDN launches counted for the warm-up and the capture,
+    none for the replay, which launches through its graph."""
+    from mmnc_tpu_torch.train import make_multi_train_step
+    from mmnc_tpu_torch.train.step import step_seed
+
+    batches = _graph_batches(device, 2)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphed in (False, True):
+            model = _graph_model(device)
+            state = create_train_state(model, 10, 1e-4, 1e-3)
+            gen = torch.Generator(device=device)
+            step = make_train_step(model, clip_norm=5.0)
+            multi = make_multi_train_step(model, 2, compute_metrics=True,
+                                          clip_norm=5.0)
+            losses, launches = [], []
+            for _ in range(3):
+                before = gdn_cuda.launches
+                if graphed:
+                    state, logs = multi(state, batches, gen, 21)
+                else:
+                    for batch in batches:
+                        gen.manual_seed(step_seed(21, state.step))
+                        state, logs = step(state, batch, gen)
+                torch.cuda.synchronize()
+                launches.append(gdn_cuda.launches - before)
+                losses.append(logs["train/loss"].item())
+            assert state.step == 6
+            runs.append((model, losses, launches, dict(multi.stats)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (eager, e_losses, e_launches, _), (model, losses, launches, stats) = runs
+    assert e_launches == [36, 36, 36] and launches == [36, 36, 0]
+    assert (stats["eager"], stats["captures"], stats["replays"]) == (1, 1, 2)
+    np.testing.assert_allclose(losses, e_losses, rtol=1e-6)
+    for (name, p), q in zip(eager.named_parameters(), model.parameters()):
+        err = (q - p).abs().max().item()
+        assert err <= 1e-6 * p.abs().max().item(), (name, err)
+
+
+def test_graphed_gdn_launches_land_in_the_graph(device):
+    """A replay's profiler records hold the call's 2 x 18 GDN kernels,
+    launched by the graph (chip_smoke.graph_launches), and no
+    deconv+IGDN."""
+    import chip_smoke
+    from mmnc_tpu_torch.train import make_multi_train_step
+
+    model = _graph_model(device)
+    state = create_train_state(model, 10, 1e-4, 1e-3)
+    multi = make_multi_train_step(model, 2)
+    gen = torch.Generator(device=device)
+    batches = _graph_batches(device, 2)
+    for _ in range(2):
+        state, _ = multi(state, batches, gen, 21)
+    before = gdn_cuda.launches
+    prof = chip_smoke.profile_device(
+        torch, lambda: multi(state, batches, gen, 21))
+    assert gdn_cuda.launches == before
+    assert multi.stats["replays"] == 2
+    assert prof["graph"] == {"gdn": 36, "deconv_igdn": 0}, prof["kernels"]
+
+
+def test_graph_capture_failure_raises(device):
+    """A step that cannot be captured (a host read of a device value)
+    raises at the capture; nothing carries on eagerly, and the state's
+    step count stays."""
+    from mmnc_tpu_torch.train import make_multi_train_step
+
+    model = _graph_model(device)
+    aux_loss = model.aux_loss
+
+    def synced():
+        loss = aux_loss()
+        loss.item()
+        return loss
+
+    model.aux_loss = synced
+    state = create_train_state(model, 10, 1e-4, 1e-3)
+    multi = make_multi_train_step(model, 1)
+    gen = torch.Generator(device=device)
+    batches = _graph_batches(device, 1)
+    state, _ = multi(state, batches, gen, 21)  # the warm-up runs eagerly
+    with pytest.raises(RuntimeError):
+        multi(state, batches, gen, 21)
+    assert state.step == 1
+    assert (multi.stats["eager"], multi.stats["replays"]) == (1, 0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("eager", ["float", "device_lr"])
+def test_eager_rate_updates_as_a_captured_slot(device, eager):
+    """Four updates of the card's Adam (capturable) on the same gradients,
+    the main rate a 0-d float32 device tensor (a captured update's slot)
+    against an eager update's: `TrainState.apply_gradients` with a float
+    writes it into `device_lr`, and the two are bitwise one update. Adam
+    handed the float itself rounds its update otherwise (why `device_lr`
+    exists): its parameters are not all bitwise the slot's."""
+    from mmnc_tpu_torch.train.state import cosine_lr
+
+    gen = torch.Generator().manual_seed(4)
+    init = _graph_model("cpu").state_dict()
+    shapes = [p.shape for p in _graph_model("cpu").parameters()]
+    grads = [[torch.randn(s, generator=gen) * 1e-2 for s in shapes]
+             for _ in range(4)]
+    runs = []
+    for side in ("slot", eager):
+        model = _graph_model(device)
+        model.load_state_dict(init)
+        state = create_train_state(model, 4, 1e-3, 1e-3)
+        assert all(g["capturable"] for g in state.optimizer.param_groups)
+        main = state.optimizer.param_groups[0]
+        for i, step_grads in enumerate(grads):
+            for p, g in zip(model.parameters(), step_grads):
+                p.grad = g.to(device)
+            lr = cosine_lr(i, 4, 1e-3, 1e-8)
+            if side == "slot":
+                state.apply_gradients(torch.tensor(lr, dtype=torch.float32,
+                                                   device=device))
+            elif side == "device_lr":
+                state.apply_gradients(lr)
+                assert main["lr"] is state.device_lr
+            else:
+                main["lr"] = lr
+                state.optimizer.step()
+        runs.append((model, state))
+    (model_s, state_s), (model_e, state_e) = runs
+    same = []
+    for p, q in zip(model_s.parameters(), model_e.parameters()):
+        same.append(torch.equal(p, q))
+        for key, v in state_s.optimizer.state[p].items():
+            same.append(torch.equal(state_e.optimizer.state[q][key], v))
+    assert all(same) == (eager == "device_lr"), (
+        f"{eager}: {sum(same)} of {len(same)} tensors bitwise the slot's")
+
+
+def test_card_updates_equal_the_cpu_adam_and_resume_on_the_cpu(device,
+                                                               tmp_path):
+    """Four calls of K = 1 on the card, graphed (a warm-up, a capture,
+    replays) and eager (`make_train_step`), from one seed state, batches
+    and injected noise: after each call the CPU port's Adam (not
+    capturable) steps a CPU copy on the gradients the card's update read,
+    and every parameter, Adam moment and step count of the card's state
+    is within rtol 1e-4 / atol 1e-6 of the CPU's (`chip_smoke.
+    hold_update_to_cpu`; the gradients themselves are held to the CPU
+    port's by test_train_step_on_card_matches_cpu_port). Then the graphed
+    state is saved on the card and restored on the CPU through
+    `restore_checkpoint`: not capturable, every tensor on the CPU and
+    bitwise the card's; the CPU port's loss on the next batch is the
+    card's next call's (rtol 1e-4), and the resumed CPU Adam stepped on
+    that call's gradients matches the card's update. Last, the CPU's
+    checkpoint is restored on the card (capturable, tensors on the card,
+    bitwise the CPU's) and its next update matches the CPU Adam's."""
+    import chip_smoke
+    from mmnc_tpu_torch.train import make_multi_train_step
+    from mmnc_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+
+    batches = _graph_batches(device, 6)
+    rng = np.random.default_rng(12)
+    probe = _graph_model("cpu")
+    noises = [{k: torch.from_numpy(rng.uniform(-0.5, 0.5, s).astype(
+        np.float32)).to(device) for k, s in probe.latent_shapes(b).items()}
+        for b in batches]
+
+    def fresh(on):
+        model = _graph_model(on)
+        return model, create_train_state(model, 10, 1e-4, 1e-3)
+
+    def cpu_twin(model):
+        twin, twin_state = fresh("cpu")
+        twin.load_state_dict(model.state_dict())
+        return twin, twin_state
+
+    def same_state(a, a_state, b, b_state, on):
+        assert a_state.step == b_state.step
+        for (name, p), q in zip(a.named_parameters(), b.parameters()):
+            assert q.device.type == on and torch.equal(p.cpu(), q.cpu())
+            got, want = b_state.optimizer.state[q], a_state.optimizer.state[p]
+            assert got.keys() == want.keys(), name
+            for key, v in want.items():
+                assert got[key].device.type == on, (name, key)
+                assert torch.equal(got[key].cpu(), v.cpu()), (name, key)
+        assert all(g["capturable"] == (on == "cuda")
+                   for g in b_state.optimizer.param_groups)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphed in (False, True):
+            model, state = fresh(device)
+            twin, twin_state = cpu_twin(model)
+            if graphed:
+                multi = make_multi_train_step(model, 1, compute_metrics=True,
+                                              clip_norm=5.0)
+
+                def call(i):
+                    return multi(state, batches[i:i + 1],
+                                 noise=noises[i])[1]
+            else:
+                step = make_train_step(model, clip_norm=5.0)
+
+                def call(i):
+                    return step(state, batches[i], noise=noises[i])[1]
+            for i in range(4):
+                call(i)
+                chip_smoke.hold_update_to_cpu(model, state, twin, twin_state,
+                                              f"graphed={graphed} call {i}")
+        stats = multi.stats
+        assert (stats["eager"], stats["captures"], stats["replays"]) == \
+            (1, 1, 3)
+
+        path = save_checkpoint(str(tmp_path / "card"), state.step, model,
+                               state, {})
+        payload, _ = restore_checkpoint(path, "cpu")
+        cpu, cpu_state = fresh("cpu")
+        cpu.load_state_dict(payload["model"])
+        cpu_state.load_state_dict(payload["optimizer"])
+        same_state(model, state, cpu, cpu_state, "cpu")
+        with torch.no_grad():
+            cpu_loss = cpu.loss_and_logs(
+                {"rgb": batches[4]["rgb"].cpu()}, training=True,
+                noise={k: v.cpu() for k, v in noises[4].items()})[0]
+        logs = call(4)
+        assert stats["replays"] == 4
+        np.testing.assert_allclose(logs["train/loss"].item(),
+                                   cpu_loss.item(), rtol=1e-4)
+        chip_smoke.hold_update_to_cpu(model, state, cpu, cpu_state,
+                                      "resumed on the CPU")
+
+        path = save_checkpoint(str(tmp_path / "cpu"), cpu_state.step, cpu,
+                               cpu_state, {})
+        payload, _ = restore_checkpoint(path, device)
+        back, back_state = fresh(device)
+        back.load_state_dict(payload["model"])
+        back_state.load_state_dict(payload["optimizer"])
+        same_state(cpu, cpu_state, back, back_state, "cuda")
+        make_multi_train_step(back, 1, clip_norm=5.0)(
+            back_state, batches[5:], noise=noises[5])
+        chip_smoke.hold_update_to_cpu(back, back_state, cpu, cpu_state,
+                                      "resumed on the card")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
