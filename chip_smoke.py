@@ -29,16 +29,35 @@ Phases, each of which exits non-zero on failure:
      over the launches of an rgb and a shared4 round trip;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
-     random 256x256 rgb images; check the decode equals the eval
-     forward, the launch counts (9 GDN per compress, 2 GDN + 7 deconv+IGDN
-     per decompress) and the port against its CPU plain path on one image;
-  5. stream the same 3 batches through `stream_roundtrip` (v2, then v1):
-     per batch the bytes of the packed compress and x_hats within 1e-5 of
-     its decompress, 11 GDN and 7 deconv+IGDN launches a batch; a batch
+     random 256x256 rgb images, its device programs as CUDA graphs
+     (`mmnc_tpu_torch/graphs.py`) beside eager (`graphs.disabled()`,
+     `round_trips`): under deterministic cuDNN the graphed trips (a
+     warm-up, a capture, a replay) give the eager trips' streams and
+     bitwise their x_hats; then each mode's MP/s, a profiled trip's
+     device ms and busy share, the captures' ms and the peak memory; the
+     launch counts (9 GDN per compress, 2 GDN + 7 deconv+IGDN per
+     decompress: through the wrappers for an eager call, a warm-up or a
+     capture, none for a replay, whose profiled graph records hold them);
+     check the decode equals the eval forward and the port against its
+     CPU plain path on one image. The serving graphs' replays are counted
+     as their captures counted them (`tally_graph_launches`: `counts()`
+     adds them to the wrappers' counters);
+stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
+     decompress's synthesis and the eval step captured, then an eager
+     Adam step and a load_state_dict of another seed's weights; after
+     each the next replays equal the eager programs on the new
+     parameters bitwise (deterministic cuDNN);
+  5. stream the same 3 batches through `stream_roundtrip` (v2, then v1),
+     graphed beside eager (`stream_layouts`): the graphed stream bitwise
+     equal to the eager one under deterministic cuDNN; per batch the
+     bytes of the packed compress and x_hats within 1e-5 of its
+     decompress, 11 GDN and 7 deconv+IGDN launches a batch (graphed: in
+     the replays' graph records, none through the wrappers); a batch
      whose fused program reports max_abs = 2^15 takes the int32 path and
-     still round-trips. Print each layout's wall time, device time and
-     busy share (torch.profiler) and its host split by pipeline stage
-     (the streaming module's record_function spans, timed). After phase
+     still round-trips. Print each layout's and mode's wall time, device
+     time and busy share (torch.profiler), captures' ms, peak memory and
+     host split by pipeline stage (the streaming module's record_function
+     spans, timed). After phase
      8 the same at shared4 on phase 8's 3 batches of 8 (every task's
      x_hat; 35 GDN and 28 deconv+IGDN launches a batch), its MP/s and
      busy share beside phase 8's compress -> decompress, the int32
@@ -89,15 +108,18 @@ Phases, each of which exits non-zero on failure:
      compress -> decompress on 3 batches of 8, decode vs eval forward
      (atol 1e-5), 27 GDN a compress and 8 GDN + 28 deconv+IGDN a
      decompress, MP/s, and one profiled round trip's device time and busy
-     share; compress_partial -> decompress_tasks(["rgb"]) (2 + 7 launches)
-     and (["semantic", "depth_euclidean"]) (4 + 14) against the full
-     decode; the container (partial and full) written, read back and
+     share, graphed beside eager as phase 4's; compress_partial ->
+     decompress_tasks(["rgb"]) (2 + 7 launches) and (["semantic",
+     "depth_euclidean"]) (4 + 14), a warm-up, a capture and a replay each
+     bitwise equal to the eager decode (deterministic cuDNN), against the
+     full decode; the container (partial and full) written, read back and
      decoded as without the file; the card against the CPU plain path on
      one image; one train step at batch 2 against the CPU's (phase 7's
      tolerances; 63 GDN launches). Then mixed (model 2, latent 300, conv
      32) and disjoint (model 3, latent 300, conv 42), one batch of 8 each:
      round trip, launch counts (21 GDN a compress; 6 GDN + 15 and 21
-     deconv+IGDN a decompress), card against CPU. Then phase 5 at shared4
+     deconv+IGDN a decompress), three graphed trips bitwise equal to the
+     eager one, card against CPU. Then phase 5 at shared4
      (above) and the reference import: the seed-0 shared4 model's
      state_dict with CompressAI's buffers, as a Lightning checkpoint,
      imported into a model of another seed on the card; its round trip
@@ -113,7 +135,9 @@ Phases, each of which exits non-zero on failure:
      capture, then graph replays, 63 GDN launches counted for the first
      two and none for a replay, whose 63 GDN kernel records come from its
      graph (steps 5-10's trace); the eval forward's 35 GDN + 28
-     deconv+IGDN a validation step (MT_LAUNCHES), steps/s and images/s
+     deconv+IGDN a validation step (MT_LAUNCHES; the eval step graphed:
+     a warm-up, a capture, replays, whose graph records in steps 5-10's
+     trace hold 35 + 28 each), steps/s and images/s
      (StepTimer p50),
      the loader's wait a step, the profiled steps' device time and busy
      share, peak memory, checkpoint save ms; `fit` to the middle and
@@ -123,7 +147,9 @@ Phases, each of which exits non-zero on failure:
      as a DeviceResidentDataset (batches bitwise equal to the CPU port's,
      4 fit steps without the prefetch queue); the train CLI again under
      deterministic cuDNN as an eager reference (the loop's multi-step
-     made of eager steps) and graphed at K = 1 and at --steps-per-call
+     made of eager steps, the serving programs and the eval step under
+     `graphs.disabled()`; the graphed runs' validation logs equal to its)
+     and graphed at K = 1 and at --steps-per-call
      CLI_K (final parameters within 1e-6 x max|p| of the eager run's,
      logged steps 0, 4, 8, 12, 63 x K GDN a call counted or, replayed,
      from the profiler's graph records; StepTimer p50, images/s and the
@@ -163,12 +189,15 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
      2^-7 (GDN) and 2^-6 (deconv+IGDN) x max(1, |plain|max), bitwise
      repeatable, timed, the bound at 2 bytes an activation value; the
      rgb codec at bench width on phase 4's batches: decode bitwise
-     equal to the eval forward (deterministic cuDNN), compress -> decompress with phase 4's launch counts, MP/s and
-     one profiled round trip's device ms, busy share and cuDNN's share
-     beside phase 4's float32 codec measured here, both stream layouts
-     (bytes equal compress's, x_hats within 2^-4 of decompress's largest
-     value), card vs CPU on one image (2^-4 of the largest value);
-     shared4's round trip at batch 8 beside phase 8's;
+     equal to the eval forward (deterministic cuDNN), compress ->
+     decompress graphed beside eager as phase 4's (`round_trips`), MP/s
+     beside phase 4's float32 codec's and one profiled round trip's
+     device ms, busy share and cuDNN's share beside it measured here, both
+     stream layouts (bitwise equal to decompress under deterministic
+     cuDNN; `stream_layouts`: graphed beside eager, bytes equal
+     compress's, x_hats within 2^-4 of decompress's largest value), card
+     vs CPU on one image (2^-4 of the largest value); shared4's round trip
+     at batch 8 graphed beside eager, beside phase 8's;
      phase 7's train step in bf16 for BF16_TRAIN_STEPS steps on one batch
      (18 GDN a step, the loss falls, parameters and loss float32), its
      step wall, peak memory and one profiled step (device ms, GDN, its
@@ -183,8 +212,9 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
      3's times summed over them; p5_shared4_*, cli_k4_*, p10_compress_*
      and import_launches: the same for phase 5's shared4 stream, phase
      9's K-step run, phase 10 (d) and the import's round trip; bf16: the
-     bf16 phase's launches and sums) and, last, {"ok": true, "device":
-     {"platform": "gpu", "kind": ..., "count": ...}}.
+     bf16 phase's launches and sums; graphed_trip: phase 4's and phase 8's
+     profiled replays' graph records and device ms) and, last, {"ok":
+     true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--dp-cards N` runs only phase 10 (c) and (d)
@@ -197,7 +227,12 @@ TREE` runs only phase 3's deconv+IGDN checks and times, in float32 and
 bf16, at every launch shape of an rgb and a shared4 round trip of a
 batch of BATCH, on the `mmnc_tpu_torch` of the checkout at TREE ("." for
 this one), and prints one JSON line of them: run it on two checkouts in
-turns within one call to compare their kernels on one card. `--profile DIR`
+turns within one call to compare their kernels on one card.
+`--profile-windows N` runs only N rounds of profiled rgb train steps
+(phase 7's model and batch), each round one step in a window whose work
+starts at once and one in a window held open PROFILE_WAIT_S first, and
+prints one JSON line: the windows of each kind in which the profiler lost
+launches' records (`lost_launches`). `--profile DIR`
 also writes torch.profiler summaries
 of one round trip, of each layout's streamed run, of one train step, of
 a shared4 round trip and phase 9's trace of the CLI's steps 5-10 to DIR.
@@ -232,6 +267,11 @@ DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 # window's kernel records (5 of ~70 windows in one chip_smoke run); such a
 # window is measured again, up to this many times
 TIMING_TRIES = 10
+# CUPTI also loses, now and then, the records of the first launches of a
+# window opened with fn's work right behind it (a train step's first 2-14
+# launches; `--profile-windows` counts such windows); `profiled` holds the
+# window open this long on the host before fn and after it
+PROFILE_WAIT_S = 0.01
 
 IMAGE = 256
 LATENT = 128
@@ -261,9 +301,10 @@ PAPER = {"shared4": (4, TASKS3 + ("semantic",), 300, 42),
 MT_TRAIN_BATCH = 2
 # phase 9: the train and compress CLIs at shared4 on CLEVR-style synthetic
 # scenes: 2 epochs of 8 batches of 16 (mmnc_tpu/cli/train.py's batch),
-# validation on one batch; the compress CLI's bytes held against the CPU
-# port's on a batch of 4
-CLI_TRAIN_SIZE, CLI_VAL_SIZE, CLI_BATCH, CLI_EPOCHS = 128, 16, 16, 2
+# validation on three batches (the eval step's warm-up, capture and a
+# replay in the first validation); the compress CLI's bytes held against
+# the CPU port's on a batch of 4
+CLI_TRAIN_SIZE, CLI_VAL_SIZE, CLI_BATCH, CLI_EPOCHS = 128, 48, 16, 2
 CLI_COMPARE_BATCH = 4
 CLI_DEVICE = "cuda"
 # phase 9: the train CLI with --steps-per-call CLI_K against K = 1, and
@@ -925,10 +966,25 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
     return totals, max_err_seen
 
 
-def counts():
+# the port's kernel launches that the serving programs' CUDA graphs made in
+# their replays, which the wrappers never see (`tally_graph_launches`)
+REPLAYED = {"gdn": 0, "deconv_igdn": 0}
+
+
+def wrapper_counts():
+    """The kernel wrappers' launch counters: a graph's capture counts its
+    kernels once, a replay never."""
     from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
     from mmnc_tpu_torch.ops.gdn import gdn_cuda
     return {"gdn": gdn_cuda.launches, "deconv_igdn": deconv_igdn_cuda.launches}
+
+
+def counts():
+    """The kernels' launches: the wrappers' counters plus the launches the
+    serving programs' graphs made in their replays (REPLAYED). The train
+    call's graphs are not in them: their replays are added from the
+    counted calls (`graph_launched`)."""
+    return {k: n + REPLAYED[k] for k, n in wrapper_counts().items()}
 
 
 def reset_counts():
@@ -936,6 +992,41 @@ def reset_counts():
     from mmnc_tpu_torch.ops.gdn import gdn_cuda
     gdn_cuda.launches = 0
     deconv_igdn_cuda.launches = 0
+    for k in REPLAYED:
+        REPLAYED[k] = 0
+
+
+def tally_graph_launches():
+    """Make each serving graph (`graphs._Graph`) keep the kernel launches
+    the wrappers counted during its capture, which are the kernels its
+    graph holds, and add them to REPLAYED at each replay but the one that
+    follows the capture in the same call (a capture call counts once, as
+    the train call's: `graph_launched`). Profiled replays hold that count
+    to the graph's kernel records (`graph_launches`)."""
+    from mmnc_tpu_torch import graphs
+
+    cls = graphs._Graph
+    if getattr(cls, "tallied", False):
+        return
+    init, replay = cls.__init__, cls.replay
+
+    def counted_init(self, *args, **kwargs):
+        before = wrapper_counts()
+        init(self, *args, **kwargs)
+        after = wrapper_counts()
+        self.launched = {k: after[k] - before[k] for k in after}
+        self.captured = True
+
+    def counted_replay(self, *args, **kwargs):
+        out = replay(self, *args, **kwargs)
+        if self.captured:
+            self.captured = False
+        else:
+            for k, n in self.launched.items():
+                REPLAYED[k] += n
+        return out
+
+    cls.__init__, cls.replay, cls.tallied = counted_init, counted_replay, True
 
 
 def seeded_model(device, seed, conv=CONV, dtype=None):
@@ -963,7 +1054,7 @@ def random_batches(torch, n, seed):
         for _ in range(n)]
 
 
-def run_model(torch, profile_dir):
+def run_model(torch, profile_dir, card):
     model = seeded_model("cuda", SEED)
     batches = random_batches(torch, BATCHES, SEED)
 
@@ -983,31 +1074,11 @@ def run_model(torch, profile_dir):
             raise RuntimeError("eval forward: likelihood <= 0")
         refs.append(rec)
 
-    ans, _ = model.compress(batches[0])  # warm-up: cuDNN heuristics, coder
-    model.decompress(ans)
-    torch.cuda.synchronize()
-
-    reset_counts()
-    per_call, outs, n_bytes = [], [], 0
-    t0 = time.perf_counter()
-    for batch in batches:
-        c0 = counts()
-        ans, nb = model.compress(batch)
-        c1 = counts()
-        outs.append(model.decompress(ans)["rgb"])
-        torch.cuda.synchronize()
-        c2 = counts()
-        per_call.append(({k: c1[k] - c0[k] for k in c0},
-                         {k: c2[k] - c1[k] for k in c0}))
-        n_bytes += nb
-    seconds = time.perf_counter() - t0
-    launches = counts()
-
-    for enc, dec in per_call:
-        if enc != {"gdn": 9, "deconv_igdn": 0} or \
-                dec != {"gdn": 2, "deconv_igdn": 7}:
-            raise RuntimeError(f"launch counts: compress {enc}, "
-                               f"decompress {dec}")
+    trips = round_trips(torch, model, batches,
+                        {"compress": (9, 0), "decompress": (2, 7)}, "rgb")
+    outs = [o["rgb"] for o in trips["outs"]]
+    n_bytes, launches = trips["n_bytes"], trips["graphed"]["launches"]
+    seconds = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / trips["graphed"]["mps"]
     if n_bytes <= 0:
         raise RuntimeError("no bytes coded")
     # decode runs the same layers on the same y_hat as the eval forward, but
@@ -1019,15 +1090,19 @@ def run_model(torch, profile_dir):
 
     images = BATCH * BATCHES
     print(f"model rgb latent={LATENT} conv={CONV} {IMAGE}px batch={BATCH} "
-          f"batches={BATCHES}: round trip {seconds:.4f} s, "
+          f"batches={BATCHES}: round trip {seconds:.4f} s (graphed replays), "
           f"{images * IMAGE * IMAGE / 1e6 / seconds:.3f} MP/s, "
           f"{n_bytes / images:.2f} bytes/image, decode vs eval forward max "
-          f"abs err {dec_err:.3e}")
+          f"abs err {dec_err:.3e}; graphed trips equal the eager ones "
+          f"(deterministic cuDNN: streams, bytes, x_hats bitwise); launches "
+          f"{launches} (a warm-up and a capture counted, replays in graphs: "
+          f"{trips['graphed']['profile']['graph']} a profiled replay)")
+    print_modes(f"model rgb batch={BATCH} x {BATCHES}", trips, card)
     check_against_cpu(torch, model, seeded_model("cpu", SEED),
                       {"rgb": batches[0]["rgb"][:1]}, f"conv {CONV}")
     if profile_dir:
         profile_round_trip(torch, model, batches[0], profile_dir)
-    return launches, model, batches
+    return launches, model, batches, trips
 
 
 def check_against_cpu(torch, model, cpu, batch, what, rtol=1e-3, atol=1e-4):
@@ -1084,6 +1159,78 @@ class SpanTimer:
         self.streaming._span = self.span
 
 
+def lost_calls(events):
+    """The kernel or graph launch calls of a chrome trace that no device
+    record shares a correlation id with (CUPTI lost their records)."""
+    kept = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in DEVICE_WORK}
+    return [e for e in events if e.get("cat", "").startswith("cuda_")
+            and ("LaunchKernel" in e["name"] or "GraphLaunch" in e["name"])
+            and e.get("args", {}).get("correlation") not in kept]
+
+
+def lost_launches(events):
+    """How many launch calls of a chrome trace lost their records."""
+    return len(lost_calls(events))
+
+
+def lost_where(events):
+    """{"<call> in <innermost CPU span of its thread>": n} of the launch
+    calls whose records were lost."""
+    spans = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
+    out = {}
+    for call in lost_calls(events):
+        inner = [e for e in spans if (e["pid"], e["tid"]) == (
+            call["pid"], call["tid"]) and e["ts"] <= call["ts"] <= e["ts"]
+            + e["dur"]]
+        where = min(inner, key=lambda e: e["dur"])["name"] if inner else "-"
+        key = f"{call['name']} in {where}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def profiled(torch, fn, trace=None, tries=TIMING_TRIES, wait=PROFILE_WAIT_S,
+             complete=None):
+    """fn() once under torch.profiler (CPU and CUDA) -> {"out": fn's
+    result, "wall": its seconds (synchronised), "events": the chrome
+    trace's, "prof": the profiler, "lost": `lost_launches`}; the trace is
+    written to `trace` if given. The window stays open `wait` seconds on
+    the host before fn and after it. A trace that lost launches' records
+    and fails `complete(events)`, the caller's check of its records, is
+    taken again, up to `tries` times in all (1 where running fn again
+    would change what the caller checks); the last is returned, and the
+    caller's check then fails with "lost" beside it. A trace that lost
+    records but passes the check, or whose records the caller does not
+    check, is kept: some windows lose one launch's records in every take.
+    Each lost launch is printed with the CPU span that made it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     ) as prof:
+            time.sleep(wait)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(wait)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = trace or os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        lost = lost_launches(events)
+        if lost:
+            print(f"profiled: the trace lost the records of {lost} launch "
+                  f"calls ({json.dumps(lost_where(events))})")
+        if (not lost or complete is None or complete(events)
+                or attempt == tries - 1):
+            return {"out": out, "wall": wall, "events": events, "prof": prof,
+                    "lost": lost}
+        print("profiled: the caller's check fails on it; measuring again")
+
+
 def busy_us(events):
     """Microseconds in which the device ran at least one record (the
     copy stream overlaps the compute stream)."""
@@ -1129,87 +1276,121 @@ def check_stream(what, results, refs, tol=1e-5):
 
 
 def stream_layouts(torch, model, batches, refs, per_batch, label,
-                   profile_dir, tol=1e-5, exact_refs=None):
-    """Each stream layout over `batches` after a warm-up: a timed run
-    (its launches, `per_batch` a batch, and MP/s counting each 256 x 256
-    image once), then a profiled run (device busy share, host ms by
-    pipeline stage), both against compress/decompress (`refs`, x_hats
-    within `tol`). Given `exact_refs` (compress/decompress under
-    deterministic cuDNN), the warm-up runs under deterministic cuDNN too
-    and its x_hats must equal them bitwise. Returns {impl: {"mps", "busy",
-    "launches", "err"}}: "err" the timed and profiled runs' largest x_hat
-    error."""
-    from torch.profiler import ProfilerActivity, profile
-
+                   profile_dir, card, tol=1e-5):
+    """Each stream layout over `batches`, graphed beside eager
+    (`graphs.disabled()`). First, under deterministic cuDNN, the graphed
+    stream (a warm-up, a capture, a replay) against the eager stream:
+    the same bytes and bitwise the same x_hats. Then, for each mode under
+    cuDNN's default, after a warm-up stream (graphed: the programs' warm-up,
+    capture and a replay): a timed run (MP/s counting each 256 x 256 image
+    once; `per_batch` launches a batch: eager through the wrappers,
+    graphed none through them and as many in the replays' graphs), then a
+    profiled run (device ms and busy share; host ms by pipeline stage;
+    graphed: `per_batch` graph records a batch, eager: none), both
+    against compress/decompress (`refs`, x_hats within `tol`), the
+    captures' host ms and the peak memory. Returns {impl: {mode: {"mps",
+    "busy", "device_ms", "capture_ms", "peak", "launches", "err"}}}:
+    "err" the timed and profiled runs' largest x_hat error, "launches"
+    the timed run's (`counts()`, replays included)."""
+    from mmnc_tpu_torch import graphs
     from mmnc_tpu_torch.models import streaming
 
     out = {}
     for impl in streaming.IMPLS:
-        if exact_refs is not None:
-            deterministic = torch.backends.cudnn.deterministic
-            torch.backends.cudnn.deterministic = True
-            try:
+        with cudnn_deterministic(torch):
+            with graphs.disabled():
+                eager = list(streaming.stream_roundtrip(model, batches,
+                                                        impl=impl))
+            graphed = list(streaming.stream_roundtrip(model, batches,
+                                                      impl=impl))
+            torch.cuda.synchronize()
+        for k, ((x, n), (ex, en)) in enumerate(zip(graphed, eager)):
+            if n != en:
+                raise RuntimeError(f"stream {impl} {label} batch {k}: "
+                                   f"graphed {n} bytes, eager {en}")
+            same_outputs(torch, x, ex, f"stream {impl} {label} batch {k} "
+                                       f"graphed against eager")
+        del eager, graphed
+        want = {k: n * len(batches) for k, n in per_batch.items()}
+        out[impl] = {}
+        for mode in ("graphed", "eager"):
+            with (graphs.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                marks = capture_marks(graphs, model)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                # warm-up: every slot's pinned buffers, the coder thread's
+                # plans, the programs' warm-up and capture
+                list(streaming.stream_roundtrip(model, batches, impl=impl))
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
                 results = list(streaming.stream_roundtrip(model, batches,
                                                           impl=impl))
                 torch.cuda.synchronize()
-            finally:
-                torch.backends.cudnn.deterministic = deterministic
-            check_stream(f"{impl} {label} (deterministic cuDNN)", results,
-                         exact_refs, 0.0)
-            del results
-        # warm-up: every slot's pinned buffers, the coder thread's plans
-        list(streaming.stream_roundtrip(model, batches, impl=impl))
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        results = list(streaming.stream_roundtrip(model, batches, impl=impl))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = counts()
-        want = {k: n * len(batches) for k, n in per_batch.items()}
-        if launches != want:
-            raise RuntimeError(f"stream {impl} {label}: launches {launches},"
-                               f" want {want} ({per_batch} a batch)")
-        err = check_stream(impl, results, refs, tol)
-        del results
-        images = BATCH * len(batches)
-        with SpanTimer(streaming) as spans, profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                ) as prof:
-            t1 = time.perf_counter()
-            results = list(streaming.stream_roundtrip(model, batches,
-                                                      impl=impl))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        err = max(err, check_stream(impl, results, refs, tol))
-        del results
-        with tempfile.TemporaryDirectory() as tmp:
-            trace = os.path.join(profile_dir or tmp,
-                                 f"stream_{label.split()[0]}_{impl}_trace"
-                                 f".json")
-            if profile_dir:
-                os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(trace)
-            with open(trace) as f:
-                events = [e for e in json.load(f)["traceEvents"]
-                          if e.get("cat") in DEVICE_WORK]
-        busy = busy_us(events) / 1e3
-        split = {name.split(".", 1)[1]: round(t * 1e3 / len(batches), 5)
-                 for name, t in sorted(spans.totals.items())}
-        mps = images * IMAGE * IMAGE / 1e6 / seconds
-        print(f"stream {impl} {label} {IMAGE}px batch={BATCH} "
-              f"batches={len(batches)}: {seconds:.4f} s, {mps:.3f} MP/s, "
-              f"launches {launches}, bytes/image "
-              f"{sum(n for n, _ in refs) / images:.2f}; profiled: wall "
-              f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
-              f"({busy / (wall * 1e3):.3f} of wall), device records "
-              f"{sum(e['dur'] for e in events) / 1e3:.3f} ms in "
-              f"{len(events)}; x_hats vs decompress max abs err {err:.4g}"
-              f"{' (bitwise under deterministic cuDNN)' if exact_refs else ''}")
-        print(f"stream {impl} {label.split()[0]} host ms per batch by stage "
-              f"(summed over threads): {json.dumps(split)}")
-        out[impl] = {"mps": mps, "busy": busy / (wall * 1e3),
-                     "launches": launches, "err": err}
+                seconds = time.perf_counter() - t0
+                launches, wrapped = counts(), wrapper_counts()
+                if launches != want or wrapped != (
+                        want if mode == "eager" else ZERO):
+                    raise RuntimeError(
+                        f"stream {impl} {label} {mode}: launches {launches}"
+                        f" ({wrapped} through the wrappers), want {want} "
+                        f"({per_batch} a batch)")
+                err = check_stream(impl, results, refs, tol)
+                del results
+                images = BATCH * len(batches)
+
+                def timed_stream():
+                    with SpanTimer(streaming) as spans:
+                        return list(streaming.stream_roundtrip(
+                            model, batches, impl=impl)), spans
+
+                trace = None
+                if profile_dir:
+                    os.makedirs(profile_dir, exist_ok=True)
+                    trace = os.path.join(profile_dir,
+                                         f"stream_{label.split()[0]}_{impl}_"
+                                         f"{mode}_trace.json")
+                expect = want if mode == "graphed" else ZERO
+                run = profiled(torch, timed_stream, trace, complete=lambda ev:
+                               graph_launches(ev) == expect)
+                (results, spans), wall = run["out"], run["wall"]
+                err = max(err, check_stream(impl, results, refs, tol))
+                del results
+                peak = torch.cuda.max_memory_allocated()
+                captured = capture_ms(graphs, model, marks)
+            trace_events = run["events"]
+            events = [e for e in trace_events
+                      if e.get("cat") in DEVICE_WORK]
+            graph = graph_launches(trace_events)
+            if graph != expect:
+                raise RuntimeError(f"stream {impl} {label} {mode}: the "
+                                   f"profiled run's graph records {graph}, "
+                                   f"want {expect} (the profiler lost the "
+                                   f"records of {run['lost']} launch calls)")
+            busy = busy_us(events) / 1e3
+            device = sum(e["dur"] for e in events) / 1e3
+            split = {name.split(".", 1)[1]: round(t * 1e3 / len(batches), 5)
+                     for name, t in sorted(spans.totals.items())}
+            mps = images * IMAGE * IMAGE / 1e6 / seconds
+            print(f"stream {impl} {label} {mode} {IMAGE}px batch={BATCH} "
+                  f"batches={len(batches)} ({card}): {seconds:.4f} s, "
+                  f"{mps:.3f} MP/s, launches {launches} ({wrapped} through "
+                  f"the wrappers), bytes/image "
+                  f"{sum(n for n, _ in refs) / images:.2f}; profiled: wall "
+                  f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+                  f"({busy / (wall * 1e3):.3f} of wall), device records "
+                  f"{device:.3f} ms in {len(events)}, graph records {graph};"
+                  f" captures {captured:.3f} ms, peak memory "
+                  f"{peak / 2 ** 30:.3f} GiB; x_hats vs decompress max abs "
+                  f"err {err:.4g}; graphed stream equal to the eager one "
+                  f"(deterministic cuDNN: bytes, x_hats bitwise)")
+            print(f"stream {impl} {label.split()[0]} {mode} host ms per batch "
+                  f"by stage (summed over threads): {json.dumps(split)}")
+            out[impl][mode] = {"mps": mps, "busy": busy / (wall * 1e3),
+                               "device_ms": device, "capture_ms": captured,
+                               "peak": peak, "launches": launches,
+                               "err": err}
     return out
 
 
@@ -1245,18 +1426,20 @@ def stream_fallback(torch, model, batches, refs, label):
           f"bytes and x_hats equal compress/decompress")
 
 
-def run_streaming(torch, model, batches, profile_dir):
-    """Phase 5: both stream layouts of the rgb codec against
-    compress/decompress, their launch counts, the int32 fallback, and
-    each layout's time split."""
+def run_streaming(torch, model, batches, profile_dir, card):
+    """Phase 5: both stream layouts of the rgb codec, graphed beside
+    eager, against compress/decompress, their launch counts, the int32
+    fallback, and each layout's time split."""
     refs = stream_refs(torch, model, batches)
-    stream_layouts(torch, model, batches, refs,
-                   {"gdn": 11, "deconv_igdn": 7},
-                   f"rgb latent={LATENT} conv={CONV}", profile_dir)
+    runs = stream_layouts(torch, model, batches, refs,
+                          {"gdn": 11, "deconv_igdn": 7},
+                          f"rgb latent={LATENT} conv={CONV}", profile_dir,
+                          card)
     stream_fallback(torch, model, batches, refs, "rgb")
+    return runs
 
 
-def run_mt_streaming(torch, profile_dir, mt):
+def run_mt_streaming(torch, profile_dir, mt, card):
     """Phase 5 at shared4 (after phase 8, whose compress -> decompress it
     is printed beside): both layouts on phase 8's 3 batches of 8
     (`stream_layouts`: a compress's and a decompress's launches a batch,
@@ -1274,13 +1457,17 @@ def run_mt_streaming(torch, profile_dir, mt):
                  + MT_LAUNCHES[name]["decompress"][i]
                  for i, k in enumerate(("gdn", "deconv_igdn"))}
     runs = stream_layouts(torch, model, batches, refs, per_batch,
-                          f"{name} {PAPER[name]}", profile_dir)
+                          f"{name} {PAPER[name]}", profile_dir, card)
     stream_fallback(torch, model, batches, refs, name)
-    print(f"p5 {name} batch={BATCH} x {BATCHES}: stream v2 "
-          f"{runs['v2']['mps']:.3f} MP/s (busy {runs['v2']['busy']:.3f}), "
-          f"v1 {runs['v1']['mps']:.3f} MP/s (busy {runs['v1']['busy']:.3f});"
-          f" phase 8's compress -> decompress {mt['mps']:.3f} MP/s (busy "
-          f"{mt['busy_ms'] / mt['wall_ms']:.3f} of one profiled round trip)")
+    for mode in ("graphed", "eager"):
+        trip = mt["trips"][mode]
+        print(f"p5 {name} batch={BATCH} x {BATCHES} {mode}: stream v2 "
+              f"{runs['v2'][mode]['mps']:.3f} MP/s (busy "
+              f"{runs['v2'][mode]['busy']:.3f}), v1 "
+              f"{runs['v1'][mode]['mps']:.3f} MP/s (busy "
+              f"{runs['v1'][mode]['busy']:.3f}); phase 8's compress -> "
+              f"decompress {trip['mps']:.3f} MP/s (busy {trip['busy']:.3f} "
+              f"of one profiled round trip)")
     del model, batches, refs
     for other in ("mixed", "disjoint"):
         m = paper_model(other, "cuda")
@@ -1294,7 +1481,67 @@ def run_mt_streaming(torch, profile_dir, mt):
                   f"err {err:.3e}")
         del m
     print(f"p5 multi-task streams: {time.perf_counter() - t0:.3f} s")
-    return runs["v2"]["launches"]
+    return runs["v2"]["graphed"]["launches"], runs
+
+
+def check_stale_parameters(torch, card):
+    """The stale-parameter hazard, under deterministic cuDNN: phase 4's
+    rgb codec, its decompress's synthesis (`_decompress_synthesize` on a
+    batch's y_hat) and its eval step warmed up and captured; then one
+    eager Adam step (`make_train_step`) and one `load_state_dict` of
+    another seed's weights change the parameters in place. After each,
+    the next call of each replays its graph (no new warm-up), equals the
+    eager program on the new parameters bitwise and differs from the
+    call before the change."""
+    from mmnc_tpu_torch import graphs
+    from mmnc_tpu_torch.train import (create_train_state, make_eval_step,
+                                      make_train_step)
+
+    t0 = time.perf_counter()
+    model = seeded_model("cuda", SEED)
+    batch = random_batches(torch, 1, SEED + 3)[0]
+    with cudnn_deterministic(torch):
+        with graphs.disabled():
+            y_hat = model._compress_device(batch)[0].float()
+        step = make_eval_step(model)
+        calls = {"_decompress_synthesize":
+                 lambda: model._decompress_synthesize(y_hat),
+                 "eval_step": lambda: step(batch)}
+        previous = {}
+        for name, call in calls.items():
+            for _ in range(2):  # a warm-up, a capture
+                previous[name] = call()
+        state = create_train_state(model, TRAIN_STEPS)
+        train = make_train_step(model, clip_norm=CLIP)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        other = seeded_model("cpu", SEED + 1).state_dict()
+        for update in ("an eager Adam step", "load_state_dict"):
+            if update == "load_state_dict":
+                model.load_state_dict(other)
+            else:
+                train(state, batch, gen)
+            for name, call in calls.items():
+                stats = graphs.stats(model, name)
+                before = dict(stats)
+                got = call()
+                torch.cuda.synchronize()
+                if call_kind(stats, before) != "replay":
+                    raise RuntimeError(f"{name} after {update}: not a "
+                                       f"replay ({before} -> {stats})")
+                with graphs.disabled():
+                    want = call()
+                same_outputs(torch, got, want,
+                             f"{name} replayed after {update}")
+                if all(torch.equal(a, b) for a, b in
+                       zip(leaves(got), leaves(previous[name]))):
+                    raise RuntimeError(f"{name} after {update}: the same "
+                                       f"result as before it")
+                previous[name] = got
+    print(f"stale parameters ({card}; deterministic cuDNN): the rgb "
+          f"decompress's synthesis and the eval step, captured, replay "
+          f"after an eager Adam step and after a load_state_dict bitwise "
+          f"equal to the eager programs on the new parameters; "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def run_widths(torch):
@@ -1466,34 +1713,34 @@ def outermost_spans(events, match):
 def profile_train_step(torch, step, state, batch, gen, profile_dir):
     """torch.profiler over one train step -> (wall ms, device ms, busy ms,
     GDN kernel ms and launches, closed-form backward ms and autograd
-    nodes, conv ms). The closed form's device records are those launched
-    inside the GDNFunction node's span on the autograd engine's thread."""
-    from torch.profiler import ProfilerActivity, profile
-
+    nodes, conv ms, the launch calls whose records the profiler lost).
+    The closed form's device records are those launched inside the
+    GDNFunction node's span on the autograd engine's thread. A trace that
+    lost records and misses a GDN kernel record or node is taken again
+    with one more step (the state is not checked after this)."""
     def gdn_backward(name):
         return name.endswith("GDNFunctionBackward")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(profile_dir or tmp, "train_step_trace.json")
-        if profile_dir:
-            os.makedirs(profile_dir, exist_ok=True)
-            with open(os.path.join(profile_dir, "train_step_profile.txt"),
-                      "w") as f:
-                f.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                                  row_limit=50))
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
+    def gdn_kernels(events):
+        return [e for e in events if e.get("cat") == "kernel"
+                and "gdn_kernel" in e["name"] and "deconv" not in e["name"]]
+
+    want = TRAIN_LAUNCHES["train"]["gdn"]
+    trace = None
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(profile_dir, "train_step_trace.json")
+    run = profiled(torch, lambda: step(state, batch, gen), trace,
+                   complete=lambda ev: len(gdn_kernels(ev)) == want
+                   == outermost_spans(ev, gdn_backward))
+    events, wall = run["events"], run["wall"]
+    if profile_dir:
+        with open(os.path.join(profile_dir, "train_step_profile.txt"),
+                  "w") as f:
+            f.write(run["prof"].key_averages().table(
+                sort_by="cuda_time_total", row_limit=50))
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
-    gdn = [e for e in device if e.get("cat") == "kernel"
-           and "gdn_kernel" in e["name"] and "deconv" not in e["name"]]
+    gdn = gdn_kernels(device)
     backward = launched_in_spans(events, gdn_backward)
     spans = outermost_spans(events, gdn_backward)
     conv = launched_in_spans(events, lambda n: n.startswith(
@@ -1503,7 +1750,7 @@ def profile_train_step(torch, step, state, batch, gen, profile_dir):
             "busy_ms": busy_us(device) / 1e3, "records": len(device),
             "gdn_ms": sum(e["dur"] for e in gdn) / 1e3, "gdn_kernels": len(gdn),
             "gdn_backward_ms": backward / 1e3, "gdn_backward_spans": spans,
-            "conv_ms": conv / 1e3}
+            "conv_ms": conv / 1e3, "lost": run["lost"]}
 
 
 def run_train(torch, profile_dir):
@@ -1585,7 +1832,9 @@ def run_train(torch, profile_dir):
     if prof["gdn_kernels"] != want or prof["gdn_backward_spans"] != want:
         raise RuntimeError(f"train profile: {prof['gdn_kernels']} GDN kernel "
                            f"records and {prof['gdn_backward_spans']} "
-                           f"GDNFunction backward nodes, want {want} each")
+                           f"GDNFunction backward nodes, want {want} each "
+                           f"(the profiler lost the records of "
+                           f"{prof['lost']} launch calls)")
     print(f"train step profile: wall {prof['wall_ms']:.3f} ms, device "
           f"{prof['device_ms']:.3f} ms in {prof['records']} records, busy "
           f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.3f}"
@@ -1715,7 +1964,7 @@ def graphed_vs_eager(torch, build, batch, k, calls, remat=False,
                 if timed and i == calls - 1:
                     reset_counts()
                     run["profile"] = profile_device(
-                        torch, lambda: out.append(call()))
+                        torch, lambda: out.append(call()), tries=1)
                     run["launches"].append(counts())
                 else:
                     torch.cuda.synchronize()
@@ -1756,7 +2005,8 @@ def graphed_vs_eager(torch, build, batch, k, calls, remat=False,
                            f"launched {graphed['profile']['graph']} (all "
                            f"kernel records "
                            f"{graphed['profile']['kernels']}), want "
-                           f"{per_call}")
+                           f"{per_call}; the profiler lost the records of "
+                           f"{graphed['profile']['lost']} launch calls")
     losses = torch.stack([torch.stack(r["losses"]) for r in
                           (eager, graphed)]).cpu()
     if losses.dtype != torch.float32 or not torch.isfinite(losses).all():
@@ -1894,46 +2144,48 @@ def kernel_kind(name):
     return "gdn" if "gdn_kernel" in name else "other"
 
 
+def graph_launch_groups(events):
+    """[{"gdn": n, "deconv_igdn": n}, ...]: the port's kernel records in a
+    chrome trace, one entry for each CUDA graph launch (a cudaGraphLaunch
+    call) that started them, in the order of the launches."""
+    graph = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                   if e.get("cat", "").startswith("cuda_")
+                   and "GraphLaunch" in e.get("name", "")
+                   and "correlation" in e.get("args", {}))
+    out = {c: {"gdn": 0, "deconv_igdn": 0} for _, c in graph}
+    for e in events:
+        group = out.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") == "kernel" and group is not None:
+            kind = kernel_kind(e["name"])
+            if kind in group:
+                group[kind] += 1
+    return [out[c] for _, c in graph]
+
+
 def graph_launches(events):
     """{"gdn": n, "deconv_igdn": n}: the port's kernel records in a chrome
     trace that a CUDA graph launch started (their correlation id is that
     of a cudaGraphLaunch call). A replayed graph launches its kernels
     without the wrappers, whose counters so never see them."""
-    graph = {e["args"]["correlation"] for e in events
-             if e.get("cat", "").startswith("cuda_")
-             and "GraphLaunch" in e.get("name", "")
-             and "correlation" in e.get("args", {})}
     out = {"gdn": 0, "deconv_igdn": 0}
-    for e in events:
-        if e.get("cat") == "kernel" and \
-                e.get("args", {}).get("correlation") in graph:
-            kind = kernel_kind(e["name"])
-            if kind in out:
-                out[kind] += 1
+    for group in graph_launch_groups(events):
+        for k in out:
+            out[k] += group[k]
     return out
 
 
-def profile_device(torch, fn, trace=None):
-    """One call of fn under torch.profiler -> {wall_ms, device_ms (the sum
-    of its device records), busy_ms (their union), records, by_kernel (ms
-    of the device records of each `kernel_kind`), conv_ms (the records
-    launched by cuDNN's convolutions), graph (`graph_launches`), kernels
-    (kernel records of each `kernel_kind`)}; the chrome trace goes to
+def profile_device(torch, fn, trace=None, tries=TIMING_TRIES, graph=None):
+    """One call of fn under torch.profiler (`profiled`, `tries`; where
+    given, `graph` is the `graph_launches` the caller checks) ->
+    {wall_ms, device_ms (the sum of its device records), busy_ms (their
+    union), records, by_kernel (ms of the device records of each
+    `kernel_kind`), conv_ms (the records launched by cuDNN's
+    convolutions), graph (`graph_launches`), kernels (kernel records of
+    each `kernel_kind`), lost (`lost_launches`)}; the chrome trace goes to
     `trace` if given."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = trace or os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace_events = json.load(f)["traceEvents"]
+    run = profiled(torch, fn, trace, tries, complete=None if graph is None
+                   else lambda ev: graph_launches(ev) == graph)
+    wall, trace_events = run["wall"], run["events"]
     events = [e for e in trace_events if e.get("cat") in DEVICE_WORK]
     conv = launched_in_spans(trace_events, lambda n: n.startswith(
         "aten::cudnn_convolution"))
@@ -1947,16 +2199,252 @@ def profile_device(torch, fn, trace=None):
             "device_ms": sum(e["dur"] for e in events) / 1e3,
             "busy_ms": busy_us(events) / 1e3, "records": len(events),
             "by_kernel": by_kernel, "conv_ms": conv / 1e3,
-            "graph": graph_launches(trace_events), "kernels": kernels}
+            "graph": graph_launches(trace_events), "kernels": kernels,
+            "lost": run["lost"]}
 
 
-def run_multitask(torch, profile_dir):
+# --- the serving programs as CUDA graphs (graphs.py) -------------------------
+
+ZERO = {"gdn": 0, "deconv_igdn": 0}
+# the device programs a call runs, whose stats tell its kind
+TRIP_PROGRAMS = {"compress": ("_compress_device",),
+                 "decompress": ("_decompress_indexes_device",
+                                "_decompress_synthesize"),
+                 "decompress_tasks": ("_decompress_indexes_device",
+                                      "_synthesize_task")}
+
+
+def as_counts(pair):
+    """(GDN, deconv+IGDN) -> {"gdn": .., "deconv_igdn": ..}."""
+    return dict(zip(("gdn", "deconv_igdn"), pair))
+
+
+def program_call(torch, model, programs, fn):
+    """fn(), a call that runs the device `programs` of `model` -> (its
+    result, the launches the wrappers counted in it, its kind: "capture"
+    where a program captured, "replay" where every one replayed, else
+    "eager": a warm-up, or under `graphs.disabled()`)."""
+    from mmnc_tpu_torch import graphs
+
+    before = [dict(graphs.stats(model, p)) for p in programs]
+    w0 = wrapper_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    w1 = wrapper_counts()
+    kinds = [call_kind(graphs.stats(model, p), b)
+             for p, b in zip(programs, before)]
+    kind = ("capture" if "capture" in kinds else
+            "replay" if all(k == "replay" for k in kinds) else "eager")
+    return out, {k: w1[k] - w0[k] for k in w1}, kind
+
+
+def capture_ms(graphs, model, before):
+    """Host ms of the captures of `model`'s programs since `before` (each
+    program's count of captures then)."""
+    return 1e3 * sum(sum(st["capture_s"][before.get(name, 0):])
+                     for name, st in graphs.all_stats(model).items())
+
+
+def capture_marks(graphs, model):
+    return {name: len(st["capture_s"])
+            for name, st in graphs.all_stats(model).items()}
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def same_trip(torch, a, b, tasks, what):
+    """Two (ans, n_bytes, x_hats) of one batch: the same streams and bytes,
+    bitwise the same x_hats."""
+    (ans, n, x), (ans_b, n_b, x_b) = a, b
+    if ans["strings"] != ans_b["strings"] or n != n_b:
+        raise RuntimeError(f"{what}: streams differ ({n} against {n_b} "
+                           f"bytes)")
+    for t in tasks:
+        if x[t].dtype != x_b[t].dtype or not torch.equal(x[t], x_b[t]):
+            raise RuntimeError(f"{what}: x_hat {t} not bitwise equal")
+
+
+def round_trips(torch, model, batches, want, label):
+    """compress -> decompress of each batch (`want`: {"compress",
+    "decompress"}: (GDN, deconv+IGDN) a call), graphed beside eager
+    (`graphs.disabled()`):
+    (1) under deterministic cuDNN, the graphed trips (a warm-up, a
+        capture, a replay) give the eager trips' streams and bytes and,
+        bitwise, their x_hats;
+    (2) each mode under cuDNN's default: a warm-up trip of the first batch
+        (graphed: the programs' warm-up; the first counted trip then
+        captures, or replays a graph an earlier call captured, and the
+        others replay), a trip of each batch counted call by call (`want`
+        through the wrappers for an eager call, a warm-up or a capture,
+        none for a replay; the run's `counts()`, replays included, `want`
+        for every call), the same trips timed (graphed: replays), one
+        profiled trip (graphed: a replay, whose graph records are one
+        compress's and one decompress's launches; eager: no graph
+        records), the captures' host ms and the peak memory.
+    Returns {mode: {"mps", "device_ms", "busy", "wall_ms", "capture_ms",
+    "peak", "profile", "launches"}, "outs", "answers", "n_bytes"}: the
+    graphed mode's counted trips' outputs."""
+    from mmnc_tpu_torch import graphs
+
+    per = {c: as_counts(want[c]) for c in ("compress", "decompress")}
+    trip_sum = {k: per["compress"][k] + per["decompress"][k] for k in ZERO}
+
+    def trip(batch):
+        ans, n = model.compress(batch)
+        return ans, n, model.decompress(ans)
+
+    with cudnn_deterministic(torch):
+        with graphs.disabled():
+            eager = [trip(b) for b in batches]
+        graphed = [trip(b) for b in batches]
+        torch.cuda.synchronize()
+    for k, (g, e) in enumerate(zip(graphed, eager)):
+        same_trip(torch, g, e, model.tasks, f"{label} batch {k}, graphed "
+                  f"against eager (deterministic cuDNN)")
+    del eager, graphed
+    out = {}
+    for mode in ("graphed", "eager"):
+        with (graphs.disabled() if mode == "eager"
+              else contextlib.nullcontext()):
+            marks = capture_marks(graphs, model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trip(batches[0])  # the warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            kinds, outs, answers, n_bytes = [], [], [], 0
+            for batch in batches:
+                (ans, nb), enc, k1 = program_call(
+                    torch, model, TRIP_PROGRAMS["compress"],
+                    lambda: model.compress(batch))
+                x, dec, k2 = program_call(
+                    torch, model, TRIP_PROGRAMS["decompress"],
+                    lambda: model.decompress(ans))
+                for call, got, kind in (("compress", enc, k1),
+                                        ("decompress", dec, k2)):
+                    expect = ZERO if kind == "replay" else per[call]
+                    if got != expect:
+                        raise RuntimeError(
+                            f"{label} {mode} {call} ({kind}): launches {got} "
+                            f"through the wrappers, want {expect}")
+                    kinds.append(kind)
+                outs.append(x)
+                answers.append(ans)
+                n_bytes += nb
+            launches = counts()
+            # graphed: the first trip captures what the warm-up did not
+            # (an earlier call may have), the rest replay
+            good = (all(k in ("capture", "replay") for k in kinds[:2])
+                    and kinds[2:] == ["replay"] * (len(kinds) - 2)
+                    if mode == "graphed" else
+                    kinds == ["eager"] * len(kinds))
+            if not good or launches != {
+                    k: len(batches) * n for k, n in trip_sum.items()}:
+                raise RuntimeError(f"{label} {mode}: calls {kinds}, "
+                                   f"launches {launches}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for batch in batches:
+                model.decompress(model.compress(batch)[0])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            expect = trip_sum if mode == "graphed" else ZERO
+            prof = profile_device(
+                torch, lambda: model.decompress(model.compress(batches[0])[0]),
+                graph=expect)
+            if prof["graph"] != expect:
+                raise RuntimeError(f"{label} {mode}: a profiled trip's graph "
+                                   f"records {prof['graph']}, want {expect} "
+                                   f"(the profiler lost the records of "
+                                   f"{prof['lost']} launch calls)")
+            out[mode] = {
+                "mps": len(batches) * BATCH * IMAGE * IMAGE / 1e6 / seconds,
+                "device_ms": prof["device_ms"],
+                "busy": prof["busy_ms"] / prof["wall_ms"],
+                "wall_ms": prof["wall_ms"],
+                "capture_ms": capture_ms(graphs, model, marks),
+                "peak": torch.cuda.max_memory_allocated(), "profile": prof,
+                "launches": launches}
+            if mode == "graphed":
+                out.update(outs=outs, answers=answers, n_bytes=n_bytes)
+    return out
+
+
+def print_modes(label, runs, card):
+    """One line: each mode's MP/s, a profiled trip's device ms and busy
+    share, the captures' ms and the peak memory, graphed beside eager."""
+    parts = []
+    for mode in ("graphed", "eager"):
+        r = runs[mode]
+        parts.append(f"{mode} {r['mps']:.3f} MP/s, device {r['device_ms']:.3f}"
+                     f" ms, wall {r['wall_ms']:.3f} ms, busy {r['busy']:.3f}, "
+                     f"capture {r['capture_ms']:.3f} ms, peak "
+                     f"{r['peak'] / 2 ** 30:.3f} GiB")
+    print(f"{label} graphed vs eager ({card}): " + "; ".join(parts))
+
+
+def repeated_calls(torch, model, programs, fn, want, what, calls=3):
+    """`calls` calls of fn (a warm-up, a capture, replays) against one
+    under `graphs.disabled()`: each result bitwise the eager one's (the
+    caller sets deterministic cuDNN where its kernels need it), `want`
+    launches through the wrappers for the warm-up and the capture and
+    none for a replay; then a profiled replay, whose graph records must be
+    `want`. Returns the results and the profiled replay's profile."""
+    from mmnc_tpu_torch import graphs
+
+    with graphs.disabled():
+        ref = fn()
+    results, kinds = [], []
+    for i in range(calls):
+        got, launched_, kind = program_call(torch, model, programs, fn)
+        if launched_ != (ZERO if kind == "replay" else want):
+            raise RuntimeError(f"{what} call {i} ({kind}): launches "
+                               f"{launched_} through the wrappers, want "
+                               f"{ZERO if kind == 'replay' else want}")
+        same_outputs(torch, got, ref, f"{what} call {i} against eager")
+        results.append(got)
+        kinds.append(kind)
+    if kinds[:3] != ["eager", "capture", "replay"]:
+        raise RuntimeError(f"{what}: calls {kinds}")
+    prof = profile_device(torch, fn, graph=want)
+    if prof["graph"] != want:
+        raise RuntimeError(f"{what}: a profiled replay's graph records "
+                           f"{prof['graph']}, want {want} (the profiler lost "
+                           f"the records of {prof['lost']} launch calls)")
+    return results, prof
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def same_outputs(torch, got, want, what):
+    got, want = leaves(got), leaves(want)
+    if len(got) != len(want) or not all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want)):
+        raise RuntimeError(f"{what}: not bitwise equal")
+
+
+def run_multitask(torch, profile_dir, card):
     """Phase 8: the paper's shared4 end to end (round trips, partial
     decode, the container, launch counts, card vs CPU, one train step),
     then the mixed and disjoint configs' round trip. Decodes of the same
     y_hat agree within atol 1e-5 (cuDNN's transposed conv may sum in
     another order from call to call, as phase 4 says)."""
-    from mmnc_tpu_torch import bitstream
+    from mmnc_tpu_torch import bitstream, graphs
 
     name = "shared4"
     model = paper_model(name, "cuda")
@@ -1982,22 +2470,13 @@ def run_multitask(torch, profile_dir):
         raise RuntimeError(f"{name}: all y or all z symbols are 0, the "
                            f"coder would code nothing")
 
-    model.decompress(model.compress(batches[0])[0])  # warm-up
-    torch.cuda.synchronize()
-    total = {"gdn": 0, "deconv_igdn": 0}
-    outs, answers, n_bytes = [], [], 0
-    t0 = time.perf_counter()
-    for batch in batches:
-        (ans, nb), enc = launched(torch, lambda: model.compress(batch))
-        out, dec = launched(torch, lambda: model.decompress(ans))
-        want_launches(name, "compress", enc)
-        want_launches(name, "decompress", dec)
-        for k in total:
-            total[k] += enc[k] + dec[k]
-        outs.append(out)
-        answers.append(ans)
-        n_bytes += nb
-    seconds = time.perf_counter() - t0
+    trips = round_trips(torch, model, batches,
+                        {k: MT_LAUNCHES[name][k]
+                         for k in ("compress", "decompress")}, name)
+    outs, answers, n_bytes = trips["outs"], trips["answers"], trips["n_bytes"]
+    total = trips["graphed"]["launches"]
+    mps = trips["graphed"]["mps"]
+    seconds = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / mps
     dec_err = max(task_err(o, r, tasks) for o, r in zip(outs, refs))
     if not dec_err <= 1e-5:
         raise RuntimeError(f"{name} decode vs eval forward: max abs err "
@@ -2009,29 +2488,42 @@ def run_multitask(torch, profile_dir):
     prof = profile_device(
         torch, lambda: model.decompress(model.compress(batches[0])[0]), trace)
     images = BATCH * BATCHES
-    mps = images * IMAGE * IMAGE / 1e6 / seconds
     print(f"{name} {PAPER[name]} {IMAGE}px batch={BATCH} batches={BATCHES}: "
-          f"round trip {seconds:.4f} s, {mps:.3f} MP/s, "
+          f"round trip {seconds:.4f} s (graphed replays), {mps:.3f} MP/s, "
           f"{n_bytes / images:.2f} bytes/image, launches {total}, decode vs "
-          f"eval forward max abs err {dec_err:.3e}; profiled round trip: "
-          f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms "
-          f"in {prof['records']} records (ms by kernel "
-          f"{json.dumps(prof['by_kernel'])}), busy {prof['busy_ms']:.3f} ms "
-          f"({prof['busy_ms'] / prof['wall_ms']:.3f} of wall)")
+          f"eval forward max abs err {dec_err:.3e}; profiled round trip "
+          f"(a replay): wall {prof['wall_ms']:.3f} ms, device "
+          f"{prof['device_ms']:.3f} ms in {prof['records']} records (ms by "
+          f"kernel {json.dumps(prof['by_kernel'])}), busy "
+          f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.3f}"
+          f" of wall), graph records {prof['graph']}; graphed trips equal "
+          f"the eager ones (deterministic cuDNN: streams, bytes, x_hats "
+          f"bitwise)")
+    print_modes(f"{name} batch={BATCH} x {BATCHES}", trips, card)
 
-    # partial coding: one task, then two, from the per-slice streams
+    # partial coding: one task, then two, from the per-slice streams, each
+    # decode graphed (a warm-up, a capture, a replay) against eager
+    # (deterministic cuDNN)
     ans_p, bytes_p = model.compress_partial(batches[0])
     for call, subset in (("decompress_tasks_rgb", ["rgb"]),
                          ("decompress_tasks_semantic_depth",
                           ["semantic", "depth_euclidean"])):
-        got, n = launched(torch, lambda: model.decompress_tasks(ans_p, subset))
-        want_launches(name, call, n)
-        err = task_err(got, outs[0], subset)
+        with cudnn_deterministic(torch):
+            results, part_prof = repeated_calls(
+                torch, model, TRIP_PROGRAMS["decompress_tasks"],
+                lambda: model.decompress_tasks(ans_p, subset),
+                as_counts(MT_LAUNCHES[name][call]), f"{name} {call}")
+        err = task_err(results[-1], outs[0], subset)
         if not err <= 1e-5:
             raise RuntimeError(f"{name} {call} vs full decode: {err}")
-        print(f"{name} {call}: launches {n}, vs full decode max abs err "
-              f"{err:.3e} ({bytes_p} bytes in {len(ans_p['task_streams'])} "
-              f"slice streams + z)")
+        print(f"{name} {call} ({card}): a warm-up, a capture and a replay "
+              f"bitwise equal to the eager decode (deterministic cuDNN), "
+              f"launches {as_counts(MT_LAUNCHES[name][call])} counted for "
+              f"the first two, a profiled replay's graph records "
+              f"{part_prof['graph']} (device {part_prof['device_ms']:.3f} "
+              f"ms, wall {part_prof['wall_ms']:.3f} ms); vs full decode max "
+              f"abs err {err:.3e} ({bytes_p} bytes in "
+              f"{len(ans_p['task_streams'])} slice streams + z)")
 
     # the container, partial and full layouts
     with tempfile.TemporaryDirectory() as tmp:
@@ -2073,15 +2565,34 @@ def run_multitask(torch, profile_dir):
         err = task_err(out, ref, list(m.tasks))
         if not err <= 1e-5:
             raise RuntimeError(f"{other} decode vs eval forward: {err}")
+        # the batch's round trip graphed (a warm-up, a capture, a replay)
+        # against eager, deterministic cuDNN
+        with cudnn_deterministic(torch):
+            with graphs.disabled():
+                ans_e, nb_e = m.compress(batch)
+                eager = (ans_e, nb_e, m.decompress(ans_e))
+            for i in range(3):
+                ans_g, nb_g = m.compress(batch)
+                same_trip(torch, (ans_g, nb_g, m.decompress(ans_g)), eager,
+                          m.tasks, f"{other} graphed trip {i}")
+        kinds = {p: (graphs.stats(m, p)["captures"],
+                     graphs.stats(m, p)["replays"])
+                 for p in TRIP_PROGRAMS["compress"]
+                 + TRIP_PROGRAMS["decompress"]}
+        if any(c < 1 or r < 2 for c, r in kinds.values()):
+            raise RuntimeError(f"{other}: captures and replays {kinds}")
         print(f"{other} {PAPER[other]} batch={BATCH}: {nb / BATCH:.2f} "
               f"bytes/image, launches compress {enc} decompress {dec}, "
-              f"decode vs eval forward max abs err {err:.3e}")
+              f"decode vs eval forward max abs err {err:.3e}; three graphed "
+              f"trips equal the eager one (deterministic cuDNN: streams, "
+              f"bytes, x_hats bitwise)")
         check_against_cpu(torch, m, paper_model(other, "cpu"),
                           {t: x[:1] for t, x in batch.items()}, other)
         del m
     return {"launches": total, "mps": mps, "seconds": seconds,
             "bytes_per_image": n_bytes / images, "y_nonzero": y_nz,
-            "z_nonzero": z_nz, "train_launches": train, **prof}
+            "z_nonzero": z_nz, "train_launches": train, "trips": trips,
+            **prof}
 
 
 # --- phase "bf16": the bf16 activation path ---------------------------------
@@ -2104,31 +2615,6 @@ BF16_TOL = 2.0 ** -7
 BF16_CPU_RTOL = 2.0 ** -4
 BF16_TRAIN_STEPS = 6
 BF16_GRAPH_K = 2  # the bf16 step as a graph: K of a graphed call
-
-
-def bf16_round_trips(torch, model, batches, per_call):
-    """compress -> decompress of each batch, the counts set to 0 just
-    before and read just after each call (`per_call`: {"compress",
-    "decompress"}: (GDN, deconv+IGDN)). Returns (seconds, bytes, outputs,
-    the run's launches)."""
-    model.decompress(model.compress(batches[0])[0])  # warm-up
-    torch.cuda.synchronize()
-    total = {"gdn": 0, "deconv_igdn": 0}
-    outs, n_bytes = [], 0
-    t0 = time.perf_counter()
-    for batch in batches:
-        (ans, nb), enc = launched(torch, lambda: model.compress(batch))
-        out, dec = launched(torch, lambda: model.decompress(ans))
-        for call, got in (("compress", enc), ("decompress", dec)):
-            gdn, deconv = per_call[call]
-            if got != {"gdn": gdn, "deconv_igdn": deconv}:
-                raise RuntimeError(f"bf16 {call}: launches {got}, want {gdn}"
-                                   f" GDN and {deconv} deconv+IGDN")
-        for k in total:
-            total[k] += enc[k] + dec[k]
-        outs.append(out)
-        n_bytes += nb
-    return time.perf_counter() - t0, n_bytes, outs, total
 
 
 def check_decode_bitwise(torch, model, batch, what):
@@ -2156,16 +2642,22 @@ def check_decode_bitwise(torch, model, batch, what):
         raise RuntimeError(f"bf16 {what}: likelihoods not float32 and > 0")
 
 
-def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
+def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
+             card):
     """Phase "bf16": the kernels in bf16 at every launch shape of this
     phase; the rgb codec at bench width in bf16 (compress -> decompress
-    of phase 4's batches, both stream layouts, decode bitwise equal to
-    the eval forward, MP/s, device ms and busy share beside the float32
-    codec's `f32_model` profiled here, card vs CPU on one image);
-    shared4's round trip in bf16; phase 7's train step in bf16 and
+    of phase 4's batches graphed beside eager (`round_trips`: bitwise
+    under deterministic cuDNN), both stream layouts likewise, decode
+    bitwise equal to the eval forward, MP/s, device ms and busy share
+    beside the float32 codec's, `f32_model` profiled here, `f32_trips`
+    phase 4's, card vs CPU on one image); shared4's round trip in bf16
+    graphed beside eager; phase 7's train step in bf16 and
     BF16_TRAIN_STEPS steps on one batch (the loss falls) with peak memory
     beside phase 7's (`train`). Returns the kernels' sums and errors and
     the path's launches."""
+    from mmnc_tpu_torch import graphs
+    from mmnc_tpu_torch.models import streaming
+
     t_start = time.perf_counter()
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -2187,20 +2679,21 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
     model = seeded_model("cuda", SEED, dtype=bf16)
     check_decode_bitwise(torch, model, batches[0], "rgb")
     rgb_calls = {"compress": (9, 0), "decompress": (2, 7)}
-    reset_counts()
-    seconds, n_bytes, outs, launches = bf16_round_trips(
-        torch, model, batches, rgb_calls)
-    f32_seconds, f32_bytes, _, _ = bf16_round_trips(
-        torch, f32_model, batches, rgb_calls)
+    trips = round_trips(torch, model, batches, rgb_calls, "bf16 rgb")
+    n_bytes, launches = trips["n_bytes"], trips["graphed"]["launches"]
+    outs = trips["outs"]
+    mps, f32_mps = trips["graphed"]["mps"], f32_trips["graphed"]["mps"]
+    f32_bytes = f32_trips["n_bytes"]
     images = BATCH * len(batches)
-    mps = images * IMAGE * IMAGE / 1e6 / seconds
-    f32_mps = images * IMAGE * IMAGE / 1e6 / f32_seconds
+    # eager, so that each cuDNN convolution's records lie in its op's span
+    # (a replay's records have no op span: `launched_in_spans`)
     profs = {}
-    for name, m in (("f32", f32_model), ("bf16", model)):
-        profs[name] = profile_device(
-            torch, lambda: m.decompress(m.compress(batches[0])[0]))
+    with graphs.disabled():
+        for name, m in (("f32", f32_model), ("bf16", model)):
+            profs[name] = profile_device(
+                torch, lambda: m.decompress(m.compress(batches[0])[0]))
     for name, p in profs.items():
-        print(f"bf16 phase rgb round trip ({name}) profiled: wall "
+        print(f"bf16 phase rgb round trip ({name}) profiled (eager): wall "
               f"{p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms in "
               f"{p['records']} records, busy {p['busy_ms']:.3f} ms "
               f"({p['busy_ms'] / p['wall_ms']:.3f} of wall), ms by kernel "
@@ -2208,40 +2701,48 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
               f"{p['conv_ms']:.3f} ms ({p['conv_ms'] / p['device_ms']:.3f} "
               f"of device)")
     print(f"bf16 rgb latent={LATENT} conv={CONV} {IMAGE}px batch={BATCH} "
-          f"batches={len(batches)}: round trip {seconds:.4f} s, {mps:.3f} "
-          f"MP/s (f32 {f32_mps:.3f} MP/s in this phase), "
-          f"{n_bytes / images:.2f} bytes/image (f32 {f32_bytes / images:.2f}),"
-          f" launches {launches}; decode bitwise equal to the eval forward")
+          f"batches={len(batches)}: {mps:.3f} MP/s graphed (phase 4's f32 "
+          f"{f32_mps:.3f}), {n_bytes / images:.2f} bytes/image (f32 "
+          f"{f32_bytes / images:.2f}), launches {launches}; decode bitwise "
+          f"equal to the eval forward; graphed trips equal the eager ones "
+          f"(deterministic cuDNN: streams, bytes, x_hats bitwise)")
+    print_modes(f"bf16 rgb batch={BATCH} x {BATCHES}", trips, card)
     refs = stream_refs(torch, model, batches)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic(torch):
         exact_refs = stream_refs(torch, model, batches)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+        for impl in streaming.IMPLS:
+            results = list(streaming.stream_roundtrip(model, batches,
+                                                      impl=impl))
+            torch.cuda.synchronize()
+            check_stream(f"{impl} bf16 (deterministic cuDNN)", results,
+                         exact_refs, 0.0)
     scale = max(max(x.float().abs().max().item() for x in r.values())
                 for _, r in refs)
     streams = stream_layouts(torch, model, batches, refs,
                              {"gdn": 11, "deconv_igdn": 7},
                              f"bf16 rgb latent={LATENT} conv={CONV}",
-                             profile_dir, BF16_CPU_RTOL * max(1.0, scale),
-                             exact_refs)
+                             profile_dir, card,
+                             BF16_CPU_RTOL * max(1.0, scale))
     check_against_cpu(torch, model, seeded_model("cpu", SEED, dtype=bf16),
                       {"rgb": batches[0]["rgb"][:1]}, "bf16 rgb",
                       rtol=BF16_CPU_RTOL, atol=0.0)
-    del model, refs, exact_refs, outs
+    del model, refs, exact_refs, outs, results
 
     # shared4's round trip
     name = "shared4"
     model = paper_model(name, "cuda", dtype=bf16)
     mt_batches = paper_batches(torch, model, BATCHES, SEED)
     check_decode_bitwise(torch, model, mt_batches[0], name)
-    s4_seconds, s4_bytes, _, s4_launches = bf16_round_trips(
-        torch, model, mt_batches, {k: MT_LAUNCHES[name][k]
-                                   for k in ("compress", "decompress")})
-    s4_mps = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / s4_seconds
-    s4_prof = profile_device(
-        torch, lambda: model.decompress(model.compress(mt_batches[0])[0]))
+    s4_trips = round_trips(torch, model, mt_batches,
+                           {k: MT_LAUNCHES[name][k]
+                            for k in ("compress", "decompress")},
+                           f"bf16 {name}")
+    s4_mps, s4_bytes = s4_trips["graphed"]["mps"], s4_trips["n_bytes"]
+    s4_launches = s4_trips["graphed"]["launches"]
+    s4_seconds = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / s4_mps
+    s4_prof = s4_trips["graphed"]["profile"]
+    s4_conv = s4_trips["eager"]["profile"]["conv_ms"]
+    print_modes(f"bf16 {name} batch={BATCH} x {BATCHES}", s4_trips, card)
     print(f"bf16 {name} {PAPER[name]} batch={BATCH} batches={BATCHES}: "
           f"round trip {s4_seconds:.4f} s, {s4_mps:.3f} MP/s (phase 8's f32 "
           f"{mt['mps']:.3f}), {s4_bytes / (BATCH * BATCHES):.2f} bytes/image "
@@ -2249,7 +2750,7 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
           f"profiled: device {s4_prof['device_ms']:.3f} ms (f32 "
           f"{mt['device_ms']:.3f}), busy {s4_prof['busy_ms']:.3f} ms "
           f"({s4_prof['busy_ms'] / s4_prof['wall_ms']:.3f} of wall), cuDNN "
-          f"convolutions {s4_prof['conv_ms']:.3f} ms; decode bitwise equal "
+          f"convolutions {s4_conv:.3f} ms (eager); decode bitwise equal "
           f"to the eval forward")
     del model, mt_batches
 
@@ -2289,7 +2790,8 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
     prof = profile_train_step(torch, step, state, batch, train_gen, None)
     if prof["gdn_kernels"] != TRAIN_LAUNCHES["train"]["gdn"]:
         raise RuntimeError(f"bf16 train profile: {prof['gdn_kernels']} GDN "
-                           f"kernel records")
+                           f"kernel records (the profiler lost the records "
+                           f"of {prof['lost']} launch calls)")
     print(f"bf16 train step profile: wall {prof['wall_ms']:.3f} ms, device "
           f"{prof['device_ms']:.3f} ms (f32 {train['device_ms']:.3f}) in "
           f"{prof['records']} records (f32 {train['records']}), busy "
@@ -2319,7 +2821,7 @@ def run_bf16(torch, f32_model, batches, train, mt, profile_dir):
             "shared4_launches": s4_launches, "train_launches": measured,
             "profiles": profs, "shared4_profile": s4_prof,
             "streams": streams, "peak_bytes": peak, "step_wall_ms": wall * 1e3,
-            "train_profile": prof}
+            "train_profile": prof, "trips": trips, "shared4_trips": s4_trips}
 
 
 def bf16_sums(bf, kernel):
@@ -2478,24 +2980,28 @@ def eager_multi_step(model, steps_per_call, compute_metrics=False,
 @contextlib.contextmanager
 def counted_steps(torch, per_step, eager=False, profile_replay=False):
     """Wrap the train loop's train call (`steps_per_call` steps) and eval
-    step so each appends {"kind": "train" or "eval", "launches", "how",
-    "step", "graph", "wall"} to `per_step`: the launch counts read just
-    before the call and just after it, on a synchronised card, and
-    subtracted (the run's totals keep counting); `call_kind` of a train
-    call ("eval" for an eval step); the state's step before a train call;
-    the call's synchronised wall seconds. A replayed graph launches its
-    kernels without the counters: with `profile_replay` the first replay
-    runs under torch.profiler (its wall None) and "graph" holds its
-    graph's kernel records (`graph_launches`). With `eager` the loop's
-    multi-step is `eager_multi_step`; otherwise the steps themselves are
-    unchanged."""
+    step so each appends {"kind": "train" or "eval", "launches",
+    "wrapped", "how", "step", "graph", "wall"} to `per_step`: the launch
+    counts read just before the call and just after it, on a synchronised
+    card, and subtracted (the run's totals keep counting): "launches"
+    `counts()`'s (a replayed eval step's graph launches included),
+    "wrapped" the wrappers' own; `call_kind` of the call's stats (an eval
+    step's are its program's, `graphs.stats`); the state's step before a
+    train call; the call's synchronised wall seconds. A replayed graph
+    launches its kernels without the wrappers: with `profile_replay` (for
+    a run without the loop's own profiler window: profilers do not nest)
+    the first replayed train call and the first replayed eval step run
+    under torch.profiler (their wall None), and "graph" holds the graph's
+    kernel records (`graph_launches`). With `eager` the
+    loop's multi-step is `eager_multi_step`; otherwise the steps
+    themselves are unchanged."""
     from mmnc_tpu_torch.train import loop
 
     names = {"train": "make_multi_train_step", "eval": "make_eval_step"}
     originals = {kind: getattr(loop, name) for kind, name in names.items()}
     makers = dict(originals, **({"train": eager_multi_step} if eager
                                 else {}))
-    pending = [profile_replay]
+    pending = {"train": profile_replay, "eval": profile_replay}
 
     def wrap(make, kind):
         def made(*args, **kwargs):
@@ -2506,25 +3012,31 @@ def counted_steps(torch, per_step, eager=False, profile_replay=False):
                 before_stats = dict(stats) if stats is not None else None
                 entry = {"kind": kind, "step": a[0].step if kind == "train"
                          else None, "graph": None}
-                profile = (pending[0] and stats is not None
+                # an eval step's next call replays once it has captured
+                profile = (pending[kind] and stats is not None
                            and stats["captures"] > 0)
                 torch.cuda.synchronize()
-                before, t0 = counts(), time.perf_counter()
+                before, wrapped = counts(), wrapper_counts()
+                t0 = time.perf_counter()
                 if profile:
                     holder = []
-                    prof = profile_device(torch,
-                                          lambda: holder.append(step(*a, **k)))
+                    prof = profile_device(
+                        torch, lambda: holder.append(step(*a, **k)), tries=1)
                     out = holder[0]
                     entry["graph"] = prof["graph"]
-                    pending[0] = False
                 else:
                     out = step(*a, **k)
                 torch.cuda.synchronize()
                 after = counts()
                 entry["wall"] = None if profile else time.perf_counter() - t0
                 entry["launches"] = {n: after[n] - before[n] for n in after}
-                entry["how"] = (call_kind(stats, before_stats)
-                                if kind == "train" else "eval")
+                entry["wrapped"] = {n: c - wrapped[n]
+                                    for n, c in wrapper_counts().items()}
+                entry["how"] = call_kind(stats, before_stats)
+                if profile and entry["how"] == "replay":
+                    pending[kind] = False
+                elif profile:
+                    entry["graph"] = None  # not a replay: nothing to hold
                 per_step.append(entry)
                 return out
             return counted
@@ -2543,23 +3055,33 @@ def check_calls(per_step, want, what, k=1, profiled=False):
     """Each counted call of a run against its launches: a train call's
     counts are `want["train"]` x k unless it replayed (0: its kernels run
     in its graph), and a profiled replay's graph records are that; an
-    eval step's `want["eval"]`. With `profiled`, a run that replayed must
-    have profiled a replay. Raises on a mismatch."""
+    eval step's `want["eval"]` (`counts()`: a replay's graph launches
+    included), none of them through the wrappers where it replayed, and a
+    profiled replay's graph records `want["eval"]`. With `profiled`, a run
+    whose train calls (eval steps) replayed must have profiled a replay of
+    them. Raises on a mismatch."""
     per_call = {n: k * c for n, c in want["train"].items()}
     zero = {n: 0 for n in per_call}
-    replays = [e for e in per_step if e["how"] == "replay"]
-    if profiled and replays and not any(e["graph"] for e in replays):
-        raise RuntimeError(f"{what}: {len(replays)} replays, none profiled")
+    for kind in ("train", "eval"):
+        replays = [e for e in per_step
+                   if e["kind"] == kind and e["how"] == "replay"]
+        if profiled and replays and not any(e["graph"] for e in replays):
+            raise RuntimeError(f"{what}: {len(replays)} {kind} replays, none "
+                               f"profiled")
     for e in per_step:
         if e["kind"] == "eval":
-            expect = want["eval"]
+            expect, graph = want["eval"], want["eval"]
+            wrapped = zero if e["how"] == "replay" else want["eval"]
         else:
             expect = zero if e["how"] == "replay" else per_call
-        if e["launches"] != expect or e["graph"] not in (None, per_call):
-            raise RuntimeError(f"{what}: a {e['how']} call at step "
-                               f"{e['step']} launched {e['launches']} "
-                               f"through the wrappers (want {expect}), its "
-                               f"graph {e['graph']} (want {per_call})")
+            graph, wrapped = per_call, expect
+        if e["launches"] != expect or e["wrapped"] != wrapped or \
+                e["graph"] not in (None, graph):
+            raise RuntimeError(f"{what}: a {e['kind']} {e['how']} call at "
+                               f"step {e['step']} launched {e['launches']} "
+                               f"({e['wrapped']} through the wrappers; want "
+                               f"{expect}, {wrapped}), its graph "
+                               f"{e['graph']} (want {graph})")
 
 
 def graph_launched(per_step, per_call):
@@ -2572,12 +3094,29 @@ def graph_launched(per_step, per_call):
     return {k: n * c for k, c in per_call.items()}
 
 
+def check_window_graphs(groups, per_train, replayed, per_eval, what):
+    """A profiled window's graph launches (`graph_launch_groups`): the
+    replayed train calls' (`per_train` records each, `replayed` of them)
+    and any serving graphs' of the validation and the image grids (each
+    one eval step's or eval forward's `per_eval`, which differ from a
+    train call's in their deconv+IGDN records); raises otherwise. Returns
+    (the train calls' records, the serving graph launches)."""
+    train = [g for g in groups if g == per_train]
+    serving = [g for g in groups if g != per_train]
+    total = {k: sum(g[k] for g in train) for k in per_train}
+    if len(train) != replayed or any(g != per_eval for g in serving):
+        raise RuntimeError(f"{what}: graph launches {groups}, want "
+                           f"{replayed} of {per_train} and serving ones of "
+                           f"{per_eval}")
+    return total, len(serving)
+
+
 def trace_summary(path):
     """A profiler trace of the loop's steps 5-10 -> (device ms, busy ms,
-    wall ms: the span of every record in it, `graph_launches`)."""
+    wall ms: the span of every record in it, `graph_launch_groups`)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    graph = graph_launches(events)
+    graph = graph_launch_groups(events)
     events = [e for e in events if "dur" in e and "ts" in e]
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
     wall = (max(e["ts"] + e["dur"] for e in events)
@@ -2729,8 +3268,11 @@ def cli_k_run(torch, tmp, name, k, *extra, eager=False,
               profile_replay=False):
     """The train CLI at --steps-per-call k as run `name` under
     deterministic cuDNN, each train call counted and timed
-    (`counted_steps`, which `eager` and `profile_replay` are handed to) ->
-    (state, the counted calls, run launches, stdout, fit's stats)."""
+    (`counted_steps`, which `eager` and `profile_replay` are handed to;
+    with `eager` the serving programs, the eval step among them, run
+    under `graphs.disabled()` too) -> (state, the counted calls, run
+    launches, stdout, fit's stats)."""
+    from mmnc_tpu_torch import graphs
     from mmnc_tpu_torch.cli import train as train_cli
 
     per_step, out, stats = [], io.StringIO(), {}
@@ -2740,7 +3282,8 @@ def cli_k_run(torch, tmp, name, k, *extra, eager=False,
         torch.cuda.synchronize()
         reset_counts()
         with counted_steps(torch, per_step, eager, profile_replay), \
-                contextlib.redirect_stdout(out):
+                contextlib.redirect_stdout(out), \
+                (graphs.disabled() if eager else contextlib.nullcontext()):
             state = train_cli.main(cli_argv(
                 tmp, "--log-every", "1", "--steps-per-call", str(k), "-w",
                 name, *extra), stats=stats)
@@ -2798,10 +3341,18 @@ def check_steps_per_call(torch, tmp, card):
         graph = graph_launched(per_step, per_call)
         with open(os.path.join(tmp, "runs", name,
                                f"{name}.metrics.jsonl")) as f:
-            logged = [r["step"] for r in map(json.loads, f)
-                      if "train/loss" in r]
+            records = [json.loads(line) for line in f]
+        logged = [r["step"] for r in records if "train/loss" in r]
         if logged != list(range(0, steps, k)):
             raise RuntimeError(f"cli {name}: logged steps {logged}")
+        evals = [e["how"] for e in per_step if e["kind"] == "eval"]
+        per_val = CLI_VAL_SIZE // CLI_BATCH
+        want_evals = ["eager"] * (CLI_EPOCHS * per_val) if eager else (
+            ["eager", "capture"] + ["replay"] * CLI_EPOCHS * per_val)[
+                :CLI_EPOCHS * per_val]
+        if evals != want_evals:
+            raise RuntimeError(f"cli {name}: eval steps {evals}, want "
+                               f"{want_evals}")
         row = {"params": [p.detach() for g in state.optimizer.param_groups
                           for p in g["params"]],
                # the steady calls: replays, or an eager run's from its
@@ -2810,17 +3361,23 @@ def check_steps_per_call(torch, tmp, card):
                    e["wall"] for e in calls[2:] if e["wall"] is not None])),
                "launches": {n: c + graph[n] for n, c in launches.items()},
                "graph_launches": graph, "per_call": per_call, "k": k,
-               "p50": stats["step_timer"]["p50_s"]}
+               "p50": stats["step_timer"]["p50_s"],
+               "val": [{key: v for key, v in r.items() if key != "time"}
+                       for r in records
+                       if any(key.startswith("val/") for key in r)],
+               "eval_graph": next((e["graph"] for e in per_step
+                                   if e["kind"] == "eval" and e["graph"]),
+                                  None)}
         if k == 1:
-            dev_ms, busy_ms, wall_ms, graph = trace_summary(stats["trace"])
+            dev_ms, busy_ms, wall_ms, groups = trace_summary(stats["trace"])
             replayed = sum(e["how"] == "replay" for e in calls
                            if 5 <= e["step"] <= 10)
-            expect = {n: replayed * c for n, c in want["train"].items()}
-            if graph != expect:
-                raise RuntimeError(f"cli {name}: steps 5-10's trace holds "
-                                   f"{graph} graph-launched records, want "
-                                   f"{expect}")
-            row.update(busy=busy_ms / wall_ms, device_ms=dev_ms / 6)
+            _, serving = check_window_graphs(
+                groups, want["train"], replayed,
+                {"gdn": 0, "deconv_igdn": 0} if eager else want["eval"],
+                f"cli {name}: steps 5-10's trace")
+            row.update(busy=busy_ms / wall_ms, device_ms=dev_ms / 6,
+                       serving_graphs=serving)
         runs[name] = row
     ref = runs["cli_eager"]["params"]
     worst = {name: max(max_rel_diff(q, p) for p, q in
@@ -2829,6 +3386,16 @@ def check_steps_per_call(torch, tmp, card):
     if not all(w <= 1e-6 for w in worst.values()):
         raise RuntimeError(f"cli graphed vs eager: parameters max rel diff "
                            f"{worst} over 1e-6")
+    # the validation of each graphed run (its eval step graphed) against
+    # the eager reference's: the same logs where the parameters are
+    # bitwise the same
+    ref_val = runs["cli_eager"]["val"]
+    for name, _, eager in CLI_RUNS:
+        got = runs[name]["val"]
+        if len(got) != CLI_EPOCHS or (worst.get(name, 0.0) == 0.0
+                                      and got != ref_val):
+            raise RuntimeError(f"cli {name}: validation logs {got} against "
+                               f"the eager reference's {ref_val}")
     state, per_step, _, out, _ = cli_k_run(
         torch, tmp, f"cli_k{CLI_K_CLAMPED}", CLI_K_CLAMPED, "--epochs", "1",
         "--no-metrics")
@@ -2850,7 +3417,15 @@ def check_steps_per_call(torch, tmp, card):
               f"call p50 (from the third call) {row['call_p50'] * 1e3:.3f} ms "
               f"({k * CLI_BATCH / row['call_p50']:.3f} images/s){busy}; "
               f"launches {row['launches']}, {row['graph_launches']} of them "
-              f"in replayed graphs"
+              f"in replayed train graphs; eval steps "
+              f"{'eager' if name == 'cli_eager' else 'graphed'}, "
+              f"validation logs "
+              f"{'bitwise equal to' if row['val'] == ref_val else 'off'}"
+              f" the eager reference's"
+              + (f", a profiled eval replay's graph records "
+                 f"{row['eval_graph']}" if row["eval_graph"] else "")
+              + (f", {row['serving_graphs']} serving graph launches in steps"
+                 f" 5-10's trace" if "serving_graphs" in row else "")
               + (f"; final parameters vs the eager run max rel diff "
                  f"{worst[name]:.3e}" if name in worst else ""))
     print(f"cli --steps-per-call {CLI_K_CLAMPED}: clamped to {per_epoch} "
@@ -2943,15 +3518,20 @@ def run_cli(torch, profile_dir, card):
         firsts = [w for i, w in enumerate(waits) if i % per_epoch == 0]
         rest = [w for i, w in enumerate(waits) if i % per_epoch]
         ckpt_mb = os.path.getsize(os.path.join(ckpt, "state.pt")) / 1e6
-        dev_ms, busy_ms, wall_ms, graph = trace_summary(stats["trace"])
-        # the profiler's window, steps 5-10: replays all
-        replayed = {k: 6 * n for k, n in want["train"].items()}
-        if graph != replayed:
-            raise RuntimeError(f"train CLI: steps 5-10's trace holds "
-                               f"{graph} graph-launched records, want "
-                               f"{replayed}")
+        dev_ms, busy_ms, wall_ms, groups = trace_summary(stats["trace"])
+        # the profiler's window, steps 5-10: train replays all, and the
+        # end of the first epoch: its validation's eval steps (a capture
+        # and a replay launch their graphs) and the image grids' eval
+        # forwards (the second, a capture)
+        graph, serving = check_window_graphs(
+            groups, want["train"], 6, want["eval"],
+            "train CLI: steps 5-10's trace")
+        if serving == 0:
+            raise RuntimeError("train CLI: no eval step or eval forward "
+                               "replayed in steps 5-10's trace")
         in_graphs = graph_launched(per_step, want["train"])
         counted = launches
+        wrapped = wrapper_counts()
         launches = {k: n + in_graphs[k] for k, n in counted.items()}
         print(f"cli train {PAPER['shared4']} batch={CLI_BATCH} "
               f"{CLI_EPOCHS} epochs ({card}): {steps} steps in "
@@ -2965,19 +3545,23 @@ def run_cli(torch, profile_dir, card):
               f"others' median {np.median(rest) * 1e3:.4f} ms); launches a "
               f"train step "
               f"{want['train']}, a val step {want['eval']}, run {launches} "
-              f"({counted} through the wrappers, {in_graphs} in replayed "
-              f"graphs); "
+              f"({wrapped} through the wrappers, {in_graphs} in replayed "
+              f"train graphs, the rest in replayed eval graphs); "
               f"peak memory {peak / 2 ** 30:.3f} GiB; checkpoint "
               f"({ckpt_mb:.3f} MB) save ms "
               f"{json.dumps([round(t, 3) for t in stats['save_ms']])}")
         counted = [e["launches"]["gdn"] for e in per_step
                    if e["kind"] == "train"]
+        evals = [e["how"] for e in per_step if e["kind"] == "eval"]
         print(f"cli profiled steps 5-10 (graph replays): device "
               f"{dev_ms:.3f} ms ({dev_ms / 6:.3f} a step), busy "
               f"{busy_ms:.3f} ms of {wall_ms:.3f} ms "
-              f"({busy_ms / wall_ms:.3f}); graph-launched kernel records "
-              f"{graph}; GDN launches a train call through the wrappers "
-              f"{counted} (a warm-up, a capture, replays)")
+              f"({busy_ms / wall_ms:.3f}); the train graphs' kernel records "
+              f"{graph}, {serving} serving graph launches of "
+              f"{want['eval']} records each (the validation's eval steps, "
+              f"an image grid's eval forward); GDN launches a train call "
+              f"through the wrappers {counted} (a warm-up, a capture, "
+              f"replays); eval steps {evals}")
         print(f"cli losses: {json.dumps(losses)}")
 
         save_ms, restore_ms = check_resume(torch, train_set, tmp)
@@ -3288,21 +3872,10 @@ def run_baseline(torch, ckpts, card):
 def profile_dp_step(torch, step, state, batch, gen):
     """torch.profiler over one train step -> wall ms, device busy ms and
     the host ms of the gradient all-reduce's record_function span (and of
-    any NCCL kernel on the device)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    any NCCL kernel on the device). One try: under a mesh every rank
+    must take the same steps."""
+    run = profiled(torch, lambda: step(state, batch, gen), tries=1)
+    events, wall = run["events"], run["wall"] * 1e3
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
     spans = [e["dur"] for e in events if e.get("cat") == "user_annotation"
              and e["name"] == "all_reduce_gradients"]
@@ -3407,13 +3980,15 @@ def dp_compress(mesh, batch_size):
     """Phase 10 (d), a rank: shared4 (kernels scaled, from seed 0)
     compresses its rows of `batch_size` images with
     `compress_device_fused_sharded`: a warm-up call, one counted call
-    (its gathered outputs, as numpy, and its launches) and DP_TIMED_STEPS
-    synchronised calls (their median ms). "all_launches": the counted and
-    the timed calls' ("calls" of them)."""
+    (the program's capture: its gathered outputs, as numpy, and its
+    launches) and DP_TIMED_STEPS synchronised calls (replays; their median
+    ms). "all_launches": the counted and the timed calls' ("calls" of
+    them), the replays' graph launches included."""
     import torch
 
     from mmnc_tpu_torch.parallel import compress_device_fused_sharded
 
+    tally_graph_launches()  # a spawned rank: its replays are counted too
     model = paper_model("shared4", mesh.device)
     batch = compress_batch(torch, model, batch_size, mesh.device)
     compress_device_fused_sharded(model, batch, mesh)
@@ -3723,22 +4298,14 @@ def p10_sums(p10, tot, kernel):
 
 
 def profile_round_trip(torch, model, batch, out_dir):
-    from torch.profiler import ProfilerActivity, profile
-
     os.makedirs(out_dir, exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ans, _ = model.compress(batch)
-        model.decompress(ans)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    trace = os.path.join(out_dir, "round_trip_trace.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:  # device work only, as in time_ms
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in DEVICE_WORK]
+    run = profiled(torch, lambda: model.decompress(model.compress(batch)[0]),
+                   os.path.join(out_dir, "round_trip_trace.json"))
+    wall = run["wall"]
+    table = run["prof"].key_averages().table(sort_by="cuda_time_total",
+                                             row_limit=40)
+    # device work only, as in time_ms
+    events = [e for e in run["events"] if e.get("cat") in DEVICE_WORK]
     busy_us = sum(e["dur"] for e in events)
     with open(os.path.join(out_dir, "round_trip_profile.txt"), "w") as f:
         f.write(f"wall {wall * 1e3:.3f} ms, device kernel time {busy_us / 1e3:.3f}"
@@ -3807,6 +4374,11 @@ def main(argv=None):
                              "times at an rgb and a shared4 round trip's "
                              "shapes, on the mmnc_tpu_torch of the checkout "
                              "at TREE")
+    parser.add_argument("--profile-windows", metavar="N", type=int,
+                        default=None,
+                        help="run only N rounds of profiled train steps "
+                             "in windows with and without the host wait, "
+                             "counting the windows that lost records")
     args = parser.parse_args(argv)
     if args.time_deconv:
         sys.path.insert(0, os.path.abspath(args.time_deconv))
@@ -3836,6 +4408,9 @@ def main(argv=None):
         return 0
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    if args.profile_windows:
+        profile_windows(torch, args.profile_windows, card)
+        return 0
     if args.dp_cards:
         run_cards(torch, args.dp_cards, "; ".join(card.splitlines()))
         print_ok(torch)
@@ -3854,23 +4429,28 @@ def main(argv=None):
     dec_tot, dec_err, dec_tol = timed("3 deconv_igdn", check_deconv, torch,
                                       BATCH, gen)
 
-    launches, model, batches = timed("4", run_model, torch, args.profile)
+    tally_graph_launches()
+    launches, model, batches, trips = timed("4", run_model, torch,
+                                            args.profile, card)
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the rgb path")
-    timed("5", run_streaming, torch, model, batches, args.profile)
+    p5_rgb = timed("5", run_streaming, torch, model, batches, args.profile,
+                   card)
+    timed("stale", check_stale_parameters, torch, card)
     timed("6", run_widths, torch)
     train = timed("7 (a)-(d)", run_train, torch, args.profile)
     train["graph"] = timed("7 (e)", run_graph_train, torch, card)
-    mt = timed("8", run_multitask, torch, args.profile)
-    bf = timed("bf16", run_bf16, torch, model, batches, train, mt,
-               args.profile)
+    mt = timed("8", run_multitask, torch, args.profile, card)
+    bf = timed("bf16", run_bf16, torch, model, batches, train, mt, trips,
+               args.profile, card)
     for name, n in bf["launches"].items():
         if n == 0:
             raise RuntimeError(f"kernel {name} never launched on the bf16 "
                                f"rgb path")
     del model, batches
-    p5 = timed("5 shared4", run_mt_streaming, torch, args.profile, mt)
+    p5, p5_s4 = timed("5 shared4", run_mt_streaming, torch, args.profile,
+                      mt, card)
     imported = timed("import", run_import, torch)
     cli = timed("9", run_cli, torch, args.profile, card)
     p10 = timed("10", run_phase10, torch, card)
@@ -3892,6 +4472,20 @@ def main(argv=None):
         for name, n in got.items():
             if n == 0:
                 raise RuntimeError(f"kernel {name} never launched in {what}")
+
+    def graphed_sums(runs, kernel, tot, key):
+        g, e = runs["graphed"]["profile"], runs["eager"]["profile"]
+        return {"graph_launches": g["graph"][kernel],
+                "ms": g["by_kernel"].get(kernel, 0.0),
+                "eager_ms": e["by_kernel"].get(kernel, 0.0),
+                "bound_ms": tot[key]["bound_ms"],
+                "library_ms": (tot[key]["library_ms"]
+                               if kernel == "deconv_igdn" else None)}
+
+    def graphed(kernel, tot):
+        return {"rgb": graphed_sums(trips, kernel, tot, "trip"),
+                "shared4": graphed_sums(mt["trips"], kernel, tot,
+                                        "shared4")}
 
     def sums(tot, key, library):
         t = tot[key]
@@ -3937,7 +4531,12 @@ def main(argv=None):
              f"launches; ms, plain_ms, bound_ms (2 bytes an activation "
              f"value), library_ms summed over one rgb round trip's launches, "
              f"shared4 one shared4 round trip's, train one train step's at "
-             f"batch {TRAIN_BATCH})")
+             f"batch {TRAIN_BATCH}); graphed_trip: phases 4 (rgb) and 8 "
+             f"(shared4), one profiled round trip of a batch of {BATCH} "
+             f"replayed from the serving graphs: the kernel's records "
+             f"launched by the graphs (graph_launches) and their device ms "
+             f"(ms), the same trip's device ms eager (eager_ms), phase 3's "
+             f"bound and library sums over a trip's launches)")
     kernels = [
         {"name": "gdn", "route": "cuda", "source": "mmnc_tpu_torch/csrc/gdn.cu",
          "replaces": "mmnc_tpu/ops/gdn_pallas.py:52",
@@ -3962,7 +4561,8 @@ def main(argv=None):
          **cli_sums(cli, gdn_tot, "gdn", ("train", "val")),
          **p10_sums(p10, gdn_tot, "gdn"),
          **new_path_sums(p5, cli, p10, imported, gdn_tot, "gdn"),
-         "bf16": bf16_sums(bf, "gdn")},
+         "bf16": bf16_sums(bf, "gdn"), "graphed_trip": graphed("gdn",
+                                                               gdn_tot)},
         {"name": "deconv_igdn", "route": "cuda",
          "source": "mmnc_tpu_torch/csrc/deconv_igdn.cu",
          "replaces": "mmnc_tpu/ops/deconv_igdn_pallas.py:66",
@@ -3978,11 +4578,36 @@ def main(argv=None):
          **cli_sums(cli, dec_tot, "deconv_igdn", ("val",)),
          **p10_sums(p10, dec_tot, "deconv_igdn"),
          **new_path_sums(p5, cli, p10, imported, dec_tot, "deconv_igdn"),
-         "bf16": bf16_sums(bf, "deconv_igdn")},
+         "bf16": bf16_sums(bf, "deconv_igdn"),
+         "graphed_trip": graphed("deconv_igdn", dec_tot)},
     ]
     print(json.dumps({"kernels": kernels}))
     print_ok(torch)
     return 0
+
+
+def profile_windows(torch, rounds, card):
+    """`--profile-windows N`: N rounds of two profiled train steps on
+    phase 7's rgb model and batch (after 3 unprofiled steps), one in a
+    window whose work starts at once and one in a window held open
+    PROFILE_WAIT_S before it and after it, each taken once; then one JSON
+    line: per wait, the windows that lost launches' records and the most
+    launches one lost."""
+    rng = np.random.default_rng(SEED + 1)
+    batch = {"rgb": torch.from_numpy(rng.random(
+        (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state, step = train_setup(train_model("cuda"))
+    for _ in range(3):
+        step(state, batch, gen)
+    lost = {0.0: [], PROFILE_WAIT_S: []}
+    for _ in range(rounds):
+        for wait, got in lost.items():
+            got.append(profiled(torch, lambda: step(state, batch, gen),
+                                tries=1, wait=wait)["lost"])
+    print(json.dumps({"card": card, "rounds": rounds, "lost": {
+        str(wait): {"windows": sum(n > 0 for n in got), "most": max(got)}
+        for wait, got in lost.items()}}))
 
 
 def time_deconv(torch, tree, card):

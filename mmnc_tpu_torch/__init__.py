@@ -8,7 +8,9 @@ caller passes `device="cpu"`; with no card and no device they raise.
 Public surface: `build_model` (models 1-4: the single-task, mixed,
 disjoint and shared codecs) with eval `forward`,
 `update_bottleneck_values`, `compress`, `decompress`, partial coding
-(`compress_partial`, `decompress_tasks`) and the training side;
+(`compress_partial`, `decompress_tasks`) and the training side; `graphs`
+(the device programs as CUDA graphs on a card, `graphs.disabled()` to
+run them eagerly);
 `bitstream` (the container); `data` (synthetic scenes, the CLEVR
 contract, prerender, `BatchLoader` with `prefetch_to_device`, the
 device-resident dataset); `train` (the train and eval steps, and

@@ -13,23 +13,34 @@ batches with each: wall seconds from the first dispatch to the last result
 on the device. The same batches through a plain `compress` -> `decompress`
 loop in one thread are the baseline the pipeline has to beat. Then the
 same for the bf16 codec (`dtype=torch.bfloat16`, the same weights), as
-bench.py measures bf16 beside f32. Prints one JSON line: MP/s per layout
-and the better one (`value`, `precision` "f32"), the loop's MP/s, the
-same for bf16 (`mps_bf16`, ...), batch size, iters, coder threads, stream
-bytes per image, the device and, on a card, its name and power limit
+bench.py measures bf16 beside f32. On a card the device programs run as
+CUDA graphs (`graphs.py`; the warm-up batches warm them up and capture
+them), and every figure is measured again with them eager, under
+`graphs.disabled()` (the `*_eager` keys). Prints one JSON line: MP/s per
+layout and the better one (`value`, `precision` "f32"), the loop's MP/s,
+the same for bf16 (`mps_bf16`, ...), and for each codec and mode
+(`modes`) the MP/s, the device ms and busy share of one profiled v2
+stream of `iters` batches (torch.profiler; the busy share is the union
+of the device records over the wall), the captures' host ms and the
+peak device memory; batch size, iters, coder threads, stream bytes per
+image, the device and, on a card, its name and power limit
 (nvidia-smi). Runs on CUDA unless `--device cpu`; a CPU run measures the
 CPU, not a card. An out-of-memory error raises.
 """
 
 import argparse
+import contextlib
 import inspect
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from . import graphs
 from .device import resolve_device
 from .models.codecs import build_model
 from .models.streaming import IMPLS, stream_roundtrip
@@ -69,8 +80,10 @@ def measure(model, batch, impl: str, iters: int, coder_threads: int):
 
 
 def measure_sequential(model, batch, iters: int):
-    """MP/s of `iters` compress -> decompress calls of `batch` in turn."""
-    model.decompress(model.compress(batch)[0])  # warm-up
+    """MP/s of `iters` compress -> decompress calls of `batch` in turn,
+    after two (on a card: the programs' warm-up and capture)."""
+    for _ in range(2):
+        model.decompress(model.compress(batch)[0])
     _sync(model.device)
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -79,10 +92,52 @@ def measure_sequential(model, batch, iters: int):
     return _mps(batch, (time.perf_counter() - t0) / iters)
 
 
+def profile_stream(model, batch, iters: int, threads: int):
+    """(device ms a batch, busy share) of one v2 stream of `iters`
+    batches under torch.profiler: the summed durations of its kernel,
+    copy and memset records, and their union over the wall. The window
+    stays open 10 ms on the host before the stream and after it: CUPTI
+    now and then loses the records of a window's first launches where the
+    work starts right away."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(model.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        for _ in stream_roundtrip(model, [batch] * iters, impl="v2",
+                                  coder_threads=threads):
+            pass
+        _sync(model.device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = sorted((e["ts"], e["ts"] + e["dur"]) for e in
+                            json.load(f)["traceEvents"] if e.get("cat") in
+                            ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for start, stop in events:
+        if end is None or start > end:
+            busy, end = busy + stop - start, stop
+        elif stop > end:
+            busy, end = busy + stop - end, stop
+    device = sum(stop - start for start, stop in events)
+    return device / 1e3 / iters, busy / wall_us
+
+
 def measure_codec(model, batch, iters: int, threads: int):
-    """({impl: MP/s}, {impl: bytes per image}, the loop's MP/s) of one
-    codec, after 2 warm-up batches of each layout."""
+    """({impl: MP/s}, {impl: bytes per image}, the loop's MP/s, {device
+    ms a batch, busy share, capture ms, peak bytes}) of one codec, after
+    2 warm-up batches of each layout (on a card: each program's warm-up
+    and capture)."""
     model.update_bottleneck_values()
+    on_card = model.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(model.device)
     for impl in IMPLS:  # 2 warm-up batches each: plans, pinned buffers
         for _ in stream_roundtrip(model, [batch] * 2, impl=impl,
                                   coder_threads=threads):
@@ -93,7 +148,17 @@ def measure_codec(model, batch, iters: int, threads: int):
                                              threads)
     if len(set(per_image.values())) != 1:
         raise RuntimeError(f"stream bytes differ between layouts: {per_image}")
-    return mps, per_image, measure_sequential(model, batch, iters)
+    sequential = measure_sequential(model, batch, iters)
+    profiled = {}
+    if on_card:
+        device_ms, busy = profile_stream(model, batch, iters, threads)
+        profiled = {
+            "device_ms_per_batch": device_ms, "busy": busy,
+            "capture_ms": 1e3 * sum(
+                sum(st["capture_s"]) for st in
+                graphs.all_stats(model).values()),
+            "peak_bytes": torch.cuda.max_memory_allocated(model.device)}
+    return mps, per_image, sequential, profiled
 
 
 def main(argv=None):
@@ -118,15 +183,28 @@ def main(argv=None):
     batch = {"rgb": torch.from_numpy(rng.random(
         (args.batch, args.image, args.image, 3), dtype=np.float32)
     ).to(device)}
-    results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        model = scale_conv_kernels(build_model(
-            1, ["rgb"], latent_channels=args.latent, conv_channels=args.conv,
-            device=device, seed=SEED, dtype=dtype))
-        results[dtype] = measure_codec(model, batch, args.iters, threads)
-        del model
-    mps, per_image, sequential = results[torch.float32]
-    mps_bf16, per_image_bf16, sequential_bf16 = results[torch.bfloat16]
+    results, modes = {}, {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for mode in ("graphed", "eager"):
+            model = scale_conv_kernels(build_model(
+                1, ["rgb"], latent_channels=args.latent,
+                conv_channels=args.conv, device=device, seed=SEED,
+                dtype=dtype))
+            with (graphs.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                results[dtype, mode] = measure_codec(model, batch,
+                                                     args.iters, threads)
+            got_mps, _, got_seq, profiled = results[dtype, mode]
+            modes[f"{tag}_{mode}"] = {"mps_by_stream_impl": got_mps,
+                                      "mps_compress_decompress": got_seq,
+                                      **profiled}
+            del model
+    mps, per_image, sequential, _ = results[torch.float32, "graphed"]
+    mps_bf16, per_image_bf16, sequential_bf16, _ = results[
+        torch.bfloat16, "graphed"]
+    if (per_image != results[torch.float32, "eager"][1]
+            or per_image_bf16 != results[torch.bfloat16, "eager"][1]):
+        raise RuntimeError("stream bytes differ between graphed and eager")
     best = max(mps, key=mps.get)
     best_bf16 = max(mps_bf16, key=mps_bf16.get)
     print(json.dumps({
@@ -142,6 +220,10 @@ def main(argv=None):
         "mps_bf16_by_stream_impl": mps_bf16,
         "mps_bf16_compress_decompress": sequential_bf16,
         "bytes_per_image_bf16": per_image_bf16[best_bf16],
+        "value_eager": max(modes["f32_eager"]["mps_by_stream_impl"].values()),
+        "mps_bf16_eager": max(
+            modes["bf16_eager"]["mps_by_stream_impl"].values()),
+        "modes": modes,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "card": card() if device.type == "cuda" else None}))

@@ -8,6 +8,8 @@ entries, and one ulp moves a `build_indexes` bucket and so the stream
 bytes. tests/test_torch_entropy.py pins the literals against JAX.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -55,6 +57,14 @@ def get_scale_table(device=None) -> torch.Tensor:
     return torch.tensor(_SCALE_TABLE, dtype=torch.float32, device=device)
 
 
+@functools.cache
+def _device_scale_table(device) -> torch.Tensor:
+    """get_scale_table() on `device`, made once: a copy from the host each
+    call would be a host-to-device copy inside a CUDA graph's capture,
+    which the capture refuses."""
+    return get_scale_table(device)
+
+
 def _std_cumulative(x):
     """Standard normal CDF as 0.5*erfc(-x/sqrt(2))."""
     return 0.5 * torch.special.erfc(-(2 ** -0.5) * x)
@@ -88,7 +98,7 @@ def build_indexes(scales, scale_table=None):
     the JAX package's 63-step comparison count (gaussian_conditional.py:78-86).
     """
     if scale_table is None:
-        scale_table = get_scale_table(scales.device)
+        scale_table = _device_scale_table(scales.device)
     scales = torch.clamp_min(scales, SCALE_BOUND)
     return torch.bucketize(scales, scale_table[:-1]).to(torch.int32)
 

@@ -29,6 +29,13 @@ the noise-quantized training `forward`, `loss_and_logs` (loss = lmbda *
 rec + rate, codecs.py:295-309) and `aux_loss`, which `train/step.py`
 drives.
 
+The device programs (the eval forward, `encode_eval`, the compress
+programs, the index and synthesis programs, the partial decode's
+`_synthesize_task`) are `graphs.program`s: on a card each runs as a CUDA
+graph after a warm-up call and a capture, the counterpart of the JAX
+class's jitted methods; host uploads, downloads, the rANS coder and the
+guards between programs stay on the host.
+
 `dtype=torch.bfloat16` builds the mixed-precision codec of the JAX
 package's `dtype=jnp.bfloat16` (codecs.py:55-83, 171-204): parameters stay
 float32, the layers' activations are bf16 (the encoder heads cast the
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import graphs
 from ..data.task_configs import task_parameters
 from ..device import resolve_device
 from ..entropy import gaussian_conditional as gc
@@ -306,13 +314,19 @@ class MultiTaskCompressorBase(nn.Module):
         `noise`, {"y", "z"} NHWC in the shapes `latent_shapes` gives (drawn
         by `draw_noise`)."""
         if not training:
-            with torch.no_grad():
-                return self._forward(batch, False, None)
+            return self._eval_forward(batch)
         if noise is None:
             raise ValueError("a training forward needs noise (draw_noise)")
         return self._forward(batch, True, {
             k: _nchw(torch.as_tensor(v, device=self.device))
             for k, v in noise.items()})
+
+    @graphs.program
+    @torch.no_grad()
+    def _eval_forward(self, batch):
+        """The eval forward's device program (mmnc_tpu/models/codecs.py:
+        281-323)."""
+        return self._forward(batch, False, None)
 
     def _forward(self, batch, training, noise):
         x_hats, liks = self.model(self._inputs(batch), training, noise,
@@ -381,6 +395,7 @@ class MultiTaskCompressorBase(nn.Module):
                            self.latent_channels))
         return slices
 
+    @graphs.program
     @torch.no_grad()
     def encode_eval(self, batch):
         """Deterministic quantized latents (y_hat, z_hat), NHWC: y rounded,
@@ -391,7 +406,8 @@ class MultiTaskCompressorBase(nn.Module):
 
     def decode_from_latents(self, y_hat, z_hat=None):
         """Latents (NHWC) -> {task: NHWC}; z_hat only sets the rate, not
-        the reconstruction."""
+        the reconstruction. The device program is
+        `_decompress_synthesize`'s (mmnc_tpu/models/codecs.py:336-350)."""
         del z_hat
         return self._decompress_synthesize(y_hat)
 
@@ -414,6 +430,7 @@ class MultiTaskCompressorBase(nn.Module):
         return self.model.compressor.entropy_bottleneck.medians().view(
             1, -1, 1, 1)
 
+    @graphs.program
     @torch.no_grad()
     def _compress_device(self, batch):
         """-> (y_sym, z_sym, indexes) NHWC int32 on the device
@@ -425,7 +442,7 @@ class MultiTaskCompressorBase(nn.Module):
                 _nhwc(z_sym.to(torch.int32)), _nhwc(indexes))
 
     # device programs of the streaming round trip (models/streaming.py):
-    # each returns tensors on the device and syncs nothing
+    # each returns tensors on the device and syncs nothing (graphs.py)
 
     def _symbols(self, batch):
         """-> (y_sym, z_sym) rounded f32 NCHW, max_abs int32 scalar."""
@@ -436,6 +453,7 @@ class MultiTaskCompressorBase(nn.Module):
                                 z_sym.abs().max()).to(torch.int32)
         return y_sym, z_sym, max_abs
 
+    @graphs.program
     @torch.no_grad()
     def _compress_device_lean(self, batch):
         """-> (y_sym, z_sym) NHWC int16 and max_abs (int32 scalar)
@@ -445,6 +463,7 @@ class MultiTaskCompressorBase(nn.Module):
         return (_nhwc(y_sym).to(torch.int16), _nhwc(z_sym).to(torch.int16),
                 max_abs)
 
+    @graphs.program
     @torch.no_grad()
     def _compress_device_fused(self, batch):
         """-> (y_sym i16, z_sym i16, indexes u8) NHWC and max_abs in one
@@ -461,6 +480,7 @@ class MultiTaskCompressorBase(nn.Module):
         scales = self.model.compressor.hyper_synthesize(z_sym + self._medians())
         return gc.build_indexes(scales[:, :, :y_shape[0], :y_shape[1]])
 
+    @graphs.program
     @torch.no_grad()
     def _decompress_indexes_u8(self, z_sym, y_shape):
         """z symbols (NHWC, any integer type, host or device) -> y's
@@ -469,6 +489,7 @@ class MultiTaskCompressorBase(nn.Module):
         z = _nchw(torch.as_tensor(z_sym, device=self.device).float())
         return _nhwc(self._indexes(z, y_shape)).to(torch.uint8)
 
+    @graphs.program
     @torch.no_grad()
     def _synthesize_from_symbols(self, y_sym):
         """int16 y symbols (NHWC, on the device) -> {task: NHWC}; the cast
@@ -476,6 +497,7 @@ class MultiTaskCompressorBase(nn.Module):
         (mmnc_tpu/models/codecs.py:430-435)."""
         return self._decompress_synthesize(y_sym.to(self.dtype))
 
+    @graphs.program
     @torch.no_grad()
     def _decompress_synthesize(self, y_hat):
         """f32 y_hat (NHWC) -> {task: NHWC} (mmnc_tpu/models/codecs.py:
@@ -484,6 +506,7 @@ class MultiTaskCompressorBase(nn.Module):
         x_hats = self.model.synthesize_from_y(y_hat)
         return {t: _nhwc(x) for t, x in zip(self.tasks, x_hats)}
 
+    @graphs.program
     @torch.no_grad()
     def _synthesize_task(self, y_hat, task_index: int):
         """f32 y_hat (NHWC) -> task `task_index`'s reconstruction (NHWC),
@@ -491,11 +514,18 @@ class MultiTaskCompressorBase(nn.Module):
         y_hat = _nchw(torch.as_tensor(y_hat, device=self.device))
         return _nhwc(self.model.synthesize_one_task(y_hat, task_index))
 
-    @torch.no_grad()
     def _decompress_indexes(self, z_sym, y_shape):
-        """z symbols (NHWC, host) -> Gaussian CDF-row indexes for y (host)."""
+        """z symbols (NHWC, host) -> Gaussian CDF-row indexes for y (host):
+        the upload, the device program, the download."""
+        return _host(self._decompress_indexes_device(z_sym, y_shape))
+
+    @graphs.program
+    @torch.no_grad()
+    def _decompress_indexes_device(self, z_sym, y_shape):
+        """z symbols (NHWC) -> y's indexes (NCHW int32) on the device
+        (mmnc_tpu/models/codecs.py:483-494)."""
         z = _nchw(torch.as_tensor(z_sym, device=self.device).float())
-        return _host(self._indexes(z, y_shape))
+        return self._indexes(z, y_shape)
 
     def _z_index(self, shape):
         zc = self.conv_channels * self.n_tasks

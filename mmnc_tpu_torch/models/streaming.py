@@ -41,6 +41,17 @@ Where max_abs says int16 wrapped (>= 2^15 - 1), the batch goes through
 the four codecs: the device programs are the base class's, and the x_hats
 are a dict with one NHWC tensor per task.
 
+On a card each device program is a CUDA graph of the model
+(`graphs.py`): the main thread replays the compress program under the
+dispatch lock, the coder thread the index and synthesis programs (the
+first time a signature comes, it warms the program up, and the second
+time captures it, there, under the same lock; torch's "thread_local"
+capture mode lets the other thread wait on events and pin memory
+meanwhile). A replay returns clones of the graph's outputs, fresh
+allocations of the compute stream like an eager program's, so
+`record_stream` covers the slot's copies of them as before and a later
+replay never overwrites x_hats a caller still holds.
+
 Stages are labelled for torch.profiler (`record_function`):
 stream.compress, stream.d2h_wait, stream.rans_encode, stream.rans_decode,
 stream.synthesize. On the CPU (`device="cpu"` models) the same pipeline
@@ -81,8 +92,10 @@ class _Slot:
         self.event = None
 
     def fill(self, tensors, copy_stream, compute_stream):
-        """Copy `tensors` (device) into this slot on `copy_stream`, after
-        the compute stream's work so far; returns numpy views."""
+        """Copy `tensors` (device; a graph replay's clones or an eager
+        program's outputs, made on the compute stream) into this slot on
+        `copy_stream`, after the compute stream's work so far; returns
+        numpy views."""
         if [(h.shape, h.dtype) for h in self.host] != \
                 [(t.shape, t.dtype) for t in tensors]:
             self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

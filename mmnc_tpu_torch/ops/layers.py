@@ -25,7 +25,7 @@ rounded to bf16. Under no-grad (decode, eval) a layer keeps what it
 derives from its parameters (the bf16 copies, the deconv taps and GDN's
 effective gamma and beta) until a parameter changes (`_derived`); with
 grad enabled it derives them anew at each call, so that gradients reach
-the float32 parameters.
+the float32 parameters, and a CUDA graph derives them at each replay.
 """
 
 import math
@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import graphs
 from .bound import lower_bound
 from .deconv_igdn import deconv_igdn, deconv_weight_taps, bf16_conv
 from .gdn import gdn
@@ -59,8 +60,11 @@ def _derived(module, key, make, *params):
     result is kept on the module and reused while each parameter is the
     same tensor at the same version (an in-place update, an optimizer step
     or a load_state_dict bumps the version); with grad enabled it is made
-    anew."""
-    if torch.is_grad_enabled():
+    anew, and so it is while a stream captures a CUDA graph
+    (`graphs.py`): the graph then derives it at every replay from the
+    parameters as they are, as a jitted program does, and stays valid
+    through in-place updates."""
+    if torch.is_grad_enabled() or graphs.capturing(params[0].device):
         return make()
     stamp = tuple((p.data_ptr(), p._version, p.device) for p in params)
     cache = module.__dict__.setdefault("_derived_cache", {})

@@ -38,10 +38,12 @@ the deconv+IGDN kernel never; in a graphed call those launches are nodes
 of the graph (the kernel's launch counter counts a capture once and a
 replay never). The GDN backward is its closed form in torch
 (`ops/gdn.py:GDNFunction`). The eval step runs under no-grad and takes
-both kernels.
+both kernels; on a card it is a CUDA graph program of the model
+(`graphs.py`), whose capture derives the deconv taps and GDN's effective
+parameters inside the graph (`ops/layers.py:_derived`), so a replay reads
+the parameters a train call or a `load_state_dict` left.
 """
 
-import functools
 import time
 
 import torch
@@ -49,6 +51,9 @@ import torch.distributed as dist
 from torch.autograd.graph import increment_version
 from torch.utils.checkpoint import checkpoint
 
+from .. import graphs
+from ..graphs import capture_stream as _capture_stream
+from ..graphs import warm_up as _warm_up
 from ..ops import metrics as M
 from .state import TrainState
 
@@ -270,25 +275,6 @@ def _on_card(model) -> bool:
     return model.device.type == "cuda"
 
 
-@functools.cache
-def _capture_stream(device):
-    """The side stream a device's train calls warm up and are captured on
-    (one for the process: the port runs on one card a process)."""
-    return torch.cuda.Stream(device)
-
-
-def _warm_up(body, state, batches, noises, lrs, stream):
-    """The first call of a signature: `body` eagerly on `stream`, the one
-    the graph is captured on, so that what it sets up lazily (per-stream
-    cuBLAS workspaces among it) is there before the capture."""
-    current = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        logs = body(state, batches, noises, lrs)
-    current.wait_stream(stream)
-    return logs
-
-
 class _TrainGraph:
     """A captured K-step call: its static inputs (the micro-batches, their
     noise, the K main-group rates), the graph and its logs.
@@ -306,12 +292,10 @@ class _TrainGraph:
                        for n in noises]
         self.lrs = torch.empty(len(batches), dtype=torch.float32,
                                device=stream.device)
-        self.graph = torch.cuda.CUDAGraph()
         state.optimizer.zero_grad(set_to_none=True)
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.logs = body(state, self.batches, self.noises,
-                             list(self.lrs))
+        self.graph, self.logs = graphs.capture(
+            lambda: body(state, self.batches, self.noises, list(self.lrs)),
+            stream)
         self.capture_s = time.perf_counter() - t0
 
     def replay(self, params, batches, noises, lrs):
@@ -373,7 +357,7 @@ def make_multi_train_step(model, steps_per_call: int,
         if state.graph is None or state.graph[0] != key:
             state.drop_graph()
             stats["eager"] += 1
-            logs = _warm_up(body, state, batches, noises, lrs, stream)
+            logs = _warm_up(body, state, batches, noises, lrs, stream=stream)
             state.graph = (key, WARMED)
             return logs
         graph = state.graph[1]
@@ -417,13 +401,27 @@ def make_eval_step(model, compute_metrics: bool = True, mesh=None):
     """Returns eval_step(batch) -> logs (deterministic rounding, under
     no-grad; the parameters are the model's). Under a `mesh` `batch` is
     the rank's rows and the logs are the global batch's, as the train
-    step's."""
+    step's.
+
+    On a card without a mesh the step is the model's device program
+    "eval_step" (`graphs.run`, keyed on `compute_metrics` and the batch's
+    shapes): a warm-up call, a capture, then replays, the counterpart of
+    the JAX package's jitted eval step (mmnc_tpu/train/step.py:134-146);
+    `eval_step.stats` counts them (`graphs.stats`). Under a mesh it stays
+    eager, as the train call does: its logs' all-reduce runs on the
+    host."""
 
     @torch.no_grad()
-    def eval_step(batch):
+    def body(batch, compute_metrics):
         batch = model.to_device(batch)
         _, (logs, x_hats, _) = model.loss_and_logs(batch, training=False)
         return _step_logs(model, logs, batch, x_hats, "val",
                           compute_metrics, mesh)
 
+    def eval_step(batch):
+        if mesh is not None:
+            return body(batch, compute_metrics)
+        return graphs.run(model, "eval_step", body, (batch, compute_metrics))
+
+    eval_step.stats = graphs.stats(model, "eval_step")
     return eval_step

@@ -16,14 +16,20 @@ profiler's records of the graph, and check that a step that cannot be
 captured raises. The card's Adam (capturable) is held to the CPU port's
 (not capturable) on the card's own gradients, graphed and eager, within
 rtol 1e-4 / atol 1e-6, and a checkpoint the card writes resumes on the
-CPU and back.
+CPU and back. The serving programs' graphs (`graphs.py`) are held to
+their eager programs bitwise under deterministic cuDNN, at the bench's
+rgb width and at shared4, in float32 and bf16, also after an Adam step
+and a `load_state_dict` changed the parameters in place, and a captured
+deconv+IGDN launch (split and tiled plans) to an eager one.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
-from mmnc_tpu_torch import build_model
+from mmnc_tpu_torch import build_model, graphs
 from mmnc_tpu_torch.models.streaming import stream_roundtrip
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
                                             deconv_igdn_plain, launch_plan,
@@ -761,21 +767,27 @@ def test_shared4_stream_on_card_equals_its_compress(device):
     """The paper's shared4 (model 4, four tasks, latent 300, conv 42)
     streamed on the card in both layouts: each batch's bytes are its
     compress's, each task's x_hat within 1e-5 of its decompress, 35 GDN
-    and 28 deconv+IGDN launches a batch."""
+    and 28 deconv+IGDN launches a batch with the programs eager
+    (`graphs.disabled()`); then the stream through the programs' graphs
+    (a warm-up, a capture, a replay), the same checks."""
     tasks = ["rgb", "depth_euclidean", "normal", "semantic"]
     model = scale_conv_kernels(build_model(4, tasks, 300, 42, device=device,
                                            seed=0))
     model.update_bottleneck_values()
     batches = [{t: torch.from_numpy(x).to(device) for t, x in
                 model.example_batch(2, seed=s).items()} for s in range(3)]
-    for impl in ("v2", "v1"):
+    for impl, graphed in (("v2", False), ("v1", False), ("v2", True),
+                          ("v1", True)):
         gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
-        results = list(stream_roundtrip(model, batches, depth=2, impl=impl))
+        with contextlib.nullcontext() if graphed else graphs.disabled():
+            results = list(stream_roundtrip(model, batches, depth=2,
+                                            impl=impl))
         torch.cuda.synchronize()
         launches = (gdn_cuda.launches - gdn0,
                     deconv_igdn_cuda.launches - dec0)
         # v1 computes the indexes once more, from the decoded z (no kernel)
-        assert launches == (3 * 35, 3 * 28), (impl, launches)
+        if not graphed:
+            assert launches == (3 * 35, 3 * 28), (impl, launches)
         for b, (x_hats, n_bytes) in zip(batches, results):
             ans, n_ref = model.compress(b)
             assert n_bytes == n_ref
@@ -1062,7 +1074,7 @@ def test_graphed_gdn_launches_land_in_the_graph(device):
         state, _ = multi(state, batches, gen, 21)
     before = gdn_cuda.launches
     prof = chip_smoke.profile_device(
-        torch, lambda: multi(state, batches, gen, 21))
+        torch, lambda: multi(state, batches, gen, 21), tries=1)
     assert gdn_cuda.launches == before
     assert multi.stats["replays"] == 2
     assert prof["graph"] == {"gdn": 36, "deconv_igdn": 0}, prof["kernels"]
@@ -1248,3 +1260,201 @@ def test_card_updates_equal_the_cpu_adam_and_resume_on_the_cpu(device,
                                       "resumed on the card")
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+# --- the serving programs as CUDA graphs (graphs.py) ------------------------
+
+def _serving_model(device, name, dtype=torch.float32, seed=0):
+    """The bench's rgb codec (latent 128, conv 100) or shared4 (model 4,
+    four tasks, latent 300, conv 42), conv kernels scaled, tables built."""
+    if name == "rgb":
+        args = (1, ["rgb"], 128, 100)
+    else:
+        args = (4, ["rgb", "depth_euclidean", "normal", "semantic"], 300, 42)
+    model = scale_conv_kernels(build_model(*args, lmbda=1e-2, device=device,
+                                           seed=seed, dtype=dtype))
+    model.update_bottleneck_values()
+    return model
+
+
+def _serving_batch(model, device, seed=1):
+    return {t: torch.from_numpy(x).to(device)
+            for t, x in model.example_batch(2, seed=seed).items()}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [torch.as_tensor(tree)]
+
+
+def _bitwise(got, want, what):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want), what
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu()), what
+
+
+def _serving_calls(model, batch):
+    """{program: call}: every wrapped program of the serving path, on
+    inputs from the batch's eager compress."""
+    with graphs.disabled():
+        y_sym, z_sym, _ = model._compress_device(batch)
+    y_hat = y_sym.float()
+    z_host = z_sym.cpu().numpy()
+    y_shape = tuple(y_sym.shape[1:3])
+    last = model.n_tasks - 1
+    step = make_eval_step(model)
+    return {
+        "_eval_forward": lambda: model(batch),
+        "encode_eval": lambda: model.encode_eval(batch),
+        "decode_from_latents": lambda: model.decode_from_latents(y_hat),
+        "_compress_device": lambda: model._compress_device(batch),
+        "_compress_device_lean": lambda: model._compress_device_lean(batch),
+        "_compress_device_fused": lambda: model._compress_device_fused(
+            batch),
+        "_decompress_indexes_u8": lambda: model._decompress_indexes_u8(
+            z_sym, y_shape),
+        "_decompress_indexes": lambda: model._decompress_indexes(z_host,
+                                                                 y_shape),
+        "_synthesize_from_symbols": lambda: model._synthesize_from_symbols(
+            y_sym.to(torch.int16)),
+        "_decompress_synthesize": lambda: model._decompress_synthesize(
+            y_hat),
+        "_synthesize_task": lambda: model._synthesize_task(y_hat, last),
+        "eval_step": lambda: step(batch),
+    }
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["rgb", "shared4"])
+def test_graphed_programs_equal_eager_bitwise(device, deterministic_cudnn,
+                                              name, dtype):
+    """Every serving program three times (a warm-up, a capture, a replay)
+    against the eager program under deterministic cuDNN: bitwise equal;
+    the replay launches nothing through the kernel wrappers."""
+    model = _serving_model(device, name, dtype)
+    calls = _serving_calls(model, _serving_batch(model, device))
+    for program, call in calls.items():
+        with graphs.disabled():
+            want = call()
+        for i in range(3):
+            gdn0, dec0 = gdn_cuda.launches, deconv_igdn_cuda.launches
+            got = call()
+            torch.cuda.synchronize()
+            _bitwise(got, want, f"{program} call {i}")
+            if i == 2:
+                assert (gdn_cuda.launches, deconv_igdn_cuda.launches) == (
+                    gdn0, dec0), program
+    # two calls run a program of another name
+    names = {"decode_from_latents": "_decompress_synthesize",
+             "_decompress_indexes": "_decompress_indexes_device"}
+    for program in calls:
+        stats = graphs.stats(model, names.get(program, program))
+        assert stats["captures"] == 1 and stats["replays"] >= 2, program
+
+
+@pytest.mark.parametrize("shape,cout,plan", [
+    ((8, 1, 1, 128), 100, None), ((8, 2, 2, 100), 100, None),
+    ((8, 4, 4, 100), 100, None), ((8, 1, 1, 120), 42, None),
+    ((8, 16, 16, 100), 50, None), ((8, 4, 4, 42), 42, ("tiled", 2, 2, 1))])
+def test_captured_deconv_igdn_launch_equals_eager(device, shape, cout, plan):
+    """One deconv+IGDN launch captured into a graph (split plans at the
+    latent stages, the tiled one elsewhere and forced at a split shape)
+    and replayed on new inputs equals an eager launch on them bitwise."""
+    plan = plan or launch_plan(*shape, cout)
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, 1)
+    eager = deconv_igdn_cuda(x, w, b, gamma, beta, "igdn", plan=plan)
+    static = torch.zeros_like(x)
+    stream = graphs.capture_stream(x.device)
+    graphs.warm_up(lambda: deconv_igdn_cuda(static, w, b, gamma, beta,
+                                            "igdn", plan=plan),
+                   stream=stream)
+    graph, out = graphs.capture(
+        lambda: deconv_igdn_cuda(static, w, b, gamma, beta, "igdn",
+                                 plan=plan), stream)
+    for seed in (2, 3):
+        x2 = _deconv_inputs(device, shape, cout, seed)[0]
+        static.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, deconv_igdn_cuda(x2, w, b, gamma, beta,
+                                                 "igdn", plan=plan)), seed
+    static.copy_(x)
+    graph.replay()
+    assert torch.equal(out, eager)
+
+
+def test_replay_after_adam_and_load_state_dict_equals_eager(
+        device, deterministic_cudnn):
+    """The rgb decompress's synthesis and the eval step captured; then an
+    eager Adam step and a load_state_dict of other weights change the
+    parameters in place: after each, the replays (no new warm-up) equal
+    the eager programs on the new parameters bitwise."""
+    model = _serving_model(device, "rgb")
+    batch = _serving_batch(model, device)
+    with graphs.disabled():
+        y_hat = model._compress_device(batch)[0].float()
+    step = make_eval_step(model)
+    for _ in range(2):
+        model._decompress_synthesize(y_hat)
+        step(batch)
+    state = create_train_state(model, 10, 1e-4, 1e-3)
+    train = make_train_step(model, clip_norm=5.0)
+    other = _serving_model(device, "rgb", seed=1).state_dict()
+    for update in ("adam", "load_state_dict"):
+        if update == "adam":
+            train(state, batch, torch.Generator(device=device).manual_seed(0))
+        else:
+            model.load_state_dict(other)
+        replays = [graphs.stats(model, n)["replays"]
+                   for n in ("_decompress_synthesize", "eval_step")]
+        got = model._decompress_synthesize(y_hat), step(batch)
+        assert [graphs.stats(model, n)["replays"] for n in (
+            "_decompress_synthesize", "eval_step")] == [r + 1 for r in
+                                                        replays]
+        with graphs.disabled():
+            want = model._decompress_synthesize(y_hat), step(batch)
+        _bitwise(got, want, update)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_round_trip_and_stream_equal_eager(device, deterministic_cudnn,
+                                                   dtype):
+    """compress -> decompress and both stream layouts of the rgb codec,
+    three batches, graphed against `graphs.disabled()`: the same bytes
+    and bitwise the same x_hats, in float32 and bf16."""
+    model = _serving_model(device, "rgb", dtype)
+    batches = [_serving_batch(model, device, s) for s in (1, 2, 3)]
+
+    def trips():
+        out = []
+        for b in batches:
+            ans, n = model.compress(b)
+            out.append((ans["strings"], n, model.decompress(ans)))
+        return out
+
+    with graphs.disabled():
+        want = trips()
+        streams = {impl: list(stream_roundtrip(model, batches, impl=impl))
+                   for impl in ("v2", "v1")}
+    got = trips()
+    for (s, n, x), (ws, wn, wx) in zip(got, want):
+        assert s == ws and n == wn
+        _bitwise(x, wx, "decompress")
+    for impl, eager in streams.items():
+        results = list(stream_roundtrip(model, batches, impl=impl))
+        torch.cuda.synchronize()
+        for (x, n), (wx, wn) in zip(results, eager):
+            assert n == wn
+            _bitwise(x, wx, f"stream {impl}")
