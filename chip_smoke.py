@@ -173,10 +173,20 @@ stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
      on cuda:0 over gloo (NCCL takes one rank per card) against one
      process, 4 steps at a global batch of 16 from the same seed weights
      and scenes, deterministic cuDNN (losses rtol 1e-4, parameters rtol
-     2e-4 / atol 2e-6, the ranks' bitwise equal), and one step over NCCL
-     at world size 1 (its loss the single process's first within rtol
-     1e-4); each run's step p50, the gradient all-reduce's
-     share of a profiled step and its busy share; the 2 gloo ranks again
+     2e-4 / atol 2e-6, the ranks' bitwise equal; the gloo ranks' calls
+     all eager), then the same 4 steps over NCCL at world size 1 with a
+     validation of 4 batches: its train calls and eval steps CUDA graphs
+     with the all-reduces captured (a warm-up, a capture, replays; a
+     profiled replay's graph records 63 GDN a step, the eval step's 35 +
+     28), held bitwise to an eager run of the same rank (the loop's
+     multi-step made of eager steps, the eval step under
+     `graphs.disabled()`: losses, validation logs, parameters) and to the
+     one process as the gloo ranks; each run's step p50 (one-step calls
+     as its fit made them: replays or eager), images/s and busy share of
+     a profiled step, an eager step's gradient all-reduce span (host ms,
+     its device records, NCCL's kernels) and a replay's in-graph
+     reduction (NCCL's kernels, and the cat, division and copy-back
+     nodes, found by the eager span's records); the 2 gloo ranks again
      at DP_K steps a call against the one process (its losses at the
      calls' last steps); (d) then each of those ranks compresses its 8
      rows of a shared4 batch of 16 (`compress_device_fused_sharded`): the
@@ -218,11 +228,12 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
 and prints no result. `--dp-cards N` runs only phase 10 (c) and (d)
-across N cards (one NCCL rank a card, DP_BATCH rows each) against one
-process at the global batch, on a machine with N cards. The single
-process's fit replays CUDA graphs (its launch totals add each replay's
+across N cards (one NCCL rank a card, DP_BATCH rows each, fit graphed
+and then eager, as phase 10's NCCL rank) against one process at the
+global batch, on a machine with N cards. The single process's and the
+NCCL ranks' fit replay CUDA graphs (launch totals add each replay's
 graph launches, a call's count as a profiled replay's records show it);
-a rank's steps stay eager. `--time-deconv
+gloo ranks' steps stay eager. `--time-deconv
 TREE` runs only phase 3's deconv+IGDN checks and times, in float32 and
 bf16, at every launch shape of an rgb and a shared4 round trip of a
 batch of BATCH, on the `mmnc_tpu_torch` of the checkout at TREE ("." for
@@ -320,7 +331,8 @@ CLI_RUNS = (("cli_eager", 1, True), ("cli_k1", 1, False),
 # learned_baseline_rd over BASELINE_IMAGES held-out images a checkpoint),
 # and data parallelism on the one card: DP_RANKS ranks of fit over gloo
 # against one process, DP_STEPS steps at a global batch of DP_BATCH, then
-# one step over NCCL at world size 1
+# the same over NCCL at world size 1, graphed and eager, with a validation
+# of DP_STEPS batches
 RD_LMBDAS, RD_TRAIN_SIZE, RD_VAL_SIZE, RD_BATCH = (0.01, 0.001), 64, 16, 16
 ANALYSIS_BATCH, BASELINE_IMAGES = 4, 32
 DP_RANKS, DP_STEPS, DP_BATCH, DP_TIMED_STEPS = 2, 4, 16, 5
@@ -798,7 +810,7 @@ def p10_gdn_groups(lay):
     n_enc = MT_LAUNCHES["shared4"]["compress"][0]
     groups = [(mt_gdn_shapes(lay, b, train=True), f"train{b}")
               for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
-    for b in sorted({RD_BATCH, ANALYSIS_BATCH}):
+    for b in sorted({RD_BATCH, ANALYSIS_BATCH, DP_BATCH}):
         shapes = mt_gdn_shapes(lay, b)
         groups += [(shapes[:n_enc], f"encode{b}"),
                    (shapes[n_enc:], f"decode{b}")]
@@ -862,7 +874,8 @@ def check_deconv(torch, b, gen):
          (mt_deconv_shapes(paper_layout(*PAPER["shared4"]),
                            CLI_COMPARE_BATCH), None),
          *((mt_deconv_shapes(paper_layout(*PAPER["shared4"]), bb),
-            f"decode{bb}") for bb in sorted({RD_BATCH, ANALYSIS_BATCH})),
+            f"decode{bb}") for bb in sorted({RD_BATCH, ANALYSIS_BATCH,
+                                             DP_BATCH})),
          ([(b, 8, 8, CONV, CONV, None)], None)]  # g_s's last deconv
         + [(mt_deconv_shapes(paper_layout(*PAPER[name]), b), None)
            for name in ("mixed", "disjoint")]
@@ -1670,11 +1683,11 @@ def check_train_against_cpu(torch, build, batch, what):
     return launches
 
 
-def launched_in_spans(events, match):
-    """Microseconds of the device records launched inside a CPU span
-    (torch op or record_function) whose name passes `match`: the runtime
-    call that shares a record's correlation id lies in the span, on the
-    span's thread (the autograd engine's thread for backward ops)."""
+def launched_records(events, match):
+    """The device records launched inside a CPU span (torch op or
+    record_function) whose name passes `match`: the runtime call that
+    shares a record's correlation id lies in the span, on the span's
+    thread (the autograd engine's thread for backward ops)."""
     spans = [(e["pid"], e["tid"], e["ts"], e["ts"] + e["dur"])
              for e in events if e.get("cat") in ("cpu_op", "user_annotation")
              and match(e["name"])]
@@ -1682,15 +1695,21 @@ def launched_in_spans(events, match):
     calls = {e["args"]["correlation"]: (e["pid"], e["tid"], e["ts"])
              for e in events if e.get("cat", "").startswith("cuda_")
              and "correlation" in e.get("args", {})}
-    total = 0.0
+    out = []
     for e in events:
         if e.get("cat") not in DEVICE_WORK:
             continue
         call = calls.get(e.get("args", {}).get("correlation"))
         if call and any(p == call[0] and t == call[1] and s <= call[2] <= f
                         for p, t, s, f in spans):
-            total += e["dur"]
-    return total
+            out.append(e)
+    return out
+
+
+def launched_in_spans(events, match):
+    """Microseconds of the device records launched inside a CPU span whose
+    name passes `match` (`launched_records`)."""
+    return sum(e["dur"] for e in launched_records(events, match))
 
 
 def outermost_spans(events, match):
@@ -2991,8 +3010,9 @@ def counted_steps(torch, per_step, eager=False, profile_replay=False):
     launches its kernels without the wrappers: with `profile_replay` (for
     a run without the loop's own profiler window: profilers do not nest)
     the first replayed train call and the first replayed eval step run
-    under torch.profiler (their wall None), and "graph" holds the graph's
-    kernel records (`graph_launches`). With `eager` the
+    under torch.profiler (their wall None), "graph" holds the graph's
+    kernel records (`graph_launches`) and "kernel_ms" the device ms of
+    each `kernel_kind`'s records. With `eager` the
     loop's multi-step is `eager_multi_step`; otherwise the steps
     themselves are unchanged."""
     from mmnc_tpu_torch.train import loop
@@ -3024,6 +3044,7 @@ def counted_steps(torch, per_step, eager=False, profile_replay=False):
                         torch, lambda: holder.append(step(*a, **k)), tries=1)
                     out = holder[0]
                     entry["graph"] = prof["graph"]
+                    entry["kernel_ms"] = prof["by_kernel"]
                 else:
                     out = step(*a, **k)
                 torch.cuda.synchronize()
@@ -3869,50 +3890,121 @@ def run_baseline(torch, ckpts, card):
             "per_batch": per_batch}
 
 
-def profile_dp_step(torch, step, state, batch, gen):
-    """torch.profiler over one train step -> wall ms, device busy ms and
-    the host ms of the gradient all-reduce's record_function span (and of
-    any NCCL kernel on the device). One try: under a mesh every rank
-    must take the same steps."""
-    run = profiled(torch, lambda: step(state, batch, gen), tries=1)
+def graph_records(events):
+    """The device records a CUDA graph launch started (their correlation
+    id is that of a cudaGraphLaunch call), in the order they started."""
+    graph = {e["args"]["correlation"] for e in events
+             if e.get("cat", "").startswith("cuda_")
+             and "GraphLaunch" in e.get("name", "")
+             and "correlation" in e.get("args", {})}
+    return sorted((e for e in events if e.get("cat") in DEVICE_WORK
+                   and e.get("args", {}).get("correlation") in graph),
+                  key=lambda e: e["ts"])
+
+
+def is_nccl(record):
+    return "nccl" in record["name"].lower()
+
+
+def record_kind(record):
+    """A device record's name, with a device-to-device copy called
+    "memcpy" whether it ran as a copy (eager) or as the kernel a graph's
+    memcpy node becomes ("memcpy32_post", ...)."""
+    name = record["name"]
+    if (record.get("cat") == "gpu_memcpy" and "DtoD" in name) or \
+            name.startswith("memcpy"):
+        return "memcpy"
+    return name
+
+
+def in_graph_reduction(replay_events, span_records):
+    """The gradient all-reduce's nodes in a replayed step's graph records:
+    the run of records whose kinds (`record_kind`) are, in order, those an
+    eager step launched inside its `all_reduce_gradients` span
+    (`span_records`: the flattening copies and the cat, NCCL's kernels,
+    the division and the copy-backs) -> {"nodes", "nccl_ms", "copy_ms"
+    (the other nodes)}, or None where no such run is found (the profiler
+    lost records)."""
+    names = [record_kind(e) for e in sorted(span_records,
+                                            key=lambda e: e["ts"])]
+    records = graph_records(replay_events)
+    got = [record_kind(e) for e in records]
+    for i in range(len(got) - len(names) + 1):
+        if names and got[i:i + len(names)] == names:
+            run = records[i:i + len(names)]
+            return {"nodes": len(run),
+                    "nccl_ms": sum(e["dur"] for e in run if is_nccl(e)) / 1e3,
+                    "copy_ms": sum(e["dur"] for e in run
+                                   if not is_nccl(e)) / 1e3}
+    return None
+
+
+def profile_dp_step(torch, call):
+    """torch.profiler over one train call (`call()`) -> wall ms, device
+    busy ms, the host ms of the gradient all-reduce's record_function
+    spans and their device records, NCCL's kernels' device ms and the
+    graph records (a replay's). One try: under a mesh every rank must
+    take the same steps."""
+    run = profiled(torch, call, tries=1)
     events, wall = run["events"], run["wall"] * 1e3
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
     spans = [e["dur"] for e in events if e.get("cat") == "user_annotation"
              and e["name"] == "all_reduce_gradients"]
-    nccl = [e["dur"] for e in device if "nccl" in e["name"].lower()]
+    in_span = launched_records(events, lambda n: n == "all_reduce_gradients")
     return {"wall_ms": wall, "busy_ms": busy_us(device) / 1e3,
             "all_reduce_ms": sum(spans) / 1e3, "all_reduce_spans": len(spans),
-            "nccl_kernel_ms": sum(nccl) / 1e3}
+            "span_records": in_span,
+            "span_device_ms": sum(e["dur"] for e in in_span) / 1e3,
+            "nccl_kernel_ms": sum(e["dur"] for e in device
+                                  if is_nccl(e)) / 1e3,
+            "graph": graph_launches(events), "events": events}
 
 
-def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
+def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1,
+           eager=False, val=False):
     """Phase 10 (c): `steps` steps of fit at shared4 from seed-0 weights at
     the init scale on `batch_size` scenes a step (under a mesh the rank's
     rows of them), `steps_per_call` steps a call, deterministic cuDNN,
-    train metrics on; then DP_TIMED_STEPS synchronised steps and one
-    profiled step. A rank of `parallel.launch`, or (mesh None) the single
-    process. -> {"trace": rank 0's logged train losses (one a call: the
-    last step's), "params": the parameters after fit, "launches": fit's
-    (counted through the wrappers: none of a replayed call's),
-    "replayed": fit's steps in replayed graph calls, "all_launches": with
-    the replayed calls' graph launches (`graph_launched`; the first
-    replay profiled, `check_calls`) and the timed and profiled steps',
-    "step_ms", "profile"}."""
+    train metrics on, with `val` a validation over the scenes (an eval
+    step a batch); then DP_TIMED_STEPS synchronised one-step calls and one
+    profiled call, each as fit made them (graph replays on a card without
+    a mesh or under an NCCL one; eager under gloo). With `eager` the
+    loop's multi-step is made of eager steps and the eval step and the
+    serving programs run under `graphs.disabled()` (the reference a
+    graphed run is held to). A graphed mesh run also profiles one eager
+    step after it: its `all_reduce_gradients` span names the nodes of the
+    reduction in the replay's graph records (`in_graph_reduction`). A
+    rank of `parallel.launch`, or (mesh None) the single process. ->
+    {"trace": rank 0's logged train losses (one a call: the last step's),
+    "val": the validation's logs, "params": the parameters after fit,
+    "launches": fit's train calls' (counted through the wrappers: none of
+    a replayed call's), "replayed": fit's steps in replayed graph calls,
+    "calls": each of fit's train calls' kind, "all_launches": with the
+    replayed calls' graph launches (`graph_launched`; the first replay
+    profiled, `check_calls`) and the timed and profiled calls',
+    "replay_kernel_ms" ({"train"/"eval": device ms of each `kernel_kind`
+    in fit's profiled replay}), "step_ms", "profile", "eager_profile" (a
+    graphed mesh run's eager step), "reduction" (`in_graph_reduction` of
+    its profiled replay)}."""
     import torch
 
+    from mmnc_tpu_torch import graphs
     from mmnc_tpu_torch.data import (BatchLoader, SyntheticMultiTaskDataset,
                                      prerender)
     from mmnc_tpu_torch.device import resolve_device
-    from mmnc_tpu_torch.train import fit, make_train_step
+    from mmnc_tpu_torch.train import (fit, make_multi_train_step,
+                                      make_train_step)
     from mmnc_tpu_torch.train.step import step_seed
 
+    tally_graph_launches()  # a spawned rank: its eval replays are counted
     device = mesh.device if mesh is not None else resolve_device(CLI_DEVICE)
     tasks = PAPER["shared4"][1]
     data = prerender(SyntheticMultiTaskDataset(
         tasks, size=DP_STEPS * batch_size, image_size=IMAGE, seed=0,
         style="clevr"), cache_dir)
     name = ("single" if mesh is None else f"ranks{mesh.world_size}") + (
-        f"_k{steps_per_call}" if steps_per_call > 1 else "")
+        f"_k{steps_per_call}" if steps_per_call > 1 else "") + (
+        "_eager" if eager else "")
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -3920,24 +4012,29 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
         torch.cuda.synchronize(device)
         reset_counts()
         per_step = []
-        with counted_steps(torch, per_step, profile_replay=True):
-            state, _ = fit(model, BatchLoader(data, batch_size), epochs=1,
-                           max_steps=steps, run_name=name, out_dir=out_dir,
-                           log_every=1, log_images=False,
-                           steps_per_call=steps_per_call,
-                           n_devices=None if mesh is None
-                           else mesh.world_size)
+        with counted_steps(torch, per_step, eager, profile_replay=True), \
+                (graphs.disabled() if eager else contextlib.nullcontext()):
+            state, val_logs = fit(
+                model, BatchLoader(data, batch_size),
+                BatchLoader(data, batch_size, shuffle=False) if val else None,
+                epochs=1, max_steps=steps, run_name=name, out_dir=out_dir,
+                log_every=1, log_images=False,
+                steps_per_call=steps_per_call,
+                n_devices=None if mesh is None else mesh.world_size)
         torch.cuda.synchronize(device)
-        launches = counts()
-        # steps whose launches ran in a replayed graph (the single process
-        # on a card; a rank's steps stay eager)
-        replayed = steps_per_call * sum(e["how"] == "replay"
-                                        for e in per_step)
+        train = [e for e in per_step if e["kind"] == "train"]
+        launches = {k: sum(e["launches"][k] for e in train)
+                    for k in ("gdn", "deconv_igdn")}
+        # steps whose launches ran in a replayed graph (on a card, but for
+        # the eager reference and gloo ranks)
+        replayed = steps_per_call * sum(e["how"] == "replay" for e in train)
         want = shared4_launches()
         check_calls(per_step, want, name, steps_per_call, profiled=True)
         in_graphs = graph_launched(per_step, {
             k: steps_per_call * c for k, c in want["train"].items()})
-        params = {k: v.detach().cpu().numpy()
+        # copied: on the CPU a tensor's numpy() shares its memory, which
+        # the timed steps below update
+        params = {k: v.detach().cpu().numpy().copy()
                   for k, v in model.state_dict().items()}
         trace = []
         if mesh is None or mesh.lead:
@@ -3945,28 +4042,47 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1):
                                    f"{name}.metrics.jsonl")) as f:
                 trace = [r["train/loss"] for r in map(json.loads, f)
                          if "train/loss" in r]
-        step = make_train_step(model, mesh=mesh)
+        multi = (eager_multi_step if eager else make_multi_train_step)(
+            model, 1, compute_metrics=True, mesh=mesh)
         rows = slice(None) if mesh is None else mesh.rows(batch_size)
         batch = model.to_device(next(BatchLoader(data, batch_size).epoch(
             0, rows)))
         gen = torch.Generator(device=device)
         walls = []
         for _ in range(DP_TIMED_STEPS):
-            gen.manual_seed(step_seed(21, state.step))
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            step(state, batch, gen)
+            multi(state, [batch], gen, 21)
             torch.cuda.synchronize(device)
             walls.append((time.perf_counter() - t0) * 1e3)
-        gen.manual_seed(step_seed(21, state.step))
-        prof = profile_dp_step(torch, step, state, batch, gen)
+        prof = profile_dp_step(torch, lambda: multi(state, [batch], gen, 21))
+        timed_replays = getattr(multi, "stats", {}).get("replays", 0)
+        eager_prof, reduction = None, None
+        if timed_replays and mesh is not None:
+            gen.manual_seed(step_seed(21, state.step))
+            step = make_train_step(model, mesh=mesh)
+            eager_prof = profile_dp_step(torch, lambda: step(state, batch,
+                                                             gen))
+            reduction = in_graph_reduction(prof["events"],
+                                           eager_prof["span_records"])
         torch.cuda.synchronize(device)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    return {"trace": trace, "params": params, "launches": launches,
-            "replayed": replayed,
-            "all_launches": {k: c + in_graphs[k] for k, c in counts().items()},
-            "step_ms": float(np.median(walls)), "profile": prof}
+    for p in (prof, eager_prof):
+        if p is not None:
+            del p["events"], p["span_records"]
+    timed = {k: timed_replays * c for k, c in want["train"].items()}
+    # the port's kernels' device ms in fit's profiled replays
+    replay_ms = {e["kind"]: e["kernel_ms"] for e in per_step
+                 if e.get("kernel_ms") is not None and e["how"] == "replay"}
+    return {"trace": trace, "val": val_logs, "params": params,
+            "replay_kernel_ms": replay_ms,
+            "launches": launches, "replayed": replayed,
+            "calls": [e["how"] for e in train],
+            "all_launches": {k: c + in_graphs[k] + timed[k]
+                             for k, c in counts().items()},
+            "step_ms": float(np.median(walls)), "profile": prof,
+            "eager_profile": eager_prof, "reduction": reduction}
 
 
 def compress_batch(torch, model, batch_size, device):
@@ -4009,13 +4125,21 @@ def dp_compress(mesh, batch_size):
 
 
 def dp_fit_and_compress(mesh, cache_dir, out_dir, steps, batch_size,
-                        ks=(1,)):
+                        ks=(1,), compress=True):
     """A rank of phase 10 (c), `dp_fit` at each number of steps a call in
-    `ks`, and then of (d), `dp_compress` of `batch_size` images: one
-    spawn for all of them."""
-    return {"fit": {k: dp_fit(mesh, cache_dir, out_dir, steps, batch_size,
-                              k) for k in ks},
-            "compress": dp_compress(mesh, batch_size)}
+    `ks` (under an NCCL mesh, whose calls are graphs, with validation, and
+    then its eager reference at one step a call, "eager"), and then, with
+    `compress`, of (d), `dp_compress` of `batch_size` images: one spawn
+    for all of them."""
+    fits = {k: dp_fit(mesh, cache_dir, out_dir, steps, batch_size, k,
+                      val=mesh.captures) for k in ks}
+    if mesh.captures:
+        fits["eager"] = dp_fit(mesh, cache_dir, out_dir, steps, batch_size,
+                               eager=True, val=True)
+    out = {"fit": fits}
+    if compress:
+        out["compress"] = dp_compress(mesh, batch_size)
+    return out
 
 
 def check_sharded_compress(torch, ranks, batch_size, card, what):
@@ -4081,9 +4205,9 @@ def dp_scenes(tmp, n):
 
 def check_dp(single, ranks, steps, what, k=1):
     """The ranks' fit (`k` steps a call) against the single process's (one
-    a call): each run's launches (63 GDN a step, none counted for the
-    single process's replayed graph calls; a rank's steps are eager), the loss
-    trace within rtol 1e-4 (a call logs its last step's loss), the
+    a call): each run's launches (63 GDN a step, none counted for a
+    replayed graph call's: the single process's and NCCL ranks'), the
+    loss trace within rtol 1e-4 (a call logs its last step's loss), the
     parameters within rtol 2e-4 / atol 2e-6 (tests/test_train.py:95-103),
     every rank's bitwise equal. Returns the largest parameter diff."""
     train = MT_LAUNCHES["shared4"]["train"]
@@ -4091,7 +4215,7 @@ def check_dp(single, ranks, steps, what, k=1):
                                             for r, run in enumerate(ranks))]:
         counted = steps - run["replayed"]
         want = {"gdn": counted * train[0], "deconv_igdn": counted * train[1]}
-        if run["launches"] != want or (name != "single" and run["replayed"]):
+        if run["launches"] != want:
             raise RuntimeError(f"{what} {name}: launches {run['launches']}, "
                                f"want {want}")
     lead = ranks[0]
@@ -4117,29 +4241,92 @@ def check_dp(single, ranks, steps, what, k=1):
     return worst
 
 
+def check_eager_mesh(runs, what):
+    """A gloo mesh's runs: every fit call eager, no step replayed."""
+    for r, run in enumerate(runs):
+        if run["replayed"] or set(run["calls"]) != {"eager"}:
+            raise RuntimeError(f"{what} rank {r}: calls {run['calls']}, "
+                               f"want eager calls only")
+
+
+def check_graphed_mesh(graphed, eager, what):
+    """NCCL ranks' graphed fit against their eager reference (the same
+    rank, the loop's multi-step made of eager steps, the eval step under
+    `graphs.disabled()`): each rank's calls a warm-up, a capture and at
+    least two replays, its profiled replay's graph records (checked in
+    `dp_fit`), and its loss trace, validation logs and parameters bitwise
+    the eager run's (deterministic cuDNN)."""
+    for r, (g, e) in enumerate(zip(graphed, eager)):
+        calls = g["calls"]
+        if calls[:2] != ["eager", "capture"] or \
+                calls[2:] != ["replay"] * (len(calls) - 2) or len(calls) < 4:
+            raise RuntimeError(f"{what} rank {r}: calls {calls}, want a "
+                               f"warm-up, a capture and two replays or more")
+        if g["trace"] != e["trace"] or g["val"] != e["val"] or not g["val"]:
+            raise RuntimeError(f"{what} rank {r}: graphed losses "
+                               f"{g['trace']} and validation {g['val']} vs "
+                               f"eager {e['trace']}, {e['val']}")
+        for k, p in e["params"].items():
+            if not np.array_equal(g["params"][k], p):
+                raise RuntimeError(f"{what} rank {r}: graphed {k} differs "
+                                   f"from the eager run's (max |diff| "
+                                   f"{np.abs(g['params'][k] - p).max()})")
+
+
 def print_dp_run(prefix, name, run, batch, card):
-    """A run's step p50 (images/s of its global batch), the all-reduce's
-    share of a profiled step and its busy share."""
+    """A run's step p50 (images/s of its global batch) and a profiled
+    step's busy share; an eager mesh step's all-reduce span (its share of
+    the step, its device records' ms, NCCL's kernels'); a replayed one's
+    graph records, NCCL's kernels' ms and the in-graph reduction's nodes
+    (`in_graph_reduction`) beside the eager step's span."""
     prof = run["profile"]
-    print(f"{prefix} {name} ({card}): step p50 {run['step_ms']:.3f} ms "
-          f"(median of {DP_TIMED_STEPS} synchronised steps; "
-          f"{batch / run['step_ms'] * 1e3:.3f} images/s at a global batch "
-          f"of {batch}); profiled step wall {prof['wall_ms']:.3f} ms, "
-          f"all-reduce span {prof['all_reduce_ms']:.3f} ms "
-          f"({prof['all_reduce_ms'] / prof['wall_ms']:.4f} of the step; "
-          f"NCCL kernels {prof['nccl_kernel_ms']:.3f} ms), busy "
-          f"{prof['busy_ms']:.3f} ms "
-          f"({prof['busy_ms'] / prof['wall_ms']:.4f})")
+    replays = prof["graph"] != ZERO
+    line = (f"{prefix} {name} ({card}): step p50 {run['step_ms']:.3f} ms "
+            f"(median of {DP_TIMED_STEPS} synchronised one-step calls, "
+            f"{'graph replays' if replays else 'eager'}; "
+            f"{batch / run['step_ms'] * 1e3:.3f} images/s at a global batch "
+            f"of {batch}); profiled step wall {prof['wall_ms']:.3f} ms, busy "
+            f"{prof['busy_ms']:.3f} ms "
+            f"({prof['busy_ms'] / prof['wall_ms']:.4f})")
+    if prof["all_reduce_spans"]:
+        line += (f"; all-reduce span {prof['all_reduce_ms']:.3f} ms "
+                 f"({prof['all_reduce_ms'] / prof['wall_ms']:.4f} of the "
+                 f"step; its device records {prof['span_device_ms']:.3f} "
+                 f"ms, NCCL kernels {prof['nccl_kernel_ms']:.3f} ms)")
+    for kind, ms in run.get("replay_kernel_ms", {}).items():
+        line += (f"; fit's profiled {kind} replay: GDN "
+                 f"{ms.get('gdn', 0.0):.4f} ms, deconv+IGDN "
+                 f"{ms.get('deconv_igdn', 0.0):.4f} ms of device")
+    if replays:
+        line += (f"; the replay's graph records {json.dumps(prof['graph'])}"
+                 f", all-reduce spans {prof['all_reduce_spans']}, NCCL "
+                 f"kernels {prof['nccl_kernel_ms']:.3f} ms")
+    red, eager = run.get("reduction"), run.get("eager_profile")
+    if eager is not None:
+        line += (f"; in-graph gradient reduction: " + (
+            "not measured (its nodes not found among the replay's "
+            "records)" if red is None else
+            f"{red['nodes']} nodes, NCCL {red['nccl_ms']:.3f} ms, "
+            f"flattening, cat, division and copy-backs "
+            f"{red['copy_ms']:.3f} ms") +
+            f"; an eager step beside it: wall {eager['wall_ms']:.3f} ms, "
+            f"span {eager['all_reduce_ms']:.3f} ms (device "
+            f"{eager['span_device_ms']:.3f} ms, NCCL "
+            f"{eager['nccl_kernel_ms']:.3f} ms)")
+    print(line)
 
 
 def run_parallel(torch, tmp, card):
     """Phase 10 (c): fit on DP_RANKS ranks on one card (DP_CARD) over gloo
     (NCCL takes one rank per card) against one process, the same seed
-    weights and scenes under deterministic cuDNN (`check_dp`). Then one
-    fit step over NCCL at world size 1. The gloo ranks also run fit at
-    DP_K steps a call and then (d), the sharded compress of DP_BATCH
-    images (`check_sharded_compress`). Prints each run's step p50, the
-    all-reduce's share of a profiled step and its busy share."""
+    weights and scenes under deterministic cuDNN (`check_dp`); the gloo
+    ranks' calls stay eager. Then fit over NCCL at world size 1, whose
+    calls and eval steps are graphs (a warm-up, a capture, replays),
+    against its eager reference (`check_graphed_mesh`: bitwise) and the
+    one process (`check_dp`). The gloo ranks also run fit at DP_K steps
+    a call and then (d), the sharded compress of DP_BATCH images
+    (`check_sharded_compress`). Prints each run's step p50, images/s,
+    busy share and reduction (`print_dp_run`)."""
     from mmnc_tpu_torch.parallel import launch
 
     cache, render_s = dp_scenes(tmp, DP_STEPS * DP_BATCH)
@@ -4154,9 +4341,11 @@ def run_parallel(torch, tmp, card):
     compress = [r["compress"] for r in gloo]
     runs["gloo"] = ranks[0]
     t0 = time.perf_counter()
-    (runs["nccl"],) = launch(dp_fit, 1, CLI_DEVICE, cache, out, 1, DP_BATCH,
-                             timeout=600)
+    (nccl,) = launch(dp_fit_and_compress, 1, CLI_DEVICE, cache, out,
+                     DP_STEPS, DP_BATCH, (1,), False, timeout=600)
     nccl_s = time.perf_counter() - t0
+    runs["nccl"], runs["nccl_eager"] = nccl["fit"][1], nccl["fit"]["eager"]
+    check_eager_mesh(ranks + k2, "dp gloo")
     worst = check_dp(runs["single"], ranks, DP_STEPS, "dp")
     worst_k2 = check_dp(runs["single"], k2, DP_STEPS,
                         f"dp --steps-per-call {DP_K}", DP_K)
@@ -4167,36 +4356,39 @@ def run_parallel(torch, tmp, card):
           f"parameters max |diff| {worst_k2:.3e}, ranks bitwise equal")
     check_sharded_compress(torch, compress, DP_BATCH, card,
                            f"{DP_RANKS} gloo ranks on {DP_CARD}")
-    nccl, train = runs["nccl"], MT_LAUNCHES["shared4"]["train"]
-    if nccl["launches"] != {"gdn": train[0], "deconv_igdn": train[1]} or \
-            len(nccl["trace"]) != 1 or not np.allclose(
-                nccl["trace"], runs["single"]["trace"][:1], rtol=1e-4):
-        raise RuntimeError(f"dp nccl: launches {nccl['launches']}, loss "
-                           f"{nccl['trace']} against the single process's "
-                           f"first {runs['single']['trace'][:1]}")
+    check_graphed_mesh([runs["nccl"]], [runs["nccl_eager"]], "dp nccl")
+    worst_nccl = check_dp(runs["single"], [runs["nccl"]], DP_STEPS,
+                          "dp nccl")
     print(f"p10 data parallel ({card}): {DP_STEPS} fit steps at a global "
           f"batch of {DP_BATCH}, {DP_RANKS} gloo ranks on {DP_CARD} "
-          f"({DP_BATCH // DP_RANKS} rows each) vs one process, deterministic "
-          f"cuDNN: losses {json.dumps(runs['gloo']['trace'])} vs "
-          f"{json.dumps(runs['single']['trace'])}, parameters max |diff| "
-          f"{worst:.3e}, ranks bitwise equal; NCCL at world size 1: loss "
-          f"{nccl['trace'][0]:.6f} (the single process's first "
-          f"{runs['single']['trace'][0]:.6f}); scenes rendered in "
-          f"{render_s:.3f} s; launch walls (spawn, CUDA init, fit, timing) "
-          f"gloo {gloo_s:.3f} s (with the K = {DP_K} fit and the sharded "
-          f"compress), nccl {nccl_s:.3f} s")
-    for name in ("single", "gloo", "nccl"):
+          f"({DP_BATCH // DP_RANKS} rows each, eager calls) vs one process, "
+          f"deterministic cuDNN: losses {json.dumps(runs['gloo']['trace'])} "
+          f"vs {json.dumps(runs['single']['trace'])}, parameters max |diff| "
+          f"{worst:.3e}, ranks bitwise equal; NCCL at world size 1: calls "
+          f"{runs['nccl']['calls']} (graphs), losses "
+          f"{json.dumps(runs['nccl']['trace'])}, validation "
+          f"{len(runs['nccl']['val'])} logs, parameters bitwise its eager "
+          f"reference's and max |diff| {worst_nccl:.3e} from one process's; "
+          f"scenes rendered in {render_s:.3f} s; launch walls (spawn, CUDA "
+          f"init, fit, timing) gloo {gloo_s:.3f} s (with the K = {DP_K} fit "
+          f"and the sharded compress), nccl {nccl_s:.3f} s (graphed and "
+          f"eager)")
+    for name in ("single", "gloo", "nccl", "nccl_eager"):
         print_dp_run("p10 dp", name, runs[name], DP_BATCH, card)
-    # every run's train steps (fit's, the timed and the profiled ones) and
-    # its launches, counted in its process
+    # every run's train steps (fit's, the timed and the profiled ones; the
+    # graphed NCCL run's eager profiled step) and eval steps (the NCCL
+    # runs' validation, a batch each of the DP_STEPS), and its launches,
+    # counted in its process
     extra = DP_TIMED_STEPS + 1
     rows = DP_BATCH // DP_RANKS
-    calls = {f"train{DP_BATCH}": DP_STEPS + extra + 1 + extra,
+    calls = {f"train{DP_BATCH}": 3 * (DP_STEPS + extra) + 1,
              f"train{rows}": 2 * DP_RANKS * (DP_STEPS + extra),
+             f"encode{DP_BATCH}": 2 * DP_STEPS,
+             f"decode{DP_BATCH}": 2 * DP_STEPS,
              f"encode{rows}": sum(c["calls"] for c in compress)}
     launches = {k: sum(r["all_launches"][k] for r in
-                       [runs["single"], runs["nccl"], *ranks, *k2,
-                        *compress])
+                       [runs["single"], runs["nccl"], runs["nccl_eager"],
+                        *ranks, *k2, *compress])
                 for k in ("gdn", "deconv_igdn")}
     return {"calls": calls, "launches": launches,
             "compress": {"launches": {k: sum(c["launches"][k]
@@ -4208,9 +4400,10 @@ def run_parallel(torch, tmp, card):
 def run_cards(torch, n, card):
     """`--dp-cards n`: phase 10 (c) and (d) across n cards, one rank a
     card over NCCL, DP_BATCH rows a rank (a global batch of n x
-    DP_BATCH), against one process at the global batch (`check_dp`,
-    `check_sharded_compress`), with each run's step p50, all-reduce share
-    and busy share."""
+    DP_BATCH): each rank's fit graphed and then eager, against each other
+    (`check_graphed_mesh`) and against one process at the global batch
+    (`check_dp`), and the sharded compress (`check_sharded_compress`),
+    with each run's step p50, images/s, busy share and reduction."""
     from mmnc_tpu_torch.parallel import launch
 
     batch = n * DP_BATCH
@@ -4227,17 +4420,21 @@ def run_cards(torch, n, card):
         shutil.rmtree(tmp, ignore_errors=True)
     check_sharded_compress(torch, [r["compress"] for r in ranks], batch,
                            card, f"{n} NCCL ranks, one a card")
+    eager = [r["fit"]["eager"] for r in ranks]
     ranks = [r["fit"][1] for r in ranks]
+    check_graphed_mesh(ranks, eager, f"{n} cards")
     worst = check_dp(single, ranks, DP_STEPS, f"{n} cards")
     print(f"cards: {DP_STEPS} fit steps at a global batch of {batch}, {n} "
           f"NCCL ranks, one a card ({DP_BATCH} rows each), vs one process "
-          f"({card} each), deterministic cuDNN: losses "
-          f"{json.dumps(ranks[0]['trace'])} vs {json.dumps(single['trace'])}"
-          f", parameters max |diff| {worst:.3e}, ranks bitwise equal; "
-          f"launch wall {seconds:.3f} s")
+          f"({card} each), deterministic cuDNN: calls {ranks[0]['calls']} "
+          f"(graphs; every rank's bitwise its eager reference's, "
+          f"validation included), losses {json.dumps(ranks[0]['trace'])} "
+          f"vs {json.dumps(single['trace'])}, parameters max |diff| "
+          f"{worst:.3e}, ranks bitwise equal; launch wall {seconds:.3f} s")
     print_dp_run("cards", "single", single, batch, card)
-    for r, run in enumerate(ranks):
+    for r, (run, ref) in enumerate(zip(ranks, eager)):
         print_dp_run("cards", f"rank {r}", run, batch, card)
+        print_dp_run("cards", f"rank {r} eager", ref, batch, card)
 
 
 def run_phase10(torch, card):

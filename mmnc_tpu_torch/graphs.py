@@ -24,7 +24,13 @@ input's shape, strides and type, the model's dtype and likelihood
 geometry (`legacy_broadcast`), the storage (`data_ptr`) of every parameter
 and buffer, and the flags that pick cuDNN's and cuBLAS's algorithms
 (cuDNN's `deterministic`, `benchmark` and `allow_tf32`, cuBLAS's
-`allow_tf32`): a graph keeps the algorithms chosen at its capture.
+`allow_tf32`): a graph keeps the algorithms chosen at its capture. What
+a body closes over is not in the signature, so a body that closes over
+more than the model carries it in the program's name (the eval step under
+a mesh: `train/step.py:eval_program`, one program a mesh size and rank).
+Under an NCCL mesh a program's collectives are captured with it; every
+rank runs the same programs in the same order, so each warms up, captures
+and replays together with the others.
 Parameters updated in place (an optimizer step, `load_state_dict`) keep
 their storage, and so their graphs: nothing a graph reads is derived from
 them at its capture (`ops/layers.py:_derived` derives inside the graph

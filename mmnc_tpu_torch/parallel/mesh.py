@@ -7,8 +7,8 @@ XLA inserts the gradient sums. PyTorch runs one process per device over
 
 * `launch` spawns the ranks (one per card, or CPU ranks over gloo) and
   initialises their process group;
-* `make_mesh` gives a rank its context: rank, world size, device and
-  process groups;
+* `make_mesh` gives a rank its context: rank, world size, device,
+  process groups and the device group's backend;
 * every rank reads the same global batches and keeps its contiguous rows
   (`shard_batch`, `Mesh.rows`), as `P("data")` splits the leading axis;
 * `shard_train_state` broadcasts rank 0's parameters and Adam state, so
@@ -38,14 +38,22 @@ from ..device import resolve_device
 class Mesh:
     """A rank's view of the data-parallel mesh.
 
-    `group` carries the device collectives (gradients, logs); `control`
-    is a gloo group for host values (the stop flag), so that agreeing on
-    a stop costs no device sync."""
+    `group` carries the device collectives (gradients, logs), over
+    `backend`; `control` is a gloo group for host values (the stop flag),
+    so that agreeing on a stop costs no device sync."""
     rank: int
     world_size: int
     device: torch.device
     group: object
     control: object
+    backend: str = "gloo"
+
+    @property
+    def captures(self) -> bool:
+        """Whether the device collectives can be captured in a CUDA graph:
+        NCCL's run on the card and can; gloo's go through the host and
+        cannot, so a gloo mesh's steps run eagerly (`train/step.py`)."""
+        return self.backend == "nccl"
 
     @property
     def lead(self) -> bool:
@@ -113,7 +121,8 @@ def make_mesh(n_devices: int, device=None) -> Mesh:
     device = resolve_device(device)
     control = (dist.group.WORLD if backend == "gloo"
                else dist.new_group(backend="gloo"))
-    return Mesh(rank, n_devices, device, dist.group.WORLD, control)
+    return Mesh(rank, n_devices, device, dist.group.WORLD, control,
+                str(backend))
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:

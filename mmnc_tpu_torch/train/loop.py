@@ -24,10 +24,16 @@ Where it differs from the JAX loop, and why:
 * every call of the train step is one of `make_multi_train_step`, on
   `steps_per_call` K consecutive batches (a rank its own rows) handed
   over as a list of the K staged batches rather than a stacked copy; K =
-  1 is a group of one, so one path serves both. On a card without a mesh
-  each call after the first two (a warm-up, a capture) replays one CUDA
-  graph of its K steps (`train/step.py`); its staged batches are copied
-  into the graph's inputs on the card. The loop's cadences are
+  1 is a group of one, so one path serves both. On a card, without a
+  mesh or under an NCCL one, each call after the first two (a warm-up, a
+  capture) replays one CUDA graph of its K steps, the ranks' all-reduces
+  inside it (`train/step.py`), and so does each validation step of a
+  shape after its first two; its staged batches are copied into the
+  graph's inputs on the card. Under a gloo mesh both stay eager. What
+  the ranks agree on through the host (the stop flag, the checkpoint
+  barrier), rank 0's files and the log pulls stay outside the graphs,
+  and every rank makes the same calls, so the ranks warm up, capture and
+  replay together. The loop's cadences are
   the JAX loop's, read at the step before the call: logs are pulled, and
   the profiler window opened and closed, on calls whose first step is a
   multiple of `log_every` or equals 5 / 10; `max_steps`, the divergence
@@ -42,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loader import prefetch_to_device
 from ..parallel import make_mesh, shard_train_state
@@ -116,11 +123,14 @@ def fit(
     `n_devices > 1` trains on a mesh of that many ranks, each running
     this `fit` in its own process (`parallel.launch`) with its own model
     on its own device: the batch size is the global batch's, which the
-    ranks split. Outside such a process group it raises."""
+    ranks split. Outside such a process group it raises. A rank of a
+    process group of one (`launch(fn, 1, ...)`, `n_devices` 1) trains on
+    its mesh of one too: its steps take the mesh path, collectives
+    included."""
     stats = {} if stats is None else stats
     device = model.device
     mesh = None
-    if n_devices is not None and n_devices > 1:
+    if n_devices is not None and (n_devices > 1 or dist.is_initialized()):
         mesh = make_mesh(n_devices, device)
         if mesh.device != device:
             raise ValueError(f"rank {mesh.rank}: the model is on {device}, "

@@ -8,10 +8,10 @@ tensors on the device, read by the caller when it needs them. Under a
 data-parallel mesh (`parallel/`) a rank's step equals the single-process
 step on the global batch (`make_train_step`).
 
-`make_multi_train_step` runs K such steps in one call. On a card without
-a mesh the call is one CUDA graph, the counterpart of the JAX package's
-one compiled scan a dispatch (mmnc_tpu/train/step.py:88-131): the ~2000
-launches of a step are replayed without the host. The first call of a
+`make_multi_train_step` runs K such steps in one call. On a card the
+call is one CUDA graph, the counterpart of the JAX package's one compiled
+scan a dispatch (mmnc_tpu/train/step.py:88-131): the ~2000 launches of a
+step are replayed without the host. The first call of a
 signature (K, the micro-batches' shapes and types, the step's options,
 cuDNN's determinism) runs the K steps eagerly on the capture stream: it
 is a real call, and the warm-up that builds the kernels, sets their
@@ -25,8 +25,18 @@ launches; it keeps the graph free of a generator's state). The graph
 lives on the `TrainState`, one at a time: a call of another signature
 drops it and warms up anew, and so does `load_state_dict`, which
 replaces Adam's tensors. Nothing falls back: a capture or a replay that
-fails raises. Under a mesh the call stays eager, by design: the gloo
-all-reduce of the gradients runs on the host and cannot be captured.
+fails raises.
+
+Under a mesh whose device group is NCCL (`Mesh.captures`) the call is a
+graph too, the counterpart of the JAX package's step jitted under a mesh
+with XLA's sums inside it (mmnc_tpu/train/step.py:1-8): the gradients'
+all-reduce and the logs' are captured collectives of the graph, so a
+rank's call is one dispatch. Every rank warms up, captures and replays
+the same calls in the same order, since a rank that captured or dropped
+its graph alone would leave the others waiting in a collective: the
+signature holds only what the ranks share (the mesh's size and a rank's
+rows, beside what it holds without a mesh). A gloo mesh stays eager: its
+collectives go through the host and cannot be captured.
 `make_train_step` stays eager: it is the reference a graphed call is
 held to (on the card both run one capturable Adam, which the card's
 tests hold to the CPU's Adam on the same gradients).
@@ -39,11 +49,13 @@ of the graph (the kernel's launch counter counts a capture once and a
 replay never). The GDN backward is its closed form in torch
 (`ops/gdn.py:GDNFunction`). The eval step runs under no-grad and takes
 both kernels; on a card it is a CUDA graph program of the model
-(`graphs.py`), whose capture derives the deconv taps and GDN's effective
+(`graphs.py`; under a mesh an NCCL one, with the logs' all-reduce
+captured), whose capture derives the deconv taps and GDN's effective
 parameters inside the graph (`ops/layers.py:_derived`), so a replay reads
 the parameters a train call or a `load_state_dict` left.
 """
 
+import contextlib
 import time
 
 import torch
@@ -55,6 +67,7 @@ from .. import graphs
 from ..graphs import capture_stream as _capture_stream
 from ..graphs import warm_up as _warm_up
 from ..ops import metrics as M
+from ..ops.bound import gates_after_reduce
 from .state import TrainState
 
 
@@ -176,18 +189,22 @@ def _make_update(model, compute_metrics, clip_norm, remat, mesh):
 
     def update(state, batch, noise, lr=None):
         state.optimizer.zero_grad(set_to_none=True)
-        if remat:
-            # the region draws no random numbers (the noise is an input),
-            # so no generator state is kept for its recomputation
-            loss, logs, x_hats = checkpoint(loss_fn, batch, noise,
-                                            use_reentrant=False,
-                                            preserve_rng_state=False)
-        else:
-            loss, logs, x_hats = loss_fn(batch, noise)
-        loss.backward()
+        with (contextlib.nullcontext() if mesh is None
+              else gates_after_reduce(params)) as gate:
+            if remat:
+                # the region draws no random numbers (the noise is an
+                # input), so no generator state is kept for its
+                # recomputation
+                loss, logs, x_hats = checkpoint(loss_fn, batch, noise,
+                                                use_reentrant=False,
+                                                preserve_rng_state=False)
+            else:
+                loss, logs, x_hats = loss_fn(batch, noise)
+            loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
         if mesh is not None:
             _all_reduce_gradients(grads, mesh)
+            gate()
         if clip_norm is not None:
             logs["grad_norm"] = _clip_grads(grads, clip_norm)
         state.apply_gradients(lr)
@@ -214,9 +231,11 @@ def make_train_step(model, compute_metrics: bool = True, clip_norm=None,
     global batch, and the step equals a single-process step on the global
     batch: the noise (`noise`, or drawn) is the global batch's and the
     rank keeps its rows; the gradients are averaged over the ranks after
-    the backward and before the clip, which so sees the global norm, and
-    every rank's Adam makes the same update; the logs are the global
-    batch's (`_step_logs`)."""
+    the backward and before the clip, which so sees the global norm; the
+    GDN parameters' lower-bound gates apply to the averaged gradients
+    (`ops/bound.py:gates_after_reduce`), as they apply to the global
+    batch's; every rank's Adam makes the same update; the logs are the
+    global batch's (`_step_logs`)."""
     update = _make_update(model, compute_metrics, clip_norm, remat, mesh)
 
     def train_step(state: TrainState, batch, generator=None, noise=None):
@@ -257,15 +276,20 @@ def step_noises(model, batches, generator, seed: int, step: int, mesh=None):
     return noises
 
 
-def graph_signature(batches, compute_metrics, clip_norm, remat):
+def graph_signature(batches, compute_metrics, clip_norm, remat, mesh=None):
     """What a captured call depends on beside the model and its optimizer:
     K, each micro-batch's shapes and types, the step's options and
     whether cuDNN is deterministic (its algorithms are chosen at the
-    warm-up and kept by the graph)."""
-    return (tuple(tuple((t, tuple(x.shape), x.dtype) for t, x in b.items())
-                  for b in batches),
-            compute_metrics, clip_norm, remat,
-            torch.backends.cudnn.deterministic)
+    warm-up and kept by the graph); under a mesh also its size and a
+    rank's rows, which every rank shares."""
+    key = (tuple(tuple((t, tuple(x.shape), x.dtype) for t, x in b.items())
+                 for b in batches),
+           compute_metrics, clip_norm, remat,
+           torch.backends.cudnn.deterministic)
+    if mesh is None:
+        return key
+    rows = len(next(iter(batches[0].values())))
+    return key + (("mesh", mesh.world_size, rows),)
 
 
 WARMED = "warmed"  # in `TrainState.graph`: warmed up, not yet captured
@@ -333,16 +357,17 @@ def make_multi_train_step(model, steps_per_call: int,
     every micro-step's noise instead. Micro-step i's main rate is the
     schedule's at state.step + i.
 
-    On a card without a mesh the call is a CUDA graph (see the module's
-    docstring): a warm-up call, then a capture, then replays.
-    `multi_step.stats` counts its "eager" calls (warm-ups included),
-    "captures" and "replays" (a capture replays too) and keeps each
-    capture's host seconds ("capture_s"). On the CPU, and under a `mesh`
-    (the micro-batches the rank's rows, every micro-step the mesh step),
-    the K steps run eagerly."""
+    Under a `mesh` the micro-batches are the rank's rows and every
+    micro-step is the mesh step. On a card, without a mesh or under an
+    NCCL one, the call is a CUDA graph (see the module's docstring): a
+    warm-up call, then a capture, then replays. `multi_step.stats` counts
+    its "eager" calls (warm-ups included), "captures" and "replays" (a
+    capture replays too) and keeps each capture's host seconds
+    ("capture_s"). On the CPU and under a gloo mesh the K steps run
+    eagerly."""
     update = _make_update(model, compute_metrics, clip_norm, remat, mesh)
     params = list(model.parameters())
-    graphed = mesh is None and _on_card(model)
+    graphed = _on_card(model) and (mesh is None or mesh.captures)
     stats = {"eager": 0, "captures": 0, "replays": 0, "capture_s": []}
 
     def body(state, batches, noises, lrs):
@@ -352,7 +377,8 @@ def make_multi_train_step(model, steps_per_call: int,
         return logs
 
     def graphed_call(state, batches, noises, lrs):
-        key = graph_signature(batches, compute_metrics, clip_norm, remat)
+        key = graph_signature(batches, compute_metrics, clip_norm, remat,
+                              mesh)
         stream = _capture_stream(model.device)
         if state.graph is None or state.graph[0] != key:
             state.drop_graph()
@@ -397,19 +423,30 @@ def make_multi_train_step(model, steps_per_call: int,
     return multi_step
 
 
+def eval_program(mesh=None) -> str:
+    """The name of the eval step's device program (`graphs.run`): its body
+    closes over the mesh, so each mesh (size, rank) has its own program."""
+    if mesh is None:
+        return "eval_step"
+    return f"eval_step[mesh {mesh.world_size}, rank {mesh.rank}]"
+
+
 def make_eval_step(model, compute_metrics: bool = True, mesh=None):
     """Returns eval_step(batch) -> logs (deterministic rounding, under
     no-grad; the parameters are the model's). Under a `mesh` `batch` is
     the rank's rows and the logs are the global batch's, as the train
     step's.
 
-    On a card without a mesh the step is the model's device program
-    "eval_step" (`graphs.run`, keyed on `compute_metrics` and the batch's
-    shapes): a warm-up call, a capture, then replays, the counterpart of
-    the JAX package's jitted eval step (mmnc_tpu/train/step.py:134-146);
-    `eval_step.stats` counts them (`graphs.stats`). Under a mesh it stays
-    eager, as the train call does: its logs' all-reduce runs on the
-    host."""
+    On a card, without a mesh or under an NCCL one, the step is the
+    model's device program `eval_program(mesh)` (`graphs.run`, keyed on
+    `compute_metrics` and the batch's shapes): a warm-up call, a capture,
+    then replays, the counterpart of the JAX package's jitted eval step
+    (mmnc_tpu/train/step.py:134-146), with the logs' all-reduce captured
+    under a mesh; `eval_step.stats` counts them (`graphs.stats`). Under a
+    gloo mesh it runs eagerly, as the train call does (its all-reduce
+    runs on the host), and counts "eager" calls only."""
+    name = eval_program(mesh)
+    stats = graphs.stats(model, name)
 
     @torch.no_grad()
     def body(batch, compute_metrics):
@@ -419,9 +456,10 @@ def make_eval_step(model, compute_metrics: bool = True, mesh=None):
                           compute_metrics, mesh)
 
     def eval_step(batch):
-        if mesh is not None:
+        if mesh is not None and not mesh.captures:
+            stats["eager"] += 1
             return body(batch, compute_metrics)
-        return graphs.run(model, "eval_step", body, (batch, compute_metrics))
+        return graphs.run(model, name, body, (batch, compute_metrics))
 
-    eval_step.stats = graphs.stats(model, "eval_step")
+    eval_step.stats = stats
     return eval_step

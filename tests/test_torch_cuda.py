@@ -634,52 +634,81 @@ def test_analysis_on_card_equals_the_cpu_port(device):
                                        want[t].numpy(), rtol=1e-3, atol=1e-4)
 
 
-def _card_fit(mesh, data, out_dir, steps):
+def _card_fit(mesh, data, out_dir, steps, eager=False):
     """fit of the c=4, m=8 rgb codec for `steps` steps at a global batch
-    of 4 under deterministic cuDNN, on the card (mesh None) or as a rank:
-    -> (rank 0's train losses, the parameters, launches)."""
+    of 4 under deterministic cuDNN, on the card (mesh None) or as a rank;
+    with `eager` the loop's multi-step is made of eager steps and the
+    programs run under `graphs.disabled()` (chip_smoke's eager reference):
+    -> (rank 0's train losses, the parameters, GDN launches counted
+    through the wrapper (none for a replayed call), each train call's
+    kind: "eager", "capture" or "replay")."""
     import json
     import os
 
+    import chip_smoke
     from mmnc_tpu_torch.data import BatchLoader
-    from mmnc_tpu_torch.train import fit
+    from mmnc_tpu_torch.train import fit, loop
 
     device = mesh.device if mesh is not None else torch.device("cuda")
-    name = "single" if mesh is None else f"ranks{mesh.world_size}"
+    name = ("single" if mesh is None else f"ranks{mesh.world_size}") + (
+        "_eager" if eager else "")
     torch.backends.cudnn.deterministic = True
     model = build_model(1, ["rgb"], latent_channels=8, conv_channels=4,
                         lmbda=1e-2, learning_rate_main=1e-4, device=device)
+    make = (chip_smoke.eager_multi_step if eager
+            else loop.make_multi_train_step)
+    calls = []
+
+    def made(*args, **kwargs):
+        multi = make(*args, **kwargs)
+        stats = getattr(multi, "stats", None)
+
+        def call(*a, **k):
+            before = dict(stats) if stats is not None else None
+            out = multi(*a, **k)
+            calls.append(chip_smoke.call_kind(stats, before))
+            return out
+        return call
+
+    original = loop.make_multi_train_step
+    loop.make_multi_train_step = made
     before = gdn_cuda.launches
-    fit(model, BatchLoader(data, 4), epochs=1, max_steps=steps,
-        run_name=name, out_dir=out_dir, log_every=1, log_images=False,
-        compute_metrics=True,
-        n_devices=None if mesh is None else mesh.world_size)
+    try:
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            fit(model, BatchLoader(data, 4), epochs=1, max_steps=steps,
+                run_name=name, out_dir=out_dir, log_every=1,
+                log_images=False, compute_metrics=True,
+                n_devices=None if mesh is None else mesh.world_size)
+    finally:
+        loop.make_multi_train_step = original
     trace = []
     if mesh is None or mesh.lead:
         with open(os.path.join(out_dir, name, f"{name}.metrics.jsonl")) as f:
             trace = [r["train/loss"] for r in map(json.loads, f)
                      if "train/loss" in r]
     return (trace, {k: v.cpu().numpy() for k, v in model.state_dict().items()},
-            gdn_cuda.launches - before)
+            gdn_cuda.launches - before, calls)
 
 
 def test_two_gloo_ranks_on_one_card_equal_one_process(device, tmp_path):
     """2 ranks on cuda:0 over gloo (which reduces CUDA tensors; NCCL takes
     one rank per card) against one process: 3 steps, the loss trace within
     rtol 1e-4, parameters within rtol 2e-4 / atol 2e-6, the ranks' equal,
-    18 GDN launches a rank step."""
+    18 GDN launches a rank step, every call eager (gloo's collectives go
+    through the host: no graph)."""
     from mmnc_tpu_torch.parallel import launch
 
     data = _scenes(12)
     deterministic = torch.backends.cudnn.deterministic
     try:
-        trace, params, _ = _card_fit(None, data, str(tmp_path), 3)
+        trace, params, _, _ = _card_fit(None, data, str(tmp_path), 3)
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    (r_trace, r_params, n0), (_, r_params1, n1) = launch(
+    (r_trace, r_params, n0, c0), (_, r_params1, n1, c1) = launch(
         _card_fit, 2, "cuda:0", data, str(tmp_path), 3, backend="gloo",
         timeout=300)
     assert n0 == n1 == 3 * 18
+    assert c0 == c1 == ["eager"] * 3
     assert len(trace) == 3
     np.testing.assert_allclose(r_trace, trace, rtol=1e-4)
     for name, p in params.items():
@@ -688,17 +717,108 @@ def test_two_gloo_ranks_on_one_card_equal_one_process(device, tmp_path):
                                    err_msg=name)
 
 
+def _card_fit_and_eager(mesh, data, out_dir, steps):
+    return (_card_fit(mesh, data, out_dir, steps),
+            _card_fit(mesh, data, out_dir, steps, eager=True))
+
+
 def test_nccl_fit_step_at_world_size_one(device, tmp_path):
+    """fit on one NCCL rank (its mesh of one: the all-reduces captured in
+    its graphs) for 4 steps: a warm-up, a capture and two replays, 18 GDN
+    launches a step counted for the first two (a replay's run in its
+    graph), and its losses and parameters bitwise those of the same rank
+    run eagerly (deterministic cuDNN)."""
     from mmnc_tpu_torch.parallel import launch
 
-    ((trace, _, launches),) = launch(_card_fit, 1, "cuda", _scenes(4),
-                                     str(tmp_path), 1, timeout=300)
-    assert len(trace) == 1 and np.isfinite(trace[0]) and launches == 18
+    ((graphed, eager),) = launch(_card_fit_and_eager, 1, "cuda", _scenes(16),
+                                 str(tmp_path), 4, timeout=300)
+    (trace, params, launches, calls), (e_trace, e_params, e_launches,
+                                       e_calls) = graphed, eager
+    assert calls == ["eager", "capture", "replay", "replay"]
+    assert e_calls == ["eager"] * 4
+    assert launches == 2 * 18 and e_launches == 4 * 18
+    assert len(trace) == 4 and np.all(np.isfinite(trace)) and trace == e_trace
+    for name, p in e_params.items():
+        np.testing.assert_array_equal(params[name], p, err_msg=name)
+
+
+def _nccl_replays_after_load(mesh, batches):
+    """On one NCCL rank, graphed and then eager (chip_smoke's eager
+    multi-step, the eval step under `graphs.disabled()`), deterministic
+    cuDNN: three one-step calls, a load_state_dict of the state after the
+    first (model and TrainState: the graph is dropped), three more calls,
+    then the mesh eval step three times -> (losses, eval logs, parameters,
+    the train call's stats, the eval step's stats)."""
+    import copy
+
+    import chip_smoke
+    from mmnc_tpu_torch.parallel import shard_train_state
+    from mmnc_tpu_torch.train import make_multi_train_step
+
+    torch.backends.cudnn.deterministic = True
+    batches = [{k: v.to(mesh.device) for k, v in b.items()} for b in batches]
+    out = []
+    for eager in (False, True):
+        model = _graph_model(mesh.device)
+        state = create_train_state(model, 10, 1e-4, 1e-3)
+        shard_train_state(state, model, mesh)
+        multi = (chip_smoke.eager_multi_step if eager
+                 else make_multi_train_step)(model, 1, compute_metrics=True,
+                                             clip_norm=5.0, mesh=mesh)
+        evals = make_eval_step(model, mesh=mesh)
+        gen = torch.Generator(device=mesh.device)
+        losses = []
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            for i in range(3):
+                state, logs = multi(state, [batches[i]], gen, 21)
+                losses.append(logs["train/loss"].item())
+                if i == 0:
+                    saved = copy.deepcopy((model.state_dict(),
+                                           state.state_dict()))
+            model.load_state_dict(saved[0])
+            state.load_state_dict(saved[1])
+            for i in range(3):
+                state, logs = multi(state, [batches[i + 1]], gen, 21)
+                losses.append(logs["train/loss"].item())
+            vals = [{k: v.item() for k, v in evals(batches[0]).items()}
+                    for _ in range(3)]
+        torch.cuda.synchronize()
+        out.append((losses, vals, {k: v.cpu().numpy()
+                                   for k, v in model.state_dict().items()},
+                    {k: v for k, v in getattr(multi, "stats", {}).items()
+                     if k != "capture_s"},
+                    {k: v for k, v in evals.stats.items()
+                     if k != "capture_s"}))
+    return out
+
+
+def test_nccl_graphs_replay_after_load_state_dict_and_in_eval(device):
+    """One NCCL rank: the train graph after a load_state_dict (dropped,
+    warmed up and captured anew, replayed) and the mesh eval step's graph
+    (a warm-up, a capture, a replay), bitwise equal to the same rank run
+    eagerly: losses, eval logs and parameters."""
+    from mmnc_tpu_torch.parallel import launch
+
+    batches = [{k: v.cpu() for k, v in b.items()}
+               for b in _graph_batches("cpu", 4)]
+    ((graphed, eager),) = launch(_nccl_replays_after_load, 1, "cuda",
+                                 batches, timeout=300)
+    losses, vals, params, stats, eval_stats = graphed
+    assert (stats["eager"], stats["captures"], stats["replays"]) == (2, 2, 4)
+    assert (eval_stats["eager"], eval_stats["captures"],
+            eval_stats["replays"]) == (1, 1, 2)
+    assert eager[4]["eager"] == 3 and eager[4]["captures"] == 0
+    assert losses == eager[0] and vals == eager[1]
+    assert all(v == vals[0] for v in vals)
+    for name, p in eager[2].items():
+        np.testing.assert_array_equal(params[name], p, err_msg=name)
 
 
 def test_nccl_ranks_across_cards_equal_one_process(device, tmp_path):
     """One NCCL rank on each card of the machine against one process at
-    the global batch of 4: as the gloo test (needs two cards or more)."""
+    the global batch of 4: as the gloo test (needs two cards or more), and
+    every rank's calls replay a graph with the all-reduce captured (a
+    warm-up, a capture, a replay)."""
     from mmnc_tpu_torch.parallel import launch
 
     cards = torch.cuda.device_count()
@@ -707,16 +827,18 @@ def test_nccl_ranks_across_cards_equal_one_process(device, tmp_path):
     data = _scenes(12)
     deterministic = torch.backends.cudnn.deterministic
     try:
-        trace, params, _ = _card_fit(None, data, str(tmp_path), 3)
+        trace, params, _, _ = _card_fit(None, data, str(tmp_path), 3)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     ranks = launch(_card_fit, cards, "cuda", data, str(tmp_path), 3,
                    timeout=300)
-    r_trace, r_params, _ = ranks[0]
-    assert [n for _, _, n in ranks] == [3 * 18] * cards
+    r_trace, r_params, _, _ = ranks[0]
+    assert [n for _, _, n, _ in ranks] == [2 * 18] * cards
+    assert [c for _, _, _, c in ranks] == [["eager", "capture",
+                                            "replay"]] * cards
     np.testing.assert_allclose(r_trace, trace, rtol=1e-4)
     for name, p in params.items():
-        for _, other, _ in ranks[1:]:
+        for _, other, _, _ in ranks[1:]:
             np.testing.assert_array_equal(other[name], r_params[name])
         np.testing.assert_allclose(r_params[name], p, rtol=2e-4, atol=2e-6,
                                    err_msg=name)
