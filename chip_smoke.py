@@ -26,7 +26,14 @@ Phases, each of which exits non-zero on failure:
      of phase 10 (shared4's train step at a rank's batch of 8, and the
      encode and decode halves of its eval forward at 16 and 4).
      Each distinct shape is timed once; the kernels line sums its times
-     over the launches of an rgb and a shared4 round trip;
+     over the launches of an rgb and a shared4 round trip. Then GDN's
+     backward kernel (csrc/gdn_backward.cu) at every (I)GDN of phase 7's
+     rgb train step, of shared4's train steps (phases 8, 9 and 10) and,
+     in bf16, of the rgb step: dx, dgamma and dbeta against
+     `gdn_backward_plain` within 1e-4 x max(1, |plain|max) each (a bf16
+     dx 2^-7), two launches bitwise equal, timed with the plain version
+     and the bound (`gdn_backward_cost`); also a strided gradient, ragged
+     rows and C = 168 and 655 (gamma read from global memory), checked;
   4. build SingleTaskCompressor(["rgb"], latent 128, conv 100) from a seed,
      run eval forward, then compress -> decompress on 3 batches of 8
      random 256x256 rgb images, its device programs as CUDA graphs
@@ -75,26 +82,28 @@ stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
          same weights and noise, one image: every log within rtol 1e-4,
          every parameter's gradient within 1e-3 x max|g_cpu| of it;
      (b) 20 steps on the batch: every loss finite, the last below the
-         first, 18 GDN and 0 deconv+IGDN launches a step; the step's wall
-         time (median of steps 3-20), images/s and MP/s, peak memory, and
-         from torch.profiler on one more step its device time, busy share,
-         the GDN kernel's 18 launches, the closed-form GDN backward (the
-         device work of its 18 autograd nodes) and the convolutions'
-         (cuDNN's) share;
+         first, 18 GDN, 0 deconv+IGDN and 18 GDN backward launches a
+         step; the step's wall time (median of steps 3-20), images/s and
+         MP/s, peak memory, and from torch.profiler on one more step its
+         device time, busy share, the GDN kernel's 18 launches, the GDN
+         backward (its kernel's 18 launches, and the device work of its
+         18 autograd nodes: the kernel and the gradients' contiguous
+         copies) and the convolutions' (cuDNN's) share;
      (c) one remat step from the same state and noise as a plain step
          (cuDNN deterministic for both): loss and parameters within 1e-5
-         relative, 36 GDN launches;
+         relative, 36 GDN and 18 GDN backward launches;
      (d) the eval step: finite logs, 11 GDN and 7 deconv+IGDN launches;
      (e) the K-step call as one CUDA graph (`make_multi_train_step` on the
          card): under deterministic cuDNN, from one seed state each, six
          calls (a warm-up, a capture, replays) at K = 4 and at K = 1
          against 6 x K eager `make_train_step` steps with the same
          per-step noise, train metrics on: each call's loss and every
-         parameter within 1e-6 x max|p|; 18 x K GDN launches counted for
-         the warm-up and the capture and none for a replay, whose 18 x K
-         GDN kernel records (0 deconv+IGDN) come from its graph in a
-         profiled replay; a call's wall (median of the replays), a step's,
-         images/s, a profiled call's device ms and busy share, the
+         parameter within 1e-6 x max|p|; 18 x K GDN and 18 x K GDN
+         backward launches counted for the warm-up and the capture and
+         none for a replay, whose 18 x K records of each (0 deconv+IGDN)
+         come from its graph in a profiled replay; a call's wall (median
+         of the replays), a step's, images/s, a profiled call's device ms
+         and busy share, the
          capture's ms and peak memory, graphed beside eager; at K = 1
          every update of both sides also held to the CPU port's Adam
          (not capturable) stepped on the card's gradients: parameters,
@@ -115,11 +124,11 @@ stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
      full decode; the container (partial and full) written, read back and
      decoded as without the file; the card against the CPU plain path on
      one image; one train step at batch 2 against the CPU's (phase 7's
-     tolerances; 63 GDN launches). Then mixed (model 2, latent 300, conv
-     32) and disjoint (model 3, latent 300, conv 42), one batch of 8 each:
-     round trip, launch counts (21 GDN a compress; 6 GDN + 15 and 21
-     deconv+IGDN a decompress), three graphed trips bitwise equal to the
-     eager one, card against CPU. Then phase 5 at shared4
+     tolerances; 63 GDN and 63 GDN backward launches). Then mixed (model
+     2, latent 300, conv 32) and disjoint (model 3, latent 300, conv 42),
+     one batch of 8 each: round trip, launch counts (21 GDN a compress; 6
+     GDN + 15 and 21 deconv+IGDN a decompress), three graphed trips
+     bitwise equal to the eager one, card against CPU. Then phase 5 at shared4
      (above) and the reference import: the seed-0 shared4 model's
      state_dict with CompressAI's buffers, as a Lightning checkpoint,
      imported into a model of another seed on the card; its round trip
@@ -132,12 +141,13 @@ stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
      mmnc_tpu_torch.cli.train` (called as `main`) for CLI_EPOCHS epochs at
      batch CLI_BATCH with validation, image grids, a checkpoint and the
      profiler over steps 5-10: finite, falling losses; a warm-up call, a
-     capture, then graph replays, 63 GDN launches counted for the first
-     two and none for a replay, whose 63 GDN kernel records come from its
-     graph (steps 5-10's trace); the eval forward's 35 GDN + 28
-     deconv+IGDN a validation step (MT_LAUNCHES; the eval step graphed:
-     a warm-up, a capture, replays, whose graph records in steps 5-10's
-     trace hold 35 + 28 each), steps/s and images/s
+     capture, then graph replays, 63 GDN and 63 GDN backward launches
+     counted for the first two and none for a replay, whose 63 + 63
+     kernel records come from its graph (steps 5-10's trace); the eval
+     forward's 35 GDN + 28 deconv+IGDN a validation step (MT_LAUNCHES;
+     the eval step graphed: a warm-up, a capture, replays, whose graph
+     records in steps 5-10's trace hold 35 + 28 each), steps/s and
+     images/s
      (StepTimer p50),
      the loader's wait a step, the profiled steps' device time and busy
      share, peak memory, checkpoint save ms; `fit` to the middle and
@@ -163,13 +173,14 @@ stale. the stale-parameter hazard (`check_stale_parameters`): the rgb
      a temporary directory): (a) `cli.rd_sweep`'s sweep over RD_LMBDAS,
      one epoch of 4 steps of 16 on CLEVR-style scenes with validation:
      a point per lambda with bpp > 0 and finite per-task PSNR and
-     MS-SSIM, rd_points.json, 63 GDN launches a train step and 35 + 28 a
-     validation step; (b) on the first checkpoint `check_bpp`,
-     `encode_eval`, `channel_bpp`, `swap_latent_slices` and
-     `average_channels` on a batch of 4, card against the CPU plain path
-     (bytes and symbols equal, floats within rtol 1e-3 / atol 1e-4, each
-     call's launches), then `learned_baseline_rd` over both checkpoints
-     (32 held-out scenes each; its points and wall); (c) `fit` on 2 ranks
+     MS-SSIM, rd_points.json, 63 GDN and 63 GDN backward launches a
+     train step and 35 + 28 a validation step; (b) on the first
+     checkpoint `check_bpp`, `encode_eval`, `channel_bpp`,
+     `swap_latent_slices` and `average_channels` on a batch of 4, card
+     against the CPU plain path (bytes and symbols equal, floats within
+     rtol 1e-3 / atol 1e-4, each call's launches), then
+     `learned_baseline_rd` over both checkpoints (32 held-out scenes each;
+     its points and wall); (c) `fit` on 2 ranks
      on cuda:0 over gloo (NCCL takes one rank per card) against one
      process, 4 steps at a global batch of 16 from the same seed weights
      and scenes, deterministic cuDNN (losses rtol 1e-4, parameters rtol
@@ -215,15 +226,19 @@ bf16. after phase 8 (before phase 5's shared4 part), the bf16 activation
      call of the bf16 step at K = 2 against eager bf16 steps under
      deterministic cuDNN (parameters within 1e-6 x max|p|, losses finite
      and float32);
- 11. print a {"kernels": [...]} line (launches: the shared4 run; times
-     summed over a shared4 round trip, the rgb path's beside them; cli_*:
+ 11. print a {"kernels": [...]} line: gdn and deconv_igdn (launches:
+     the shared4 run; times summed over a shared4 round trip, the rgb
+     path's beside them; cli_*:
      phase 9's launches and phase 3's times at its train and validation
      steps' shapes; p10_*: phase 10's launches, every process's, and phase
      3's times summed over them; p5_shared4_*, cli_k4_*, p10_compress_*
      and import_launches: the same for phase 5's shared4 stream, phase
      9's K-step run, phase 10 (d) and the import's round trip; bf16: the
      bf16 phase's launches and sums; graphed_trip: phase 4's and phase 8's
-     profiled replays' graph records and device ms) and, last, {"ok":
+     profiled replays' graph records and device ms), and gdn_backward
+     (launches: phase 7 (b)'s steps; times: phase 3's summed over an rgb
+     train step's launches, shared4's and the bf16 step's beside them, and
+     the same phase 9 and 10 entries as gdn's) and, last, {"ok":
      true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 With no CUDA device, or outside a checkout of the repo, it exits non-zero
@@ -293,12 +308,17 @@ WIDE_CONVS = (192, 300)  # phase 6: CompressAI's N, three tasks at bench width
 # rates 1e-4 / 1e-3) over a 20-step schedule, clipped at 5.0
 TRAIN_BATCH, TRAIN_STEPS, LMBDA, LR_MAIN, LR_AUX, CLIP = (
     16, 20, 1e-2, 1e-4, 1e-3, 5.0)
-# launches (GDN, deconv+IGDN) of a train step (9 GDN in the encoder head
-# and g_a, 9 IGDN in g_s and the decoder head, all unfused), of a remat
-# step (the forward twice) and of an eval step (decode fused)
-TRAIN_LAUNCHES = {"train": {"gdn": 18, "deconv_igdn": 0},
-                  "remat": {"gdn": 36, "deconv_igdn": 0},
-                  "eval": {"gdn": 11, "deconv_igdn": 7}}
+# the port's kernels as the counts name them: GDN's forward, deconv+IGDN
+# and GDN's backward; the serving path launches the first two
+KERNELS = ("gdn", "deconv_igdn", "gdn_backward")
+SERVING = KERNELS[:2]
+# launches (GDN, deconv+IGDN, GDN backward) of a train step (9 GDN in the
+# encoder head and g_a, 9 IGDN in g_s and the decoder head, all unfused,
+# and a backward for each), of a remat step (the forward twice, the
+# backward once) and of an eval step (decode fused)
+TRAIN_LAUNCHES = {"train": {"gdn": 18, "deconv_igdn": 0, "gdn_backward": 18},
+                  "remat": {"gdn": 36, "deconv_igdn": 0, "gdn_backward": 18},
+                  "eval": {"gdn": 11, "deconv_igdn": 7, "gdn_backward": 0}}
 # phase 7 (e): calls of a graphed run (a warm-up, a capture, replays; the
 # last one profiled) at each K, and the remat run's
 GRAPH_CALLS, GRAPH_KS = 6, (4, 1)
@@ -338,17 +358,18 @@ ANALYSIS_BATCH, BASELINE_IMAGES = 4, 32
 DP_RANKS, DP_STEPS, DP_BATCH, DP_TIMED_STEPS = 2, 4, 16, 5
 DP_CARD = "cuda:0"  # the card every gloo rank of phase 10 (c) shares
 DP_K = 2  # phase 10 (c): the ranks' run at 2 steps a call
-# launches (GDN, deconv+IGDN) per call: compress runs every encoder-head
-# GDN and g_a's; the eval forward (a validation step) compress's and
-# decompress's; decompress the decoder heads' two conv3 IGDNs a task and
-# every deconv->IGDN pair fused (mixed: g_s's 3 and 4 a head; disjoint and
-# shared: an upsample stack's 3 and 4 a head); decompress_tasks(["rgb"])
-# one task's head; a train step runs every (I)GDN of the forward unfused
+# launches (GDN, deconv+IGDN[, GDN backward: 0 where not given]) per call:
+# compress runs every encoder-head GDN and g_a's; the eval forward (a
+# validation step) compress's and decompress's; decompress the decoder
+# heads' two conv3 IGDNs a task and every deconv->IGDN pair fused (mixed:
+# g_s's 3 and 4 a head; disjoint and shared: an upsample stack's 3 and 4 a
+# head); decompress_tasks(["rgb"]) one task's head; a train step runs every
+# (I)GDN of the forward unfused and a backward for each
 MT_LAUNCHES = {
     "shared4": {"compress": (27, 0), "decompress": (8, 28),
                 "decompress_tasks_rgb": (2, 7),
                 "decompress_tasks_semantic_depth": (4, 14),
-                "train": (63, 0), "eval": (35, 28)},
+                "train": (63, 0, 63), "eval": (35, 28)},
     "mixed": {"compress": (21, 0), "decompress": (6, 15)},
     "disjoint": {"compress": (21, 0), "decompress": (6, 21)},
 }
@@ -472,12 +493,14 @@ def gdn_train_shapes(b, conv=CONV):
     return enc + [(n, c, True) for n, c in dec]
 
 
-def gdn_backward_cost(n, c):
-    """Bytes (x and the gradient read, dx written, gamma and beta read,
-    their gradients written) and FLOPs (the norm recomputed, u @ gamma
-    and u^T @ x^2 as FMAs, ~12 elementwise operations a value) of the
-    closed-form backward of one (I)GDN on (n, c)."""
-    return (3 * n * c + 2 * c * c + 2 * c) * F32, 6 * n * c * c + 12 * n * c
+def gdn_backward_cost(n, c, elt=F32):
+    """Bytes (x and the gradient read, dx written, of `elt` bytes a value;
+    gamma and beta read, their gradients written, in float32) and FLOPs
+    (the norm recomputed, u @ gamma and u^T @ x^2 as FMAs, ~12 elementwise
+    operations a value) of the closed-form backward of one (I)GDN on
+    (n, c)."""
+    return (3 * n * c * elt + (2 * c * c + 2 * c) * F32,
+            6 * n * c * c + 12 * n * c)
 
 
 def deconv_path_shapes(b, conv=CONV):
@@ -808,14 +831,132 @@ def p10_gdn_groups(lay):
     the sweep's and the analysis' batches, and a rank's compress of its
     rows (d)."""
     n_enc = MT_LAUNCHES["shared4"]["compress"][0]
-    groups = [(mt_gdn_shapes(lay, b, train=True), f"train{b}")
-              for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
+    groups = p10_train_groups(lay)
     for b in sorted({RD_BATCH, ANALYSIS_BATCH, DP_BATCH}):
         shapes = mt_gdn_shapes(lay, b)
         groups += [(shapes[:n_enc], f"encode{b}"),
                    (shapes[n_enc:], f"decode{b}")]
     rows = DP_BATCH // DP_RANKS  # a rank's rows of the sharded compress
     return groups + [(mt_gdn_shapes(lay, rows)[:n_enc], f"encode{rows}")]
+
+
+def gdn_backward_case(torch, gen, n, c, dtype=None):
+    """x, the gradient g, gamma, beta on the card (`gdn_case`'s, g from
+    the same generator); for bf16 x and g in bf16."""
+    x, gamma, beta = gdn_case(torch, gen, n, c, dtype)
+    g = torch.randn(n, c, generator=gen).cuda().to(x.dtype)
+    return x, g, gamma, beta
+
+
+def check_gdn_backward_launch(torch, x, g, gamma, beta, inverse, plan=None):
+    """The backward kernel (its plan, or `plan`) against
+    `gdn_backward_plain`: dx within GDN_BACKWARD_TOL (BF16_TOL for a bf16
+    dx) x max(1, |plain|max), dgamma and dbeta within GDN_BACKWARD_TOL x
+    max(1, |plain|max) each; a second launch bitwise equal to the first.
+    Returns the largest error of each output."""
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda, gdn_backward_plain
+
+    got = gdn_backward_cuda(x, g, gamma, beta, inverse, plan=plan)
+    again = gdn_backward_cuda(x, g, gamma, beta, inverse, plan=plan)
+    want = gdn_backward_plain(x, g, gamma, beta, inverse)
+    where = (f"gdn_backward {x.dtype} {tuple(x.shape)} inverse={inverse} "
+             f"plan {plan}")
+    errs = []
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        tol = (BF16_TOL if name == "dx" and x.dtype == torch.bfloat16
+               else GDN_BACKWARD_TOL)
+        errs.append(check_close(torch, a, w, tol, f"{where} {name}")[0])
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{where}: two launches differ")
+    return errs
+
+
+# the backward kernel against its plain version: float32 (and bf16 dgamma
+# and dbeta, float32 in either) within this x max(1, |plain|max), as the
+# forward; both sum dgamma's thousands of rows in float32, in other orders
+GDN_BACKWARD_TOL = 1e-4
+
+
+def p10_train_groups(lay):
+    """Phase 10's train steps' GDN shapes, by the batch it trains at (the
+    sweep's, the single process's and a rank's)."""
+    return [(mt_gdn_shapes(lay, b, train=True), f"train{b}")
+            for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
+
+
+def check_gdn_backward(torch, gen):
+    """Phase 3's checks of the backward kernel: every (I)GDN of phase 7's
+    rgb train step (batch TRAIN_BATCH), of shared4's train steps (phase 8
+    at MT_TRAIN_BATCH, phase 9 at CLI_BATCH, phase 10 at each batch it
+    trains at) in float32, and of the rgb step in bf16 (phase "bf16"'s),
+    each distinct shape under its plan against `gdn_backward_plain` and
+    bitwise repeatable (`check_gdn_backward_launch`); then its device ms,
+    the plain version's and the bound (`gdn_backward_cost`, x's bytes and
+    rate), summed by key (add_times) as check_gdn's. Beyond the path: a
+    strided gradient (the kernel's wrapper copies it contiguous), ragged
+    rows, C = 168 at other row counts and C = 655 (gamma from global
+    memory), checked only. Returns (the sums: "train", "shared4_train",
+    "cli_train", phase 10's "train<b>", "bf16_train"; the largest error
+    of dx, dgamma and dbeta; the tolerance)."""
+    from mmnc_tpu_torch.ops.gdn import (gdn_backward_cuda, gdn_backward_plain,
+                                       gdn_backward_plan)
+
+    shared4 = paper_layout(*PAPER["shared4"])
+    f32_groups = ([(gdn_train_shapes(TRAIN_BATCH), "train"),
+                   (mt_gdn_shapes(shared4, MT_TRAIN_BATCH, train=True),
+                    "shared4_train"),
+                   (mt_gdn_shapes(shared4, CLI_BATCH, train=True),
+                    "cli_train")]
+                  + p10_train_groups(shared4))
+    totals, worst = {}, [0.0, 0.0, 0.0]
+    for dtype, groups in ((None, f32_groups), (torch.bfloat16, [
+            (gdn_train_shapes(TRAIN_BATCH), "bf16_train")])):
+        elt, rate = type_costs(torch, dtype)
+        tag = " bf16" if dtype == torch.bfloat16 else ""
+        for (n, c, inverse), uses in shape_cases(groups).items():
+            x, g, gamma, beta = gdn_backward_case(torch, gen, n, c, dtype)
+            errs = check_gdn_backward_launch(torch, x, g, gamma, beta,
+                                             inverse)
+            ms, host = time_ms(torch, lambda: gdn_backward_cuda(
+                x, g, gamma, beta, inverse))
+            plain, plain_host = time_ms(torch, lambda: gdn_backward_plain(
+                x, g, gamma, beta, inverse))
+            bms, by = bound_ms(*gdn_backward_cost(n, c, elt), rate)
+            print(f"kernel gdn_backward{tag} rows={n} C={c} inverse="
+                  f"{inverse} launches="
+                  f"{json.dumps(uses, separators=(',', ':'))} plan="
+                  f"{tuple(gdn_backward_plan(n, c))} max_abs_err dx/dgamma/"
+                  f"dbeta={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+                  f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f} "
+                  f"plain_ms={plain:.5f} plain_host_ms={plain_host:.5f} "
+                  f"bound_ms={bms:.5f} bound_by={by}")
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            add_times(totals, uses, {"ms": ms, "host_ms": host,
+                                     "plain_ms": plain, "bound_ms": bms}, by)
+            del x, g, gamma, beta
+    extra = [(4099, 50, False), (777, 100, True), (5, 100, False),
+             (4099, 168, False), (777, 168, True), (4099, 655, False),
+             (333, 655, True)]
+    for dtype in (None, torch.bfloat16):
+        for n, c, inverse in extra:
+            x, g, gamma, beta = gdn_backward_case(torch, gen, n, c, dtype)
+            errs = check_gdn_backward_launch(torch, x, g, gamma, beta,
+                                             inverse)
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            print(f"kernel gdn_backward{' bf16' if dtype else ''} extra "
+                  f"rows={n} C={c} inverse={inverse} plan="
+                  f"{tuple(gdn_backward_plan(n, c))} max_abs_err dx/dgamma/"
+                  f"dbeta={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+                  f"bitwise_repeat=ok")
+        # a strided gradient, as the next layer's backward may give it
+        x, g, gamma, beta = gdn_backward_case(torch, gen, 4099, 100, dtype)
+        g = g.t().contiguous().t()
+        errs = check_gdn_backward_launch(torch, x, g, gamma, beta, False)
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        print(f"kernel gdn_backward{' bf16' if dtype else ''} strided "
+              f"gradient rows=4099 C=100 max_abs_err dx/dgamma/dbeta="
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} bitwise_repeat=ok")
+    return totals, worst, GDN_BACKWARD_TOL
 
 
 def split_extra_shapes():
@@ -981,15 +1122,16 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
 
 # the port's kernel launches that the serving programs' CUDA graphs made in
 # their replays, which the wrappers never see (`tally_graph_launches`)
-REPLAYED = {"gdn": 0, "deconv_igdn": 0}
+REPLAYED = {k: 0 for k in KERNELS}
 
 
 def wrapper_counts():
     """The kernel wrappers' launch counters: a graph's capture counts its
     kernels once, a replay never."""
     from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
-    from mmnc_tpu_torch.ops.gdn import gdn_cuda
-    return {"gdn": gdn_cuda.launches, "deconv_igdn": deconv_igdn_cuda.launches}
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda, gdn_cuda
+    return {"gdn": gdn_cuda.launches, "deconv_igdn": deconv_igdn_cuda.launches,
+            "gdn_backward": gdn_backward_cuda.launches}
 
 
 def counts():
@@ -1002,9 +1144,10 @@ def counts():
 
 def reset_counts():
     from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
-    from mmnc_tpu_torch.ops.gdn import gdn_cuda
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda, gdn_cuda
     gdn_cuda.launches = 0
     deconv_igdn_cuda.launches = 0
+    gdn_backward_cuda.launches = 0
     for k in REPLAYED:
         REPLAYED[k] = 0
 
@@ -1445,7 +1588,7 @@ def run_streaming(torch, model, batches, profile_dir, card):
     fallback, and each layout's time split."""
     refs = stream_refs(torch, model, batches)
     runs = stream_layouts(torch, model, batches, refs,
-                          {"gdn": 11, "deconv_igdn": 7},
+                          as_counts((11, 7)),
                           f"rgb latent={LATENT} conv={CONV}", profile_dir,
                           card)
     stream_fallback(torch, model, batches, refs, "rgb")
@@ -1466,9 +1609,8 @@ def run_mt_streaming(torch, profile_dir, mt, card):
     model = paper_model(name, "cuda")
     batches = paper_batches(torch, model, BATCHES, SEED)
     refs = stream_refs(torch, model, batches)
-    per_batch = {k: MT_LAUNCHES[name]["compress"][i]
-                 + MT_LAUNCHES[name]["decompress"][i]
-                 for i, k in enumerate(("gdn", "deconv_igdn"))}
+    per_batch = add_counts(MT_LAUNCHES[name]["compress"],
+                           MT_LAUNCHES[name]["decompress"])
     runs = stream_layouts(torch, model, batches, refs, per_batch,
                           f"{name} {PAPER[name]}", profile_dir, card)
     stream_fallback(torch, model, batches, refs, name)
@@ -1572,8 +1714,7 @@ def run_widths(torch):
         out = model.decompress(ans)["rgb"]
         torch.cuda.synchronize()
         dec = {k: v - enc[k] for k, v in counts().items()}
-        if enc != {"gdn": 9, "deconv_igdn": 0} or \
-                dec != {"gdn": 2, "deconv_igdn": 7}:
+        if enc != as_counts((9, 0)) or dec != as_counts((2, 7)):
             raise RuntimeError(f"conv {conv}: launch counts compress {enc}, "
                                f"decompress {dec}")
         if out.shape != (BATCH, IMAGE, IMAGE, 3) or \
@@ -1731,27 +1872,36 @@ def outermost_spans(events, match):
 
 def profile_train_step(torch, step, state, batch, gen, profile_dir):
     """torch.profiler over one train step -> (wall ms, device ms, busy ms,
-    GDN kernel ms and launches, closed-form backward ms and autograd
-    nodes, conv ms, the launch calls whose records the profiler lost).
-    The closed form's device records are those launched inside the
-    GDNFunction node's span on the autograd engine's thread. A trace that
-    lost records and misses a GDN kernel record or node is taken again
-    with one more step (the state is not checked after this)."""
+    GDN kernel ms and launches, the backward's device ms and autograd
+    nodes, its kernel's launches and ms, conv ms, the launch calls whose
+    records the profiler lost). The backward's device records are those
+    launched inside the GDNFunction node's span on the autograd engine's
+    thread: the backward kernel's (its rows kernel, one a launch, and the
+    sum of the blocks' partials) and a strided gradient's contiguous
+    copy. A trace that lost records and misses a GDN kernel record, a
+    backward kernel record or a node is taken again with one more step
+    (the state is not checked after this)."""
     def gdn_backward(name):
         return name.endswith("GDNFunctionBackward")
 
     def gdn_kernels(events):
         return [e for e in events if e.get("cat") == "kernel"
-                and "gdn_kernel" in e["name"] and "deconv" not in e["name"]]
+                and kernel_kind(e["name"]) == "gdn"]
+
+    def backward_kernels(events, kinds=("gdn_backward",)):
+        return [e for e in events if e.get("cat") == "kernel"
+                and kernel_kind(e["name"]) in kinds]
 
     want = TRAIN_LAUNCHES["train"]["gdn"]
+    want_backward = TRAIN_LAUNCHES["train"]["gdn_backward"]
     trace = None
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         trace = os.path.join(profile_dir, "train_step_trace.json")
     run = profiled(torch, lambda: step(state, batch, gen), trace,
                    complete=lambda ev: len(gdn_kernels(ev)) == want
-                   == outermost_spans(ev, gdn_backward))
+                   == outermost_spans(ev, gdn_backward)
+                   and len(backward_kernels(ev)) == want_backward)
     events, wall = run["events"], run["wall"]
     if profile_dir:
         with open(os.path.join(profile_dir, "train_step_profile.txt"),
@@ -1762,6 +1912,7 @@ def profile_train_step(torch, step, state, batch, gen, profile_dir):
     gdn = gdn_kernels(device)
     backward = launched_in_spans(events, gdn_backward)
     spans = outermost_spans(events, gdn_backward)
+    bwd = backward_kernels(device, ("gdn_backward", "gdn_backward_aux"))
     conv = launched_in_spans(events, lambda n: n.startswith(
         ("aten::cudnn_convolution", "aten::convolution_backward")))
     return {"wall_ms": wall * 1e3,
@@ -1769,6 +1920,8 @@ def profile_train_step(torch, step, state, batch, gen, profile_dir):
             "busy_ms": busy_us(device) / 1e3, "records": len(device),
             "gdn_ms": sum(e["dur"] for e in gdn) / 1e3, "gdn_kernels": len(gdn),
             "gdn_backward_ms": backward / 1e3, "gdn_backward_spans": spans,
+            "gdn_backward_kernels": len(backward_kernels(device)),
+            "gdn_backward_kernel_ms": sum(e["dur"] for e in bwd) / 1e3,
             "conv_ms": conv / 1e3, "lost": run["lost"]}
 
 
@@ -1811,8 +1964,7 @@ def run_train(torch, profile_dir):
         raise RuntimeError(f"remat step vs plain step: max rel err {remat_err}")
     print(f"train remat step vs plain step (same state and noise): loss "
           f"{loss_r:.6g} vs {loss_p:.6g}, max rel err {remat_err:.3e}; "
-          f"GDN launches {measured['remat']['gdn']} vs "
-          f"{measured['train']['gdn']}")
+          f"launches {measured['remat']} vs {measured['train']}")
     del results, params_p, params_r
 
     # (b) TRAIN_STEPS steps on the batch, the noise drawn by the step
@@ -1821,12 +1973,15 @@ def run_train(torch, profile_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
+    run_launches = dict(ZERO)
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         (_, logs), measured["train"] = check_launches(
             torch, "train", lambda: step(state, batch, gen))
         walls.append(time.perf_counter() - t0)
         losses.append(logs["train/loss"])
+        for k, n in measured["train"].items():
+            run_launches[k] += n
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).cpu().tolist()
     if not all(np.isfinite(losses)):
@@ -1848,20 +2003,26 @@ def run_train(torch, profile_dir):
     print(f"train losses: {json.dumps(losses)}")
     prof = profile_train_step(torch, step, state, batch, gen, profile_dir)
     want = TRAIN_LAUNCHES["train"]["gdn"]
-    if prof["gdn_kernels"] != want or prof["gdn_backward_spans"] != want:
+    if prof["gdn_kernels"] != want or prof["gdn_backward_spans"] != want \
+            or prof["gdn_backward_kernels"] != want:
         raise RuntimeError(f"train profile: {prof['gdn_kernels']} GDN kernel "
-                           f"records and {prof['gdn_backward_spans']} "
-                           f"GDNFunction backward nodes, want {want} each "
-                           f"(the profiler lost the records of "
-                           f"{prof['lost']} launch calls)")
+                           f"records, {prof['gdn_backward_kernels']} GDN "
+                           f"backward kernel records and "
+                           f"{prof['gdn_backward_spans']} GDNFunction "
+                           f"backward nodes, want {want} each (the profiler "
+                           f"lost the records of {prof['lost']} launch "
+                           f"calls)")
     print(f"train step profile: wall {prof['wall_ms']:.3f} ms, device "
           f"{prof['device_ms']:.3f} ms in {prof['records']} records, busy "
           f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.3f}"
           f" of wall); GDN kernel ({prof['gdn_kernels']} launches) "
           f"{prof['gdn_ms']:.4f} ms "
-          f"(bound {fwd_bound:.4f}); GDN closed-form backward "
+          f"(bound {fwd_bound:.4f}); GDN backward "
           f"{prof['gdn_backward_ms']:.4f} ms in {prof['gdn_backward_spans']} "
-          f"autograd nodes (bound {bwd_bound:.4f}); "
+          f"autograd nodes (bound {bwd_bound:.4f}; its kernel's "
+          f"{prof['gdn_backward_kernels']} launches "
+          f"{prof['gdn_backward_kernel_ms']:.4f} ms with their sums, the "
+          f"rest the gradients' contiguous copies); "
           f"convolutions (cuDNN) {prof['conv_ms']:.3f} ms "
           f"({prof['conv_ms'] / prof['device_ms']:.3f} of device)")
 
@@ -1873,7 +2034,8 @@ def run_train(torch, profile_dir):
         raise RuntimeError(f"eval step: non-finite logs {logs}")
     print(f"eval step: {json.dumps(logs)}")
     return dict(prof, bound_ms=fwd_bound, backward_bound_ms=bwd_bound,
-                launches=measured, peak_bytes=peak, step_wall_ms=wall * 1e3)
+                launches=measured, run_launches=run_launches,
+                peak_bytes=peak, step_wall_ms=wall * 1e3)
 
 
 def cpu_adam_twin(build, model):
@@ -2045,6 +2207,13 @@ def graphed_vs_eager(torch, build, batch, k, calls, remat=False,
             "capture_s": graphed["capture_s"]}
 
 
+def backward_ms(prof):
+    """A `profile_device` window's device ms of GDN's backward kernel:
+    its rows kernel's records and its sums' (`kernel_kind`)."""
+    return sum(prof["by_kernel"].get(k, 0.0)
+               for k in ("gdn_backward", "gdn_backward_aux"))
+
+
 def run_graph_train(torch, card):
     """Phase 7 (e): the K-step call as one CUDA graph against eager steps
     on phase 7's batch (`graphed_vs_eager`) at each of GRAPH_KS, timed and
@@ -2054,8 +2223,9 @@ def run_graph_train(torch, card):
     K); then GRAPH_REMAT_CALLS remat calls at K = GRAPH_REMAT_K. Prints,
     the graphed beside the eager: a call's wall (median of the replays)
     and a step's, images/s, a profiled call's device ms and busy share,
-    the capture's ms and the peak memory. Returns {K: the graphed
-    profiled replay's graph launches}."""
+    the capture's ms and the peak memory; the GDN forward's and
+    backward's device ms a step. Returns {K: the graphed profiled
+    replay's graph launches}."""
     rng = np.random.default_rng(SEED + 1)
     batch = {"rgb": torch.from_numpy(rng.random(
         (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=np.float32)).cuda()}
@@ -2076,6 +2246,8 @@ def run_graph_train(torch, card):
                 f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
                 f"({prof['busy_ms'] / prof['wall_ms']:.3f}), its GDN kernel "
                 f"{prof['by_kernel'].get('gdn', 0.0) / k:.4f} ms a step, "
+                f"its GDN backward kernel (with its sums) "
+                f"{backward_ms(prof) / k:.4f} ms a step, "
                 f"peak memory {run['peak'] / 2 ** 30:.3f} GiB")
         mode = ("deterministic cuDNN" if checked else
                 "default cuDNN, timing only")
@@ -2142,10 +2314,9 @@ def launched(torch, fn):
 
 
 def want_launches(name, call, got):
-    gdn, dec = MT_LAUNCHES[name][call]
-    if got != {"gdn": gdn, "deconv_igdn": dec}:
-        raise RuntimeError(f"{name} {call}: launches {got}, want {gdn} GDN "
-                           f"and {dec} deconv+IGDN")
+    want = as_counts(MT_LAUNCHES[name][call])
+    if got != want:
+        raise RuntimeError(f"{name} {call}: launches {got}, want {want}")
 
 
 def task_err(got, want, tasks):
@@ -2156,22 +2327,30 @@ def task_err(got, want, tasks):
 
 
 def kernel_kind(name):
-    """The port's kernel a device record belongs to, by its name, or
-    "other" (cuDNN, cuBLAS, elementwise, copies)."""
+    """The port's kernel a device record belongs to, by its name: one of
+    KERNELS (GDN's backward by its rows kernel, one record a launch),
+    "gdn_backward_aux" (the backward's fixed-order sum of the blocks'
+    partials and its padding of a wide gamma), or "other" (cuDNN,
+    cuBLAS, elementwise, copies)."""
     if "deconv_igdn" in name:
         return "deconv_igdn"
+    if "gdn_backward_kernel" in name:
+        return "gdn_backward"
+    if "gdn_backward" in name:
+        return "gdn_backward_aux"
     return "gdn" if "gdn_kernel" in name else "other"
 
 
 def graph_launch_groups(events):
-    """[{"gdn": n, "deconv_igdn": n}, ...]: the port's kernel records in a
-    chrome trace, one entry for each CUDA graph launch (a cudaGraphLaunch
-    call) that started them, in the order of the launches."""
+    """[{kernel: n} of every one of KERNELS, ...]: the port's kernel
+    records in a chrome trace, one entry for each CUDA graph launch (a
+    cudaGraphLaunch call) that started them, in the order of the
+    launches."""
     graph = sorted((e["ts"], e["args"]["correlation"]) for e in events
                    if e.get("cat", "").startswith("cuda_")
                    and "GraphLaunch" in e.get("name", "")
                    and "correlation" in e.get("args", {}))
-    out = {c: {"gdn": 0, "deconv_igdn": 0} for _, c in graph}
+    out = {c: {k: 0 for k in KERNELS} for _, c in graph}
     for e in events:
         group = out.get(e.get("args", {}).get("correlation"))
         if e.get("cat") == "kernel" and group is not None:
@@ -2182,11 +2361,11 @@ def graph_launch_groups(events):
 
 
 def graph_launches(events):
-    """{"gdn": n, "deconv_igdn": n}: the port's kernel records in a chrome
+    """{kernel: n} of KERNELS: the port's kernel records in a chrome
     trace that a CUDA graph launch started (their correlation id is that
     of a cudaGraphLaunch call). A replayed graph launches its kernels
     without the wrappers, whose counters so never see them."""
-    out = {"gdn": 0, "deconv_igdn": 0}
+    out = {k: 0 for k in KERNELS}
     for group in graph_launch_groups(events):
         for k in out:
             out[k] += group[k]
@@ -2224,7 +2403,7 @@ def profile_device(torch, fn, trace=None, tries=TIMING_TRIES, graph=None):
 
 # --- the serving programs as CUDA graphs (graphs.py) -------------------------
 
-ZERO = {"gdn": 0, "deconv_igdn": 0}
+ZERO = {k: 0 for k in KERNELS}
 # the device programs a call runs, whose stats tell its kind
 TRIP_PROGRAMS = {"compress": ("_compress_device",),
                  "decompress": ("_decompress_indexes_device",
@@ -2234,8 +2413,19 @@ TRIP_PROGRAMS = {"compress": ("_compress_device",),
 
 
 def as_counts(pair):
-    """(GDN, deconv+IGDN) -> {"gdn": .., "deconv_igdn": ..}."""
-    return dict(zip(("gdn", "deconv_igdn"), pair))
+    """(GDN, deconv+IGDN[, GDN backward]) -> {kernel: n} of KERNELS; the
+    backward 0 where not given (a serving call launches none)."""
+    return dict(zip(KERNELS, tuple(pair) + (0,) * (len(KERNELS)
+                                                   - len(pair))))
+
+
+def add_counts(*pairs):
+    """The sum of `as_counts` of each of `pairs`."""
+    out = dict(ZERO)
+    for pair in pairs:
+        for k, n in as_counts(pair).items():
+            out[k] += n
+    return out
 
 
 def program_call(torch, model, programs, fn):
@@ -2738,7 +2928,7 @@ def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
     scale = max(max(x.float().abs().max().item() for x in r.values())
                 for _, r in refs)
     streams = stream_layouts(torch, model, batches, refs,
-                             {"gdn": 11, "deconv_igdn": 7},
+                             as_counts((11, 7)),
                              f"bf16 rgb latent={LATENT} conv={CONV}",
                              profile_dir, card,
                              BF16_CPU_RTOL * max(1.0, scale))
@@ -2807,17 +2997,23 @@ def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
           f"{train['peak_bytes'] / 2 ** 30:.3f})")
     print(f"bf16 train losses: {json.dumps(losses)}")
     prof = profile_train_step(torch, step, state, batch, train_gen, None)
-    if prof["gdn_kernels"] != TRAIN_LAUNCHES["train"]["gdn"]:
+    if prof["gdn_kernels"] != TRAIN_LAUNCHES["train"]["gdn"] or \
+            prof["gdn_backward_kernels"] != \
+            TRAIN_LAUNCHES["train"]["gdn_backward"]:
         raise RuntimeError(f"bf16 train profile: {prof['gdn_kernels']} GDN "
-                           f"kernel records (the profiler lost the records "
-                           f"of {prof['lost']} launch calls)")
+                           f"and {prof['gdn_backward_kernels']} GDN "
+                           f"backward kernel records (the profiler lost the "
+                           f"records of {prof['lost']} launch calls)")
     print(f"bf16 train step profile: wall {prof['wall_ms']:.3f} ms, device "
           f"{prof['device_ms']:.3f} ms (f32 {train['device_ms']:.3f}) in "
           f"{prof['records']} records (f32 {train['records']}), busy "
           f"{prof['busy_ms'] / prof['wall_ms']:.3f} of wall; GDN kernel "
-          f"{prof['gdn_ms']:.4f} ms (f32 {train['gdn_ms']:.4f}), closed-form "
-          f"backward {prof['gdn_backward_ms']:.4f} ms (f32 "
-          f"{train['gdn_backward_ms']:.4f}), cuDNN convolutions "
+          f"{prof['gdn_ms']:.4f} ms (f32 {train['gdn_ms']:.4f}), its "
+          f"backward {prof['gdn_backward_ms']:.4f} ms in its nodes (f32 "
+          f"{train['gdn_backward_ms']:.4f}; the backward kernel's "
+          f"{prof['gdn_backward_kernels']} launches "
+          f"{prof['gdn_backward_kernel_ms']:.4f} ms, f32 "
+          f"{train['gdn_backward_kernel_ms']:.4f}), cuDNN convolutions "
           f"{prof['conv_ms']:.3f} ms "
           f"({prof['conv_ms'] / prof['device_ms']:.3f} of device; f32 "
           f"{train['conv_ms'] / train['device_ms']:.3f})")
@@ -3316,8 +3512,7 @@ def cli_k_run(torch, tmp, name, k, *extra, eager=False,
 
 def shared4_launches():
     """MT_LAUNCHES' shared4 train and eval steps as {kind: counts}."""
-    return {kind: dict(zip(("gdn", "deconv_igdn"),
-                           MT_LAUNCHES["shared4"][kind]))
+    return {kind: as_counts(MT_LAUNCHES["shared4"][kind])
             for kind in ("train", "eval")}
 
 
@@ -3395,7 +3590,7 @@ def check_steps_per_call(torch, tmp, card):
                            if 5 <= e["step"] <= 10)
             _, serving = check_window_graphs(
                 groups, want["train"], replayed,
-                {"gdn": 0, "deconv_igdn": 0} if eager else want["eval"],
+                dict(ZERO) if eager else want["eval"],
                 f"cli {name}: steps 5-10's trace")
             row.update(busy=busy_ms / wall_ms, device_ms=dev_ms / 6,
                        serving_graphs=serving)
@@ -3603,9 +3798,9 @@ def run_cli(torch, profile_dir, card):
         c_seconds = time.perf_counter() - t0
         c_launches = counts()
         # a batch: compress, and the eval forward of the model and its twin
-        expect = {k: n_batches * (MT_LAUNCHES["shared4"]["compress"][i]
-                                  + 2 * MT_LAUNCHES["shared4"]["eval"][i])
-                  for i, k in enumerate(("gdn", "deconv_igdn"))}
+        expect = {k: n_batches * n for k, n in add_counts(
+            MT_LAUNCHES["shared4"]["compress"], MT_LAUNCHES["shared4"]["eval"],
+            MT_LAUNCHES["shared4"]["eval"]).items()}
         if c_launches != expect:
             raise RuntimeError(f"compress CLI: launches {c_launches}, want "
                                f"{expect}")
@@ -3754,11 +3949,11 @@ ANALYSIS_CALLS = {"check_bpp": {"encode": 3, "decode": 2},
 
 
 def part_launches(calls):
-    """{"encode": n, "decode": m} -> (GDN, deconv+IGDN) launches."""
-    enc = MT_LAUNCHES["shared4"]["compress"]
-    dec = tuple(e - c for e, c in zip(MT_LAUNCHES["shared4"]["eval"], enc))
-    return {k: calls.get("encode", 0) * enc[i] + calls.get("decode", 0)
-            * dec[i] for i, k in enumerate(("gdn", "deconv_igdn"))}
+    """{"encode": n, "decode": m} -> {kernel: launches}."""
+    enc = as_counts(MT_LAUNCHES["shared4"]["compress"])
+    full = as_counts(MT_LAUNCHES["shared4"]["eval"])
+    return {k: calls.get("encode", 0) * enc[k] + calls.get("decode", 0)
+            * (full[k] - enc[k]) for k in KERNELS}
 
 
 def run_analysis(torch, ckpt, card):
@@ -3802,7 +3997,7 @@ def run_analysis(torch, ckpt, card):
             seconds[where, name] = time.perf_counter() - t0
             launches[where, name] = counts()
             out[where, name] = got
-    total = {"gdn": 0, "deconv_igdn": 0}
+    total = dict(ZERO)
     for name, parts in ANALYSIS_CALLS.items():
         want = part_launches(parts)
         if launches["card", name] != want or any(
@@ -3857,7 +4052,7 @@ def run_baseline(torch, ckpts, card):
                  "decode": ANALYSIS_CALLS["check_bpp"]["decode"] + 1}
     batches = BASELINE_IMAGES // RD_BATCH
     want = {k: v * batches for k, v in part_launches(per_batch).items()}
-    total = {"gdn": 0, "deconv_igdn": 0}
+    total = dict(ZERO)
     for path in ckpts:
         torch.cuda.synchronize()
         reset_counts()
@@ -4023,8 +4218,7 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1,
                 n_devices=None if mesh is None else mesh.world_size)
         torch.cuda.synchronize(device)
         train = [e for e in per_step if e["kind"] == "train"]
-        launches = {k: sum(e["launches"][k] for e in train)
-                    for k in ("gdn", "deconv_igdn")}
+        launches = {k: sum(e["launches"][k] for e in train) for k in KERNELS}
         # steps whose launches ran in a replayed graph (on a card, but for
         # the eager reference and gloo ranks)
         replayed = steps_per_call * sum(e["how"] == "replay" for e in train)
@@ -4163,7 +4357,7 @@ def check_sharded_compress(torch, ranks, batch_size, card, what):
     want = [t.cpu().numpy() for t in want]
     n_enc = MT_LAUNCHES["shared4"]["compress"]
     for r, rank in enumerate(ranks):
-        if rank["launches"] != {"gdn": n_enc[0], "deconv_igdn": n_enc[1]}:
+        if rank["launches"] != as_counts(n_enc):
             raise RuntimeError(f"{what} rank {r}: launches "
                                f"{rank['launches']}, want {n_enc}")
         for name, got, w in zip(("y", "z", "indexes", "max_abs"),
@@ -4210,11 +4404,11 @@ def check_dp(single, ranks, steps, what, k=1):
     loss trace within rtol 1e-4 (a call logs its last step's loss), the
     parameters within rtol 2e-4 / atol 2e-6 (tests/test_train.py:95-103),
     every rank's bitwise equal. Returns the largest parameter diff."""
-    train = MT_LAUNCHES["shared4"]["train"]
+    train = as_counts(MT_LAUNCHES["shared4"]["train"])
     for name, run in [("single", single), *((f"rank {r}", run)
                                             for r, run in enumerate(ranks))]:
         counted = steps - run["replayed"]
-        want = {"gdn": counted * train[0], "deconv_igdn": counted * train[1]}
+        want = {k: counted * n for k, n in train.items()}
         if run["launches"] != want:
             raise RuntimeError(f"{what} {name}: launches {run['launches']}, "
                                f"want {want}")
@@ -4296,7 +4490,9 @@ def print_dp_run(prefix, name, run, batch, card):
     for kind, ms in run.get("replay_kernel_ms", {}).items():
         line += (f"; fit's profiled {kind} replay: GDN "
                  f"{ms.get('gdn', 0.0):.4f} ms, deconv+IGDN "
-                 f"{ms.get('deconv_igdn', 0.0):.4f} ms of device")
+                 f"{ms.get('deconv_igdn', 0.0):.4f} ms, GDN backward "
+                 f"{ms.get('gdn_backward', 0.0):.4f} ms (its sums "
+                 f"{ms.get('gdn_backward_aux', 0.0):.4f} ms) of device")
     if replays:
         line += (f"; the replay's graph records {json.dumps(prof['graph'])}"
                  f", all-reduce spans {prof['all_reduce_spans']}, NCCL "
@@ -4389,11 +4585,11 @@ def run_parallel(torch, tmp, card):
     launches = {k: sum(r["all_launches"][k] for r in
                        [runs["single"], runs["nccl"], runs["nccl_eager"],
                         *ranks, *k2, *compress])
-                for k in ("gdn", "deconv_igdn")}
+                for k in KERNELS}
     return {"calls": calls, "launches": launches,
             "compress": {"launches": {k: sum(c["launches"][k]
                                              for c in compress)
-                                      for k in ("gdn", "deconv_igdn")},
+                                      for k in KERNELS},
                          "calls": len(compress), "key": f"encode{rows}"}}
 
 
@@ -4464,7 +4660,7 @@ def run_phase10(torch, card):
         calls[key] = calls.get(key, 0) + n
     launches = {k: sum(part["launches"][k] for part in
                        (sweep, analysis, baseline, dp))
-                for k in ("gdn", "deconv_igdn")}
+                for k in KERNELS}
     for k, n in launches.items():
         if n == 0:
             raise RuntimeError(f"kernel {k} never launched in phase 10")
@@ -4477,13 +4673,13 @@ def p10_sums(p10, tot, kernel):
     phase 3's times summed over them (each shape group's sums times the
     calls of it); the two counts must agree."""
     fields = [f for f in ("ms", "plain_ms", "bound_ms", "library_ms")
-              if f in tot["shared4"]]
+              if f in next(iter(tot.values()))]
     out = {"p10_launches": p10["launches"][kernel],
            **{f"p10_{f}": 0.0 for f in fields}}
     reckoned = 0
     for key, n in p10["calls"].items():
-        if key not in tot:  # deconv+IGDN: no train or encode launches
-            continue
+        if key not in tot:  # deconv+IGDN: no train or encode launches;
+            continue        # the backward: no encode or decode
         reckoned += n * tot[key]["launches"]
         for field in fields:
             out[f"p10_{field}"] += n * tot[key][field]
@@ -4539,7 +4735,7 @@ def new_path_sums(p5, cli, p10, imported, tot, kernel):
     ms summed over them, the launches phase 3 reckoned checked against
     the counted ones."""
     fields = [f for f in ("ms", "plain_ms", "bound_ms", "library_ms")
-              if f in tot["shared4"]]
+              if f in next(iter(tot.values()))]
     out = {"import_launches": imported[kernel]}
     k = cli["k_calls"]["per_call"][kernel]
     compress = p10["compress"]
@@ -4625,12 +4821,14 @@ def main(argv=None):
     gdn_tot, gdn_err, gdn_tol = timed("3 gdn", check_gdn, torch, BATCH, gen)
     dec_tot, dec_err, dec_tol = timed("3 deconv_igdn", check_deconv, torch,
                                       BATCH, gen)
+    bwd_tot, bwd_err, bwd_tol = timed("3 gdn_backward", check_gdn_backward,
+                                      torch, gen)
 
     tally_graph_launches()
     launches, model, batches, trips = timed("4", run_model, torch,
                                             args.profile, card)
-    for name, n in launches.items():
-        if n == 0:
+    for name in SERVING:
+        if launches[name] == 0:
             raise RuntimeError(f"kernel {name} never launched on the rgb path")
     p5_rgb = timed("5", run_streaming, torch, model, batches, args.profile,
                    card)
@@ -4641,8 +4839,8 @@ def main(argv=None):
     mt = timed("8", run_multitask, torch, args.profile, card)
     bf = timed("bf16", run_bf16, torch, model, batches, train, mt, trips,
                args.profile, card)
-    for name, n in bf["launches"].items():
-        if n == 0:
+    for name in SERVING:
+        if bf["launches"][name] == 0:
             raise RuntimeError(f"kernel {name} never launched on the bf16 "
                                f"rgb path")
     del model, batches
@@ -4652,7 +4850,8 @@ def main(argv=None):
     cli = timed("9", run_cli, torch, args.profile, card)
     p10 = timed("10", run_phase10, torch, card)
     print(f"phase seconds: {json.dumps(phase_s)}")
-    for name, n in mt["launches"].items():
+    for name in SERVING:
+        n = mt["launches"][name]
         # phase 3 summed its times over the launches its shape lists give
         per_trip = dec_tot if name == "deconv_igdn" else gdn_tot
         if n == 0 or n != BATCHES * per_trip["shared4"]["launches"]:
@@ -4666,8 +4865,8 @@ def main(argv=None):
             raise RuntimeError(f"kernel {name} never launched by the CLIs")
     for what, got in (("phase 5's shared4 stream", p5),
                       ("the imported model's round trip", imported)):
-        for name, n in got.items():
-            if n == 0:
+        for name in SERVING:
+            if got[name] == 0:
                 raise RuntimeError(f"kernel {name} never launched in {what}")
 
     def graphed_sums(runs, kernel, tot, key):
@@ -4683,6 +4882,29 @@ def main(argv=None):
         return {"rgb": graphed_sums(trips, kernel, tot, "trip"),
                 "shared4": graphed_sums(mt["trips"], kernel, tot,
                                         "shared4")}
+
+    def step_sums(tot, key):
+        t = tot[key]
+        return {"launches_per_step": t["launches"], "ms": t["ms"],
+                "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": max(t["by"], key=t["by"].get),
+                "library_ms": None}
+
+    backward_times = (
+        f"launches: phase 7 (b)'s {TRAIN_STEPS} rgb train steps at batch "
+        f"{TRAIN_BATCH}; ms, host_ms, plain_ms, bound_ms: phase 3, summed "
+        f"over one such step's backward launches (device time, "
+        f"torch.profiler; the kernel's rows kernel and its sum of the "
+        f"blocks' partials); no library call computes the closed form "
+        f"(library_ms null); train_step_ms: the backward kernel's records in "
+        f"phase 7's profiled step, train_step_nodes_ms every device record "
+        f"launched in its 18 autograd nodes (the kernel and the gradients' "
+        f"contiguous copies); shared4_train: phase 8's step at batch "
+        f"{MT_TRAIN_BATCH}; bf16_train: phase \"bf16\"'s rgb step "
+        f"(2 bytes an activation value; the profiled step's kernel and "
+        f"node ms); cli_*, p10_*, p5_*, import_*, cli_k4_*, p10_compress_* "
+        f"as the gdn entry's")
 
     def sums(tot, key, library):
         t = tot[key]
@@ -4777,6 +4999,35 @@ def main(argv=None):
          **new_path_sums(p5, cli, p10, imported, dec_tot, "deconv_igdn"),
          "bf16": bf16_sums(bf, "deconv_igdn"),
          "graphed_trip": graphed("deconv_igdn", dec_tot)},
+        {"name": "gdn_backward", "route": "cuda",
+         "source": "mmnc_tpu_torch/csrc/gdn_backward.cu",
+         "replaces": "mmnc_tpu/ops/gdn_pallas.py:85",
+         "launches": train["run_launches"]["gdn_backward"],
+         "max_abs_err": max(bwd_err),
+         "max_abs_err_dx_dgamma_dbeta": bwd_err,
+         "tolerance": f"{bwd_tol} x max(1, |plain|max) for dx, dgamma and "
+                      f"dbeta each; a bf16 dx {BF16_TOL} x max(1, "
+                      f"|plain|max)",
+         **step_sums(bwd_tot, "train"), "times": backward_times,
+         "train_launches_per_step": {
+             k: v["gdn_backward"] for k, v in train["launches"].items()},
+         "train_step_ms": train["gdn_backward_kernel_ms"],
+         "train_step_nodes_ms": train["gdn_backward_ms"],
+         "train_graph_launches_per_call": {
+             f"K={k}": v["gdn_backward"] for k, v in train["graph"].items()},
+         "shared4_train": dict(step_sums(bwd_tot, "shared4_train"),
+                               launches_per_step=mt["train_launches"][
+                                   "gdn_backward"]),
+         "bf16_train": dict(step_sums(bwd_tot, "bf16_train"),
+                            launches_per_step=bf["train_launches"][
+                                "gdn_backward"],
+                            step_ms=bf["train_profile"][
+                                "gdn_backward_kernel_ms"],
+                            step_nodes_ms=bf["train_profile"][
+                                "gdn_backward_ms"]),
+         **cli_sums(cli, bwd_tot, "gdn_backward", ("train",)),
+         **p10_sums(p10, bwd_tot, "gdn_backward"),
+         **new_path_sums(p5, cli, p10, imported, bwd_tot, "gdn_backward")},
     ]
     print(json.dumps({"kernels": kernels}))
     print_ok(torch)

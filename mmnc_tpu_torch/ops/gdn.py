@@ -19,16 +19,21 @@ design.
 `gdn(x, gamma, beta, inverse)` mirrors `gdn_pallas`: x is NHWC (or any
 channels-last tensor), gamma (C, C) in [out, in] layout, beta (C,). It is
 an autograd Function whose backward is the closed form of
-gdn_pallas.py:85-101, written in torch (as the JAX package computes it
-outside its kernel). A CPU tensor takes the plain version `gdn_plain`; a
-CUDA tensor launches the kernel or raises.
+gdn_pallas.py:85-101 (`_bwd`, the custom VJP): on a CUDA tensor the
+hand-written kernel `csrc/gdn_backward.cu` (`gdn_backward_cuda`, planned by
+`gdn_backward_plan`: row tiles on persistent blocks, each block's partial
+dgamma and dbeta summed in a fixed order by a second launch), on a CPU
+tensor its plain version `gdn_backward_plain`. A CPU tensor takes the
+plain version `gdn_plain` forward; a CUDA tensor launches the kernel or
+raises.
 
 bfloat16: x (and the output) may be bf16, gamma and beta stay float32
 (the bf16 model's layer hands over gamma rounded to bf16 values,
 `ops/layers.py:GDN`). The kernel computes in float32 and rounds once, at
 the store; `gdn_plain` follows the JAX package's XLA chain in bf16
 (mmnc_tpu/ops/layers.py:306-314), which rounds at four points; the
-backward computes in float32 and returns dx in x's type.
+backward (kernel and plain version) computes in float32 and returns dx in
+x's type, rounded once.
 """
 
 import ctypes
@@ -252,6 +257,290 @@ def gdn_rows(x2d, gamma, beta, inverse: bool):
     return gdn_cuda(x2d, gamma, beta, inverse)
 
 
+# --- the backward: csrc/gdn_backward.cu -------------------------------------
+
+# mirrors csrc/gdn_backward.cu: threads per block (256, two blocks an SM
+# by the kernel's __launch_bounds__; or 512, one), rows per thread of P1
+# and P2, the side of P3's square warp tiles
+BWD_THREADS = (256, 512)
+BWD_RMS = (2, 4)
+BWD_P3 = 32
+_BWD_REG_BLOCKS = 2
+_BWD_SLACK = 32  # floats past gamma's padded copy that P2 may read
+# the partials (blocks x C x pad4(C + 1) floats) stay at most this large:
+# at C = 655 that is 39 blocks
+BWD_PARTIAL_MAX_BYTES = 64 << 20
+# rows above which C 64-127 takes the 512-thread blocks
+BWD_WIDE_ROWS = 8192
+
+
+class GDNBackwardPlan(NamedTuple):
+    """One launch of csrc/gdn_backward.cu: rows per thread of its two row
+    products (`rm`), rows per tile, persistent blocks (each walks tiles
+    blockIdx.x, + blocks, ... and owns one slice of the partials),
+    whether gamma is staged in shared memory (else read from a padded copy
+    in global memory), and `split`: 0, P3 adds each tile's sums to the
+    block's slice; 1-16, each of P3's warp tiles is taken by `split` warps
+    (rows s, s + split, ... of every tile), whose sums stay in registers
+    and are added up in phase order and stored once at the block's end
+    (rm 2, gamma in shared memory, at most warps / split warp tiles, and
+    their 1024 floats each within the tile buffers); `threads` 256, or
+    512 (one block an SM) with a split: C 64-127, whose 9-16 warp tiles
+    then get a warp each."""
+    rm: int
+    tile_rows: int
+    blocks: int
+    smem_gamma: bool
+    split: int = 0
+    threads: int = 256
+
+
+def _pad4(c: int) -> int:
+    return -(-c // 4) * 4
+
+
+def bwd_gamma_rows(c: int) -> int:
+    """gamma's staged rows, P1's output channels: C rounded up to 28."""
+    return -(-c // WARP_COLS) * WARP_COLS
+
+
+def bwd_row_stride(c: int) -> int:
+    """The row stride (floats) of gamma and of every tile buffer: at least
+    the 28-rounded C and C + 1 (the ones column of x^2), 4 mod 8."""
+    s = max(bwd_gamma_rows(c), _pad4(c + 1))
+    return s if (s // 4) % 2 else s + 4
+
+
+def bwd_partial_stride(c: int) -> int:
+    """Floats of a row of a block's partials: dgamma's C columns and
+    dbeta's, rounded up to 4."""
+    return _pad4(c + 1)
+
+
+def gdn_backward_smem_bytes(c: int, tile_rows: int, smem_gamma: bool) -> int:
+    """Dynamic shared memory of one block (csrc/gdn_backward.cu:
+    smem_bytes): gamma if staged, four float32 tiles (x^2, u, x, g) and
+    beta, all at `bwd_row_stride`; the same in float32 and bf16."""
+    ls = bwd_row_stride(c)
+    return 4 * ((bwd_gamma_rows(c) * ls if smem_gamma else 0)
+                + 4 * tile_rows * ls + bwd_gamma_rows(c))
+
+
+def bwd_resident_per_sm(c: int, tile_rows: int, smem_gamma: bool,
+                        threads: int = 256) -> int:
+    """Blocks one SM holds at once, by registers (128 a thread) and shared
+    memory."""
+    return min(_BWD_REG_BLOCKS * 256 // threads, _SM_SMEM // (
+        gdn_backward_smem_bytes(c, tile_rows, smem_gamma) + 1024))
+
+
+def bwd_p3_tiles(c: int) -> int:
+    """P3's 32 x 32 warp tiles over the C x (C + 1) partials."""
+    return -(-c // BWD_P3) * -(-(c + 1) // BWD_P3)
+
+
+def bwd_partial_floats(c: int, blocks: int) -> int:
+    """The partials buffer: a slice a block."""
+    return blocks * c * bwd_partial_stride(c)
+
+
+def _split_fits(c: int, tile_rows: int, threads: int = 256) -> bool:
+    """P3's kept sums fit: at most a warp tile a warp, whose 1024 floats
+    each the block adds up through its tile buffers."""
+    return (bwd_p3_tiles(c) <= threads // 32 and bwd_p3_tiles(c) * 1024
+            <= 4 * tile_rows * bwd_row_stride(c))
+
+
+def bwd_gamma_pad_floats(c: int) -> int:
+    return bwd_gamma_rows(c) * bwd_row_stride(c) + _BWD_SLACK
+
+
+@functools.lru_cache(maxsize=256)
+def gdn_backward_plan(n: int, c: int) -> GDNBackwardPlan:
+    """The backward's launch for (n, c) rows: gamma in shared memory where
+    it fits beside the tiles; the largest power-of-two tile of 16-256 rows
+    (no more than n needs) at which two blocks share an SM, else one; 2
+    rows a thread where the tile is 16 rows or that leaves P1 at most 8
+    warp tiles (one a warp), else 4; P3's sums kept in registers (`split`
+    warps a warp tile, all 8 warps busy) where its warp tiles allow (C <=
+    63). For C 64-127 (9-16 of P3's warp tiles) and more than 8192 rows,
+    one block of 512 threads an SM, 64-row tiles and P3's sums kept, a
+    warp a warp tile, where gamma fits in shared memory (below 8192 rows
+    the 256-thread blocks were faster). Persistent blocks, at most as
+    many as are resident on the SMs, as there are tiles, and as keep the
+    partials within BWD_PARTIAL_MAX_BYTES. Raises where no plan fits.
+    (Chosen from A/B runs and sweeps of plans at the rgb train step's
+    shapes on an H100: two blocks an SM beat one at every C swept with
+    P3's partials added each tile; see PERF.md.)"""
+    cap = BWD_PARTIAL_MAX_BYTES // (4 * c * bwd_partial_stride(c))
+    if (8 < bwd_p3_tiles(c) <= 16 and n > BWD_WIDE_ROWS
+            and _split_fits(c, 64, 512)
+            and gdn_backward_smem_bytes(c, 64, True) <= MAX_SMEM):
+        return GDNBackwardPlan(2, 64, max(1, min(-(-n // 64), SMS, cap)),
+                               True, 16 // bwd_p3_tiles(c), 512)
+    wcols = -(-c // WARP_COLS)
+    for smem_gamma in (True, False):
+        for per_sm in (_BWD_REG_BLOCKS, 1):
+            tr = 256
+            while tr > 16 and tr // 2 >= n:
+                tr //= 2
+            while tr >= 16 and bwd_resident_per_sm(c, tr, smem_gamma) < per_sm:
+                tr //= 2
+            if tr < 16 or (gdn_backward_smem_bytes(c, tr, smem_gamma)
+                           > MAX_SMEM):
+                continue
+            rm = 2 if tr < 32 or tr // 16 * wcols <= 8 else 4
+            split = (8 // bwd_p3_tiles(c) if rm == 2 and smem_gamma
+                     and _split_fits(c, tr) else 0)
+            tiles = -(-n // tr)
+            blocks = max(1, min(tiles, SMS * per_sm, cap))
+            return GDNBackwardPlan(rm, tr, blocks, smem_gamma, split)
+    raise ValueError(f"gdn backward: no plan fits C={c} in a block's "
+                     "shared memory")
+
+
+@functools.lru_cache(maxsize=256)
+def check_backward_plan(n: int, c: int, plan: GDNBackwardPlan) -> None:
+    """Raise ValueError for a plan csrc/gdn_backward.cu has no kernel for
+    at (n, c): rows per thread other than 2 or 4, tiles off the warps'
+    8 x rm rows, no blocks or more than tiles, too much shared memory,
+    threads other than 256 or 512, a split of P3 past the block's warps,
+    or one with 4 rows a thread, gamma in global memory, more warps than
+    the block has or sums its tile buffers do not hold; 512 threads
+    without a split."""
+    rm, tr, blocks, smem_gamma, split, nthreads = plan
+    warps = nthreads // 32
+    if (rm not in BWD_RMS or tr < 8 * rm or tr % (8 * rm) or blocks < 1
+            or blocks > -(-n // tr) or not isinstance(smem_gamma, bool)
+            or gdn_backward_smem_bytes(c, tr, smem_gamma) > MAX_SMEM
+            or nthreads not in BWD_THREADS or not 0 <= split <= warps
+            or (nthreads != 256 and not split)
+            or (split and (rm != 2 or not smem_gamma
+                           or not _split_fits(c, tr, nthreads)
+                           or bwd_p3_tiles(c) * split > warps))):
+        raise ValueError(f"gdn backward plan {tuple(plan)}: no kernel for "
+                         f"it at N={n}, C={c}")
+
+
+def backward_block_tiles(n: int, plan: GDNBackwardPlan):
+    """[[(row0, rows), ...] of each block, in the order it walks them]:
+    block b takes tiles b, b + blocks, ..."""
+    tiles = -(-n // plan.tile_rows)
+    return [[(t * plan.tile_rows, min(plan.tile_rows, n - t * plan.tile_rows))
+             for t in range(b, tiles, plan.blocks)]
+            for b in range(plan.blocks)]
+
+
+def backward_partial_tiles(c: int):
+    """[(o0, o1, j0, j1)]: the parts of a block's C x (C + 1) partials
+    (dgamma's columns, then dbeta's) that P3's 32 x 32 warp tiles store,
+    clipped to the partials' rows and padded columns."""
+    ps = bwd_partial_stride(c)
+    return [(o, min(o + 32, c), j, min(j + 32, ps))
+            for o in range(0, c, 32) for j in range(0, c + 1, 32)]
+
+
+def gdn_backward_plain(x2d, g, gamma, beta, inverse: bool):
+    """The closed form of mmnc_tpu/ops/gdn_pallas.py:_bwd in torch, the
+    kernel's plain version: (dx in x's type, dgamma, dbeta in float32).
+    A bf16 x and g are computed with in float32."""
+    dtype, x = x2d.dtype, x2d
+    if dtype == torch.bfloat16:
+        x, g = x.float(), g.float()
+    x2 = x * x
+    norm = x2 @ gamma.t() + beta
+    if inverse:
+        s = torch.sqrt(norm)
+        u = g * x / s
+        dx = g * s + x * (u @ gamma)
+        dgamma = 0.5 * (u.t() @ x2)
+        dbeta = 0.5 * u.sum(0)
+    else:
+        r = torch.rsqrt(norm)
+        u = g * x * (r * r * r)
+        dx = g * r - x * (u @ gamma)
+        dgamma = -0.5 * (u.t() @ x2)
+        dbeta = -0.5 * u.sum(0)
+    return dx.to(dtype), dgamma, dbeta
+
+
+@functools.cache
+def _backward_entry():
+    fn = _build.load("gdn_backward").mmnc_gdn_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gdn_backward_cuda(x2d, g, gamma, beta, inverse: bool,
+                      plan: GDNBackwardPlan = None):
+    """Launch csrc/gdn_backward.cu on CUDA tensors: x and g float32 or
+    bfloat16 (both one type; g in any layout: a strided g is copied
+    contiguous on the card), gamma and beta float32. Returns (dx in x's
+    type, dgamma, dbeta in float32); raises on anything else.
+
+    `plan` overrides `gdn_backward_plan` (tests, chip_smoke.py's sweeps).
+    Scratch (the blocks' partials, gamma's padded copy) comes from
+    `torch.empty` on the current stream, so under a CUDA graph capture
+    (`train/step.py`) it comes from the graph's pool and the launches are
+    nodes of the graph; `launches` counts a capture once and a replay
+    never."""
+    n, c = x2d.shape
+    if x2d.dtype not in (torch.float32, torch.bfloat16) \
+            or g.dtype != x2d.dtype or gamma.dtype != torch.float32 \
+            or beta.dtype != torch.float32:
+        raise ValueError("gdn_backward_cuda takes float32 or bfloat16 x and "
+                         "g of one type and float32 gamma and beta, got "
+                         f"{x2d.dtype}, {g.dtype}, {gamma.dtype}, "
+                         f"{beta.dtype}")
+    if g.shape != x2d.shape or gamma.shape != (c, c) or beta.shape != (c,):
+        raise ValueError(f"g {tuple(g.shape)} / gamma {tuple(gamma.shape)} "
+                         f"/ beta {tuple(beta.shape)} do not match x "
+                         f"{tuple(x2d.shape)}")
+    if not (x2d.is_cuda and g.is_cuda and gamma.is_cuda and beta.is_cuda):
+        raise ValueError("gdn_backward_cuda takes CUDA tensors")
+    if n == 0:
+        return (torch.empty_like(x2d), torch.zeros_like(gamma),
+                torch.zeros_like(beta))
+    plan = (GDNBackwardPlan(*plan) if plan is not None
+            else gdn_backward_plan(n, c))
+    check_backward_plan(n, c, plan)
+    x2d, g = x2d.contiguous(), g.contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    dx = torch.empty_like(x2d)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
+    partial = torch.empty(bwd_partial_floats(c, plan.blocks),
+                          device=x2d.device)
+    gamma_pad = (None if plan.smem_gamma else
+                 torch.empty(bwd_gamma_pad_floats(c), device=x2d.device))
+    rc = _backward_entry()(
+        x2d.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if gamma_pad is None else gamma_pad.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, c,
+        plan.rm, plan.tile_rows, plan.blocks, int(plan.smem_gamma),
+        plan.split, plan.threads, int(inverse),
+        int(x2d.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x2d.device).cuda_stream)
+    _build.check_launch(rc, "gdn backward")
+    gdn_backward_cuda.launches += 1
+    return dx, dgamma, dbeta
+
+
+gdn_backward_cuda.launches = 0
+
+
+def _widest_backward() -> int:
+    return max(c for c in range(1, 2048)
+               if gdn_backward_smem_bytes(c, 16, False) <= MAX_SMEM)
+
+
+# The widest C the backward's smallest plan (16 rows, 2 a thread, gamma in
+# global memory) fits; above the forward's MAX_CHANNELS, so every C the
+# forward launches at has a backward.
+BWD_MAX_CHANNELS = _widest_backward()
+
+
 class GDNFunction(torch.autograd.Function):
     """(N, C) x (C, C) x (C,) -> (N, C), closed-form backward."""
 
@@ -264,27 +553,14 @@ class GDNFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         """g may be strided (any layout the next layer's backward gives).
-        A bf16 x and g are computed with in float32; dx comes back in x's
-        type, dgamma and dbeta in the parameters' float32."""
+        dx comes back in x's type, dgamma and dbeta in the parameters'
+        float32: the plain version on the CPU, else the kernel."""
         x, gamma, beta = ctx.saved_tensors
-        dtype = x.dtype
-        if dtype == torch.bfloat16:
-            x, g = x.float(), g.float()
-        x2 = x * x
-        norm = x2 @ gamma.t() + beta
-        if ctx.inverse:
-            s = torch.sqrt(norm)
-            u = g * x / s
-            dx = g * s + x * (u @ gamma)
-            dgamma = 0.5 * (u.t() @ x2)
-            dbeta = 0.5 * u.sum(0)
+        if x.device.type == "cpu":
+            grads = gdn_backward_plain(x, g, gamma, beta, ctx.inverse)
         else:
-            r = torch.rsqrt(norm)
-            u = g * x * (r * r * r)
-            dx = g * r - x * (u @ gamma)
-            dgamma = -0.5 * (u.t() @ x2)
-            dbeta = -0.5 * u.sum(0)
-        return dx.to(dtype), dgamma, dbeta, None
+            grads = gdn_backward_cuda(x, g, gamma, beta, ctx.inverse)
+        return (*grads, None)
 
 
 def gdn(x, gamma, beta, inverse: bool = False):

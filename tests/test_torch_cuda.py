@@ -34,7 +34,9 @@ from mmnc_tpu_torch.models.streaming import stream_roundtrip
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
                                             deconv_igdn_plain, launch_plan,
                                             tile_shape)
-from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNFunction, GDNPlan, gdn,
+from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNBackwardPlan,
+                                   GDNFunction, GDNPlan, gdn,
+                                   gdn_backward_cuda, gdn_backward_plain,
                                    gdn_cuda, gdn_plain, gdn_plan)
 from mmnc_tpu_torch.train import (create_train_state, make_eval_step,
                                   make_train_step)
@@ -375,10 +377,107 @@ def test_gdn_backward_on_card_matches_cpu_closed_form(device, c, inverse):
         before = gdn_cuda.launches
         out = GDNFunction.apply(*args, inverse)
         assert gdn_cuda.launches == before + (str(dev) != "cpu")
+        before = gdn_backward_cuda.launches
         torch.sum(torch.sin(out) * w.to(dev)).backward()
+        assert gdn_backward_cuda.launches == before + (str(dev) != "cpu")
         grads.append([a.grad.cpu() for a in args])
     for got, want in zip(grads[1], grads[0]):
         _close(got, want)
+
+
+def _backward_inputs(device, n, c, seed, dtype=torch.float32):
+    """x, the gradient g, gamma, beta; for bf16 x and g in bf16 and gamma
+    rounded to bf16 values held in float32, as the bf16 layer has them."""
+    x, gamma, beta = _gdn_inputs(device, n, c, seed)
+    g = torch.randn(n, c, generator=torch.Generator().manual_seed(seed + 1))
+    g = g.to(device)
+    if dtype == torch.bfloat16:
+        x, g, gamma = x.to(dtype), g.to(dtype), gamma.to(dtype).float()
+    return x, g, gamma, beta
+
+
+def _check_backward(x, g, gamma, beta, inverse, plan=None):
+    """The backward kernel against gdn_backward_plain (dx, dgamma, dbeta
+    within 1e-4 x max(1, |plain|max) each, a bf16 dx 2^-7) and a second
+    launch bitwise equal; one launch counted each."""
+    before = gdn_backward_cuda.launches
+    got = gdn_backward_cuda(x, g, gamma, beta, inverse, plan=plan)
+    again = gdn_backward_cuda(x, g, gamma, beta, inverse, plan=plan)
+    torch.cuda.synchronize()
+    assert gdn_backward_cuda.launches == before + 2
+    want = gdn_backward_plain(x, g, gamma, beta, inverse)
+    for k, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        tol = 2.0 ** -7 if k == 0 and x.dtype == torch.bfloat16 else 1e-4
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), (k, err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the train path's C (rgb: 3, 50, 100; shared4: 1, 10, 17, 21, 42, 168),
+# ragged row counts, fewer rows than a tile, and the forward's widest C
+_BACKWARD_SHAPES = [(4099, 1), (4099, 3), (1031, 10), (1031, 17),
+                    (4099, 21), (1031, 42), (4099, 50), (777, 100),
+                    (333, 168), (5, 100), (1, 3), (257, MAX_CHANNELS)]
+
+
+@pytest.mark.parametrize("n,c", _BACKWARD_SHAPES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_backward_kernel_matches_plain(device, n, c, inverse, dtype):
+    _check_backward(*_backward_inputs(device, n, c, n + c, dtype), inverse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_backward_kernel_takes_unaligned_rows_and_strided_gradients(
+        device, dtype):
+    """x a view 4 bytes off a 16-byte boundary (the kernel loads scalars),
+    g the transpose of a contiguous tensor (the wrapper copies it)."""
+    n, c = 1031, 50
+    x, g, gamma, beta = _backward_inputs(device, n, c, 11, dtype)
+    base = torch.empty(n * c + 8, device=device, dtype=dtype)
+    off = base[2:2 + n * c].view(n, c)
+    off.copy_(x)
+    assert off.data_ptr() % 16
+    strided = g.t().contiguous().t()
+    assert not strided.is_contiguous()
+    _check_backward(off, strided, gamma, beta, False)
+    _check_backward(off, strided, gamma, beta, True)
+
+
+@pytest.mark.parametrize("c,plan", [
+    (100, GDNBackwardPlan(4, 64, 5, True)),
+    (100, GDNBackwardPlan(2, 16, 7, True)),
+    (100, GDNBackwardPlan(4, 32, 3, False)),
+    (100, GDNBackwardPlan(2, 32, 4, False)),
+    (100, GDNBackwardPlan(2, 64, 9, True)),
+    (50, GDNBackwardPlan(2, 64, 5, True, 1)),
+    (50, GDNBackwardPlan(2, 32, 7, True, 2)),
+    (21, GDNBackwardPlan(2, 32, 6, True, 3)),
+    (3, GDNBackwardPlan(2, 128, 4, True, 8)),
+    (100, GDNBackwardPlan(2, 64, 9, True, 1, 512)),
+    (90, GDNBackwardPlan(2, 64, 4, True, 1, 512))])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_backward_kernel_forced_plans_match_plain(device, c, plan,
+                                                      inverse):
+    """Each instantiation (2 and 4 rows a thread, gamma in shared or in
+    global memory, P3's sums added each tile or kept by 1-8 warps a warp
+    tile, 256 or 512 threads) with blocks walking several tiles each."""
+    _check_backward(*_backward_inputs(device, 1031, c, 5), inverse,
+                    plan=plan)
+
+
+def test_gdn_backward_kernel_refuses_what_it_has_no_kernel_for(device):
+    x, g, gamma, beta = _backward_inputs(device, 64, 10, 3)
+    for args in ((x.half(), g.half(), gamma, beta),
+                 (x, g.to(torch.bfloat16), gamma, beta),
+                 (x, g, gamma.double(), beta), (x, g[:-1], gamma, beta),
+                 (x.cpu(), g, gamma, beta)):
+        with pytest.raises(ValueError):
+            gdn_backward_cuda(*args, False)
+    with pytest.raises(ValueError):
+        gdn_backward_cuda(x, g, gamma, beta, False,
+                          plan=GDNBackwardPlan(4, 48, 1, True))
 
 
 def _train_models(device):
@@ -1181,9 +1280,9 @@ def test_graphed_multi_step_equals_eager_steps(device):
 
 
 def test_graphed_gdn_launches_land_in_the_graph(device):
-    """A replay's profiler records hold the call's 2 x 18 GDN kernels,
-    launched by the graph (chip_smoke.graph_launches), and no
-    deconv+IGDN."""
+    """A replay's profiler records hold the call's 2 x 18 GDN kernels and
+    2 x 18 GDN backward kernels, launched by the graph
+    (chip_smoke.graph_launches), and no deconv+IGDN."""
     import chip_smoke
     from mmnc_tpu_torch.train import make_multi_train_step
 
@@ -1199,7 +1298,8 @@ def test_graphed_gdn_launches_land_in_the_graph(device):
         torch, lambda: multi(state, batches, gen, 21), tries=1)
     assert gdn_cuda.launches == before
     assert multi.stats["replays"] == 2
-    assert prof["graph"] == {"gdn": 36, "deconv_igdn": 0}, prof["kernels"]
+    assert prof["graph"] == {"gdn": 36, "deconv_igdn": 0,
+                             "gdn_backward": 36}, prof["kernels"]
 
 
 def test_graph_capture_failure_raises(device):
