@@ -280,7 +280,11 @@ import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12  # CUDA cores; the kernels use no tensor cores
+F32_FLOP_PER_S = 67e12  # CUDA cores
+# TF32 products summed in float32 on the tensor cores (dense); GDN's
+# backward takes its products there in 3xTF32, three TF32 products for a
+# float32-accurate one (`gdn_backward_tc_bound`)
+TF32_FLOP_PER_S = 495e12
 # bf16 x bf16 products summed in float32 on the tensor cores (dense): the
 # rate a bf16 deconv or GDN product could reach, so the bound of a bf16
 # launch counts its operations at this rate
@@ -501,6 +505,22 @@ def gdn_backward_cost(n, c, elt=F32):
     (n, c)."""
     return (3 * n * c * elt + (2 * c * c + 2 * c) * F32,
             6 * n * c * c + 12 * n * c)
+
+
+def gdn_backward_tc_bound(n, c, elt=F32):
+    """The backward's bound with its products on the tensor cores in
+    3xTF32: the larger of its bytes (`gdn_backward_cost`'s) over HBM's
+    rate, its 6 n C^2 product FLOPs over a third of the TF32 rate and its
+    ~12 elementwise operations a value over the CUDA cores' float32 rate
+    (the two units run side by side). Returns (ms, "bytes" |
+    "operations")."""
+    n_bytes, _ = gdn_backward_cost(n, c, elt)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(6 * n * c * c / (TF32_FLOP_PER_S / 3),
+                12 * n * c / F32_FLOP_PER_S)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
 
 
 def deconv_path_shapes(b, conv=CONV):
@@ -853,7 +873,8 @@ def check_gdn_backward_launch(torch, x, g, gamma, beta, inverse, plan=None):
     `gdn_backward_plain`: dx within GDN_BACKWARD_TOL (BF16_TOL for a bf16
     dx) x max(1, |plain|max), dgamma and dbeta within GDN_BACKWARD_TOL x
     max(1, |plain|max) each; a second launch bitwise equal to the first.
-    Returns the largest error of each output."""
+    Returns the largest error of each output and its share of its
+    limit."""
     from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda, gdn_backward_plain
 
     got = gdn_backward_cuda(x, g, gamma, beta, inverse, plan=plan)
@@ -861,14 +882,16 @@ def check_gdn_backward_launch(torch, x, g, gamma, beta, inverse, plan=None):
     want = gdn_backward_plain(x, g, gamma, beta, inverse)
     where = (f"gdn_backward {x.dtype} {tuple(x.shape)} inverse={inverse} "
              f"plan {plan}")
-    errs = []
+    errs, shares = [], []
     for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
         tol = (BF16_TOL if name == "dx" and x.dtype == torch.bfloat16
                else GDN_BACKWARD_TOL)
-        errs.append(check_close(torch, a, w, tol, f"{where} {name}")[0])
+        err, scale = check_close(torch, a, w, tol, f"{where} {name}")
+        errs.append(err)
+        shares.append(err / (tol * max(1.0, scale)))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise RuntimeError(f"{where}: two launches differ")
-    return errs
+    return errs, shares
 
 
 # the backward kernel against its plain version: float32 (and bf16 dgamma
@@ -884,22 +907,58 @@ def p10_train_groups(lay):
             for b in sorted({RD_BATCH, DP_BATCH, DP_BATCH // DP_RANKS})]
 
 
+def path_name(plan):
+    return "mma" if plan.mma else "cuda_core"
+
+
+def backward_paths(n, c):
+    """The plans phase 3 holds and times at (n, c): the plan's own first,
+    then, where the tensor cores have a plan, the other path's."""
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_plan
+
+    plan = gdn_backward_plan(n, c)
+    try:
+        return [plan, gdn_backward_plan(n, c, mma=not plan.mma)]
+    except ValueError:  # no tensor-core plan at this C
+        return [plan]
+
+
+def time_backward_paths(torch, plans, x, g, gamma, beta, inverse):
+    """Device and host ms of each plan's launch, the plans in turns
+    (first, second, second, first) and each the mean of its two
+    measurements."""
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda
+
+    order = [0] if len(plans) == 1 else [0, 1, 1, 0]
+    got = [[] for _ in plans]
+    for k in order:
+        got[k].append(time_ms(torch, lambda: gdn_backward_cuda(
+            x, g, gamma, beta, inverse, plan=plans[k])))
+    return [tuple(sum(v) / len(t) for v in zip(*t)) for t in got]
+
+
 def check_gdn_backward(torch, gen):
     """Phase 3's checks of the backward kernel: every (I)GDN of phase 7's
     rgb train step (batch TRAIN_BATCH), of shared4's train steps (phase 8
     at MT_TRAIN_BATCH, phase 9 at CLI_BATCH, phase 10 at each batch it
     trains at) in float32, and of the rgb step in bf16 (phase "bf16"'s),
-    each distinct shape under its plan against `gdn_backward_plain` and
-    bitwise repeatable (`check_gdn_backward_launch`); then its device ms,
-    the plain version's and the bound (`gdn_backward_cost`, x's bytes and
-    rate), summed by key (add_times) as check_gdn's. Beyond the path: a
-    strided gradient (the kernel's wrapper copies it contiguous), ragged
-    rows, C = 168 at other row counts and C = 655 (gamma from global
-    memory), checked only. Returns (the sums: "train", "shared4_train",
-    "cli_train", phase 10's "train<b>", "bf16_train"; the largest error
-    of dx, dgamma and dbeta; the tolerance)."""
-    from mmnc_tpu_torch.ops.gdn import (gdn_backward_cuda, gdn_backward_plain,
-                                       gdn_backward_plan)
+    each distinct shape under its plan and, where the tensor cores have a
+    plan, under the other path's too (`backward_paths`), against
+    `gdn_backward_plain` and bitwise repeatable
+    (`check_gdn_backward_launch`); then the device ms of each path in
+    turns (`time_backward_paths`), the plain version's, the bound
+    (`gdn_backward_cost`, x's bytes and rate) and the tensor-core bound
+    (`gdn_backward_tc_bound`), summed by key (add_times) as check_gdn's:
+    "ms" the plan's path, "cuda_core_ms" the CUDA cores' at every shape.
+    Beyond the path: a strided gradient (the kernel's wrapper copies it
+    contiguous), ragged rows, C = 168 at other row counts and C = 655
+    (gamma from global memory), checked on the plan's path and the
+    tensor cores' where they have a plan. Prints each check's errors as a
+    share of their limits, and the largest share of each path. Returns
+    (the sums: "train",
+    "shared4_train", "cli_train", phase 10's "train<b>", "bf16_train"; the
+    largest error of dx, dgamma and dbeta; the tolerance)."""
+    from mmnc_tpu_torch.ops.gdn import gdn_backward_plain
 
     shared4 = paper_layout(*PAPER["shared4"])
     f32_groups = ([(gdn_train_shapes(TRAIN_BATCH), "train"),
@@ -909,54 +968,91 @@ def check_gdn_backward(torch, gen):
                     "cli_train")]
                   + p10_train_groups(shared4))
     totals, worst = {}, [0.0, 0.0, 0.0]
+    of_tol = {"mma": [0.0, 0.0, 0.0], "cuda_core": [0.0, 0.0, 0.0]}
+
+    def check(x, g, gamma, beta, inverse, plan):
+        errs, shares = check_gdn_backward_launch(torch, x, g, gamma, beta,
+                                                 inverse, plan)
+        worst[:] = [max(a, b) for a, b in zip(worst, errs)]
+        path = of_tol[path_name(plan)]
+        path[:] = [max(a, b) for a, b in zip(path, shares)]
+        return (f"max_abs_err dx/dgamma/dbeta={errs[0]:.3e}/{errs[1]:.3e}/"
+                f"{errs[2]:.3e} of_tol={shares[0]:.2e}/{shares[1]:.2e}/"
+                f"{shares[2]:.2e}")
+
     for dtype, groups in ((None, f32_groups), (torch.bfloat16, [
             (gdn_train_shapes(TRAIN_BATCH), "bf16_train")])):
         elt, rate = type_costs(torch, dtype)
         tag = " bf16" if dtype == torch.bfloat16 else ""
         for (n, c, inverse), uses in shape_cases(groups).items():
             x, g, gamma, beta = gdn_backward_case(torch, gen, n, c, dtype)
-            errs = check_gdn_backward_launch(torch, x, g, gamma, beta,
-                                             inverse)
-            ms, host = time_ms(torch, lambda: gdn_backward_cuda(
-                x, g, gamma, beta, inverse))
+            plans = backward_paths(n, c)
+            errs = [check(x, g, gamma, beta, inverse, p) for p in plans]
+            times = time_backward_paths(torch, plans, x, g, gamma, beta,
+                                        inverse)
             plain, plain_host = time_ms(torch, lambda: gdn_backward_plain(
                 x, g, gamma, beta, inverse))
             bms, by = bound_ms(*gdn_backward_cost(n, c, elt), rate)
+            tc, tc_by = gdn_backward_tc_bound(n, c, elt)
+            ms, host = times[0]
+            core = next(t[0] for p, t in zip(plans, times) if not p.mma)
+            other = ""
+            if len(plans) > 1:
+                name = path_name(plans[1])
+                other = (f" {name}_plan={tuple(plans[1])} {name}_ms="
+                         f"{times[1][0]:.5f} {name}_{errs[1]}")
             print(f"kernel gdn_backward{tag} rows={n} C={c} inverse="
                   f"{inverse} launches="
-                  f"{json.dumps(uses, separators=(',', ':'))} plan="
-                  f"{tuple(gdn_backward_plan(n, c))} max_abs_err dx/dgamma/"
-                  f"dbeta={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-                  f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f} "
+                  f"{json.dumps(uses, separators=(',', ':'))} path="
+                  f"{path_name(plans[0])} plan="
+                  f"{tuple(plans[0])} {errs[0]} "
+                  f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f}{other} "
                   f"plain_ms={plain:.5f} plain_host_ms={plain_host:.5f} "
-                  f"bound_ms={bms:.5f} bound_by={by}")
-            worst = [max(a, b) for a, b in zip(worst, errs)]
+                  f"bound_ms={bms:.5f} bound_by={by} tc_bound_ms={tc:.5f} "
+                  f"tc_bound_by={tc_by}")
             add_times(totals, uses, {"ms": ms, "host_ms": host,
-                                     "plain_ms": plain, "bound_ms": bms}, by)
+                                     "cuda_core_ms": core, "plain_ms": plain,
+                                     "bound_ms": bms, "tc_bound_ms": tc,
+                                     "mma_launches": float(plans[0].mma)},
+                      by)
             del x, g, gamma, beta
     extra = [(4099, 50, False), (777, 100, True), (5, 100, False),
              (4099, 168, False), (777, 168, True), (4099, 655, False),
-             (333, 655, True)]
+             (333, 655, True), (1031, 127, False), (37, 42, True)]
     for dtype in (None, torch.bfloat16):
         for n, c, inverse in extra:
             x, g, gamma, beta = gdn_backward_case(torch, gen, n, c, dtype)
-            errs = check_gdn_backward_launch(torch, x, g, gamma, beta,
-                                             inverse)
-            worst = [max(a, b) for a, b in zip(worst, errs)]
-            print(f"kernel gdn_backward{' bf16' if dtype else ''} extra "
-                  f"rows={n} C={c} inverse={inverse} plan="
-                  f"{tuple(gdn_backward_plan(n, c))} max_abs_err dx/dgamma/"
-                  f"dbeta={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-                  f"bitwise_repeat=ok")
+            for plan in backward_paths(n, c):
+                errs = check(x, g, gamma, beta, inverse, plan)
+                print(f"kernel gdn_backward{' bf16' if dtype else ''} extra "
+                      f"rows={n} C={c} inverse={inverse} path="
+                      f"{path_name(plan)} plan={tuple(plan)} {errs} "
+                      f"bitwise_repeat=ok")
         # a strided gradient, as the next layer's backward may give it
         x, g, gamma, beta = gdn_backward_case(torch, gen, 4099, 100, dtype)
         g = g.t().contiguous().t()
-        errs = check_gdn_backward_launch(torch, x, g, gamma, beta, False)
-        worst = [max(a, b) for a, b in zip(worst, errs)]
-        print(f"kernel gdn_backward{' bf16' if dtype else ''} strided "
-              f"gradient rows=4099 C=100 max_abs_err dx/dgamma/dbeta="
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} bitwise_repeat=ok")
+        for plan in backward_paths(4099, 100):
+            errs = check(x, g, gamma, beta, False, plan)
+            print(f"kernel gdn_backward{' bf16' if dtype else ''} strided "
+                  f"gradient rows=4099 C=100 path={path_name(plan)} {errs} "
+                  f"bitwise_repeat=ok")
+    print("kernel gdn_backward largest share of its limit, dx/dgamma/dbeta, "
+          f"by path: {json.dumps(of_tol)}")
     return totals, worst, GDN_BACKWARD_TOL
+
+
+def time_gdn_backward(torch, tree, card):
+    """`--time-gdn-backward TREE`: phase 3's backward checks and times on
+    the kernel of the checkout at TREE (`check_gdn_backward`); then one
+    JSON line of the sums."""
+    from mmnc_tpu_torch.ops import gdn
+
+    if not gdn.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {gdn.__file__}, not {tree}'s")
+    gen = torch.Generator().manual_seed(SEED)
+    totals, worst, tol = check_gdn_backward(torch, gen)
+    print(json.dumps({"tree": tree, "card": card, "max_abs_err": worst,
+                      "tolerance": tol, "sums": totals}))
 
 
 def split_extra_shapes():
@@ -2328,13 +2424,13 @@ def task_err(got, want, tasks):
 
 def kernel_kind(name):
     """The port's kernel a device record belongs to, by its name: one of
-    KERNELS (GDN's backward by its rows kernel, one record a launch),
-    "gdn_backward_aux" (the backward's fixed-order sum of the blocks'
-    partials and its padding of a wide gamma), or "other" (cuDNN,
-    cuBLAS, elementwise, copies)."""
+    KERNELS (GDN's backward by its rows kernel, on the CUDA cores or the
+    tensor cores, one record a launch), "gdn_backward_aux" (the
+    backward's fixed-order sum of the blocks' partials and its padding of
+    a wide gamma), or "other" (cuDNN, cuBLAS, elementwise, copies)."""
     if "deconv_igdn" in name:
         return "deconv_igdn"
-    if "gdn_backward_kernel" in name:
+    if "gdn_backward_kernel" in name or "gdn_backward_mma_kernel" in name:
         return "gdn_backward"
     if "gdn_backward" in name:
         return "gdn_backward_aux"
@@ -4767,14 +4863,19 @@ def main(argv=None):
                              "times at an rgb and a shared4 round trip's "
                              "shapes, on the mmnc_tpu_torch of the checkout "
                              "at TREE")
+    parser.add_argument("--time-gdn-backward", metavar="TREE", default=None,
+                        help="run only phase 3's GDN backward checks and "
+                             "times, on the mmnc_tpu_torch of the checkout "
+                             "at TREE")
     parser.add_argument("--profile-windows", metavar="N", type=int,
                         default=None,
                         help="run only N rounds of profiled train steps "
                              "in windows with and without the host wait, "
                              "counting the windows that lost records")
     args = parser.parse_args(argv)
-    if args.time_deconv:
-        sys.path.insert(0, os.path.abspath(args.time_deconv))
+    tree = args.time_deconv or args.time_gdn_backward
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
 
     import torch
 
@@ -4798,6 +4899,11 @@ def main(argv=None):
         libs = _build.build(["deconv_igdn"])
         print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
         time_deconv(torch, args.time_deconv, card)
+        return 0
+    if args.time_gdn_backward:
+        libs = _build.build(["gdn_backward"])
+        print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        time_gdn_backward(torch, args.time_gdn_backward, card)
         return 0
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
@@ -4889,14 +4995,22 @@ def main(argv=None):
                 "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": max(t["by"], key=t["by"].get),
-                "library_ms": None}
+                "library_ms": None, "cuda_core_ms": t["cuda_core_ms"],
+                "tc_bound_ms": t["tc_bound_ms"],
+                "mma_launches_per_step": round(t["mma_launches"])}
 
     backward_times = (
         f"launches: phase 7 (b)'s {TRAIN_STEPS} rgb train steps at batch "
         f"{TRAIN_BATCH}; ms, host_ms, plain_ms, bound_ms: phase 3, summed "
         f"over one such step's backward launches (device time, "
         f"torch.profiler; the kernel's rows kernel and its sum of the "
-        f"blocks' partials); no library call computes the closed form "
+        f"blocks' partials) on the plan's path, cuda_core_ms the same on "
+        f"the CUDA cores' path at every launch (timed in turns with the "
+        f"tensor cores' where those have a plan), tc_bound_ms the bound "
+        f"with the products on the tensor cores in 3xTF32 "
+        f"(gdn_backward_tc_bound), mma_launches_per_step the launches the "
+        f"plan gives the tensor cores; no library call computes the "
+        f"closed form "
         f"(library_ms null); train_step_ms: the backward kernel's records in "
         f"phase 7's profiled step, train_step_nodes_ms every device record "
         f"launched in its 18 autograd nodes (the kernel and the gradients' "
@@ -4904,7 +5018,8 @@ def main(argv=None):
         f"{MT_TRAIN_BATCH}; bf16_train: phase \"bf16\"'s rgb step "
         f"(2 bytes an activation value; the profiled step's kernel and "
         f"node ms); cli_*, p10_*, p5_*, import_*, cli_k4_*, p10_compress_* "
-        f"as the gdn entry's")
+        f"as the gdn entry's (cli_train_cuda_core_ms, cli_train_tc_bound_ms "
+        f"as cuda_core_ms and tc_bound_ms at phase 9's step)")
 
     def sums(tot, key, library):
         t = tot[key]
@@ -5026,6 +5141,8 @@ def main(argv=None):
                             step_nodes_ms=bf["train_profile"][
                                 "gdn_backward_ms"]),
          **cli_sums(cli, bwd_tot, "gdn_backward", ("train",)),
+         "cli_train_cuda_core_ms": bwd_tot["cli_train"]["cuda_core_ms"],
+         "cli_train_tc_bound_ms": bwd_tot["cli_train"]["tc_bound_ms"],
          **p10_sums(p10, bwd_tot, "gdn_backward"),
          **new_path_sums(p5, cli, p10, imported, bwd_tot, "gdn_backward")},
     ]

@@ -13,13 +13,41 @@
 // store.
 //
 // Bound on the H100: each row reads x and g and writes dx (12 C bytes in
-// float32) against three C x C products (3 C^2 FMAs): C/2 FLOP per byte,
-// so from C = 40 on the CUDA cores' float32 rate (67 TFLOP/s) bounds it,
-// not HBM; the path's C = 50 and 100 shapes hold most of its work.
+// float32) against three C x C products (3 C^2 FMAs): C/2 FLOP per byte.
+// On the CUDA cores' float32 rate (67 TFLOP/s) the products bound it from
+// C = 40 on; the path's C = 50 and 100 shapes hold most of its work.
 //
-// Design (exact float32 FMAs on CUDA cores; no atomics; every sum in a
-// fixed order, so two launches on the same inputs are bitwise equal):
-// - gdn_backward_kernel: persistent blocks of 256 threads, each walking row
+// The products on the tensor cores (gdn_backward_mma_kernel, the plan's
+// path at C 32-127, and at narrower C up to 65536 rows): mma.sync.m16n8k8
+// in TF32 with float32
+// accumulation, in 3xTF32 so that they stay float32-accurate. Each
+// operand is split once, where it is made, into hi = tf32(a) (cvt.rna:
+// to nearest, ties away; 11 significant bits) and lo = tf32(a - hi):
+// gamma once a block, x^2 (rounded to float32 first) at its staging, u in
+// P1's epilogue; shared memory holds the (hi, lo) pairs, not the float32
+// operand, so no fragment load splits. a b = a_hi b_hi + a_hi b_lo +
+// a_lo b_hi leaves out a_lo b_lo and the splits' residues, ~3 2^-22 |a b|
+// a product; each k step adds the small terms first (a_lo b_hi, a_hi
+// b_lo), then a_hi b_hi, into the float32 accumulator, as CUTLASS's
+// fast-f32 MMA does. One TF32 pass rounds each product at up to 2^-11
+// (4.9e-4), above the 1e-4 relative gate the kernel is held to; the JAX
+// package's TPU kernel takes its products at XLA's default precision,
+// one bf16 pass on the MXU. At a third of the TF32 rate (495 / 3 TFLOP/s)
+// the products take 2.5x less than on the CUDA cores, the rgb step's
+// C = 50 shapes become bound by bytes, and the step's bound falls from
+// 0.62 to 0.36 ms (chip_smoke.gdn_backward_tc_bound). That bound takes
+// the data sheet's TF32 rate, which wgmma reaches; mma.sync, at one warp's
+// 16 x 8 x 8 a time, reaches less of it. Shared memory is then the
+// constraint: split gamma takes 8 C^2 bytes (C = 168: too much for a
+// block, so wider C stay on the CUDA cores), and the tile buffers 24
+// bytes a value. What holds the kernel now is its serial phases: a block
+// stages a tile, then multiplies, with only the other resident block (C
+// <= 63) or none (C 64-127) to cover the loads' latency; the products
+// are no longer the larger part of its time (PERF.md).
+//
+// - gdn_backward_kernel (exact float32 FMAs on the CUDA cores: C below 32
+//   at more than 65536 rows, and C above 127): persistent blocks of 256
+//   threads, each walking row
 //   tiles blockIdx.x, + gridDim.x, ... Once per block gamma is staged into
 //   shared memory at a padded stride (or, where it does not fit, read from
 //   a padded copy in global memory that gdn_backward_pad_kernel writes).
@@ -50,12 +78,31 @@
 // - gdn_backward_sum_kernel: dgamma and dbeta as the -+1/2 scaled sum of the
 //   blocks' slices, 8 warps an output group each over every 8th slice,
 //   then added in warp order.
-// The plan (tile rows, rows per thread, blocks, gamma in shared memory or
-// not, the split) is ops/gdn.py:gdn_backward_plan's; the partials take
-// blocks x C x pad4(C + 1) floats, which the plan bounds.
+// - gdn_backward_mma_kernel (the tensor cores): the same blocks, tiles,
+//   barriers and partials, and the same recomputation of n, u and dx. Per
+//   block gamma is split into shared memory as (hi, lo) pairs; a tile's
+//   x^2 and u likewise, x and g as floats. The three products are warp
+//   tiles of m16 x 2 n8 MMA tiles (P1, P2: rows x channels, K = C
+//   rounded up to 8; x^2's ones column meets gamma's zero column) and
+//   m16 x 4 n8 (8 n8 at 512 threads; P3: o x j', K = the tile's rows, u
+//   zero past them), P3's kept in registers over all a block's tiles and
+//   stored once, a warp tile a warp (256 threads, two blocks an SM, where
+//   they number at most 8: C <= 63; else 512 threads, one block). Warp
+//   tiles are fixed in width, the last n8 tile repeated past the edge and
+//   its sums dropped, so that no MMA sits under a branch (widths chosen
+//   at run time with a guard on each MMA ran 1.6x slower on the card,
+//   PERF.md). A fragment reads its
+//   (hi, lo) pairs rows by lane group in some products and by lane within
+//   a group in others; at a row stride of 4 mod 8 pairs (mma_stride) the
+//   16 lanes of a half-warp hit 16 distinct 8-byte bank pairs in both.
+// The plan (the path; tile rows, rows per thread, blocks, gamma in shared
+// memory or not, the split, threads) is ops/gdn.py:gdn_backward_plan's;
+// the partials take blocks x C x pad4(C + 1) floats, which the plan
+// bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -123,6 +170,27 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float part(const float4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// The elementwise parts both rows kernels share. From one value's n, x
+// and g: u = g x r^3 (g x / s), returned, and g r (g s) in gr, with r =
+// n^-1/2 (GDN) or s = n^1/2 (IGDN).
+__device__ __forceinline__ float gdn_u(float nv, float xv, float gv,
+                                       bool inverse, float& gr) {
+  if (inverse) {
+    const float s = sqrtf(nv);
+    gr = gv * s;
+    return gv * xv / s;
+  }
+  const float rr = rsqrtf(nv);
+  gr = gv * rr;
+  return gv * xv * (rr * rr * rr);
+}
+
+// dx = g r - x v (g s + x v), from d = g r (g s) and v = (u @ gamma)
+__device__ __forceinline__ float gdn_dx(float d, float xv, float v,
+                                        bool inverse) {
+  return inverse ? d + xv * v : d - xv * v;
 }
 
 // The tile's rows x c values (contiguous in global memory) into the
@@ -301,17 +369,8 @@ gdn_backward_kernel(const E* __restrict__ x, const E* __restrict__ g,
           float uo = 0.f;  // zero past C and past the real rows
           if (r < rows && o < c) {
             // this thread alone reads and writes (r, o) of x and g here
-            const float nv = acc[i][k];
             const float xv = xf_s[r * ls + o], gv = gf_s[r * ls + o];
-            if (inverse) {
-              const float s = sqrtf(nv);
-              uo = gv * xv / s;
-              gf_s[r * ls + o] = gv * s;
-            } else {
-              const float rr = rsqrtf(nv);
-              uo = gv * xv * (rr * rr * rr);
-              gf_s[r * ls + o] = gv * rr;
-            }
+            uo = gdn_u(acc[i][k], xv, gv, inverse, gf_s[r * ls + o]);
           }
           u_s[r * ls + o] = uo;
         }
@@ -363,9 +422,8 @@ gdn_backward_kernel(const E* __restrict__ x, const E* __restrict__ g,
         for (int jj = 0; jj < 8; ++jj) {
           const int j = j_base + jj;
           if (j >= c) continue;
-          const float xv = xf_s[r * ls + j], d = gf_s[r * ls + j];
-          xf_s[r * ls + j] =
-              inverse ? d + xv * acc[i][jj] : d - xv * acc[i][jj];
+          xf_s[r * ls + j] = gdn_dx(gf_s[r * ls + j], xf_s[r * ls + j],
+                                    acc[i][jj], inverse);
         }
       }
     }
@@ -501,6 +559,387 @@ gdn_backward_kernel(const E* __restrict__ x, const E* __restrict__ g,
   }
 }
 
+// --- the tensor-core path: P1, P2 and P3 in 3xTF32 on mma.sync ---------
+
+constexpr int kMmaNt = 2;  // P1, P2: n8 tiles of a warp tile
+
+__host__ __device__ constexpr int mma_c8(int c) { return cdiv(c, 8) * 8; }
+// P3's tiles: m16 over o (u's columns), n8 over j' (x^2's and the ones)
+__host__ __device__ constexpr int mma_m3(int c) { return cdiv(c, 16); }
+__host__ __device__ constexpr int mma_n3(int c) { return cdiv(c + 1, 8); }
+
+// (hi, lo) pairs a row of gamma, x^2 and u: every column a product reads
+// (C rounded up to 8, P3's 16 m3 and 8 n3), 4 mod 8. A fragment's 8-byte
+// loads are served a half-warp at a time, and a half-warp's 16 lanes read
+// a 4 x 4 block: rows by lane group and columns by lane in a group (A,
+// and B as P1's gamma^T), or the other way round (B as P2's gamma and
+// P3's x^2, A as P3's u^T). At a stride of 4 mod 8 pairs both fall in 16
+// distinct 8-byte bank pairs.
+__host__ __device__ constexpr int mma_stride(int c) {
+  return (16 * mma_m3(c) > 8 * mma_n3(c) ? 16 * mma_m3(c) : 8 * mma_n3(c)) +
+         4;
+}
+// floats a row of x and g: C rounded up to 8, 8 mod 16, so that the
+// epilogues' float2 reads of 4 rows fall in distinct banks
+__host__ __device__ constexpr int mma_fstride(int c) {
+  return mma_c8(c) % 16 ? mma_c8(c) : mma_c8(c) + 8;
+}
+
+// Bytes of shared memory of one block: gamma (C8 rows), x^2 and u as
+// (hi, lo) pairs, x and g as floats, beta. ops/gdn.py:
+// gdn_backward_smem_bytes(..., mma=True) mirrors it.
+__host__ __device__ constexpr long long mma_smem_bytes(int c, int tile_rows) {
+  return 8LL * mma_c8(c) * mma_stride(c) +
+         16LL * tile_rows * mma_stride(c) +
+         8LL * tile_rows * mma_fstride(c) + 4LL * mma_c8(c);
+}
+
+// P3's n8 tiles of a warp tile (one m16 tile by them): 4 in a block of
+// kThreads, 8 in one of kWide
+__host__ __device__ constexpr int mma_p3_nt(int threads) {
+  return threads == kWide ? 8 : 4;
+}
+
+// Whether P3's warp tiles, one a warp, fit the block's warps.
+__host__ __device__ constexpr bool mma_p3_fits(int c, int threads) {
+  return mma_m3(c) * cdiv(mma_n3(c), mma_p3_nt(threads)) <= threads / 32;
+}
+
+// v rounded to TF32 (cvt.rna: to nearest, ties away from zero), the low
+// 13 bits clear
+__device__ __forceinline__ float tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// (hi, lo): hi = tf32(v), lo = tf32(v - hi) (v - hi is exact)
+__device__ __forceinline__ float2 split_tf32(float v) {
+  const float hi = tf32(v);
+  return make_float2(hi, tf32(__fsub_rn(v, hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[q] += a b[q] for every q < kN in 3xTF32: the small terms first, then
+// hi x hi, each term over every q in turn so that consecutive MMAs feed
+// distinct accumulators. No MMA sits under a branch.
+template <int kN>
+__device__ __forceinline__ void mma3(float (&d)[kN][4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[kN][2],
+                                     const uint32_t (&bl)[kN][2]) {
+#pragma unroll
+  for (int q = 0; q < kN; ++q) mma_tf32(d[q], al, bh[q]);
+#pragma unroll
+  for (int q = 0; q < kN; ++q) mma_tf32(d[q], ah, bl[q]);
+#pragma unroll
+  for (int q = 0; q < kN; ++q) mma_tf32(d[q], ah, bh[q]);
+}
+
+__device__ __forceinline__ void unpack(const float2 (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = __float_as_uint(v[i].x);
+    lo[i] = __float_as_uint(v[i].y);
+  }
+}
+
+// A's fragment (m16 x k8) where A(m, k) = buf[r0 + m][k0 + k] (P1's x^2,
+// P2's u): a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4), a3
+// (gid + 8, tig + 4)
+__device__ __forceinline__ void frag_a(const float2* buf, int ls, int r0,
+                                       int k0, int gid, int tig,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 v[4] = {buf[(r0 + gid) * ls + k0 + tig],
+                       buf[(r0 + gid + 8) * ls + k0 + tig],
+                       buf[(r0 + gid) * ls + k0 + tig + 4],
+                       buf[(r0 + gid + 8) * ls + k0 + tig + 4]};
+  unpack(v, hi, lo);
+}
+
+// A's fragment where A(m, k) = buf[k0 + k][m0 + m] (P3's u^T)
+__device__ __forceinline__ void frag_at(const float2* buf, int ls, int m0,
+                                        int k0, int gid, int tig,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 v[4] = {buf[(k0 + tig) * ls + m0 + gid],
+                       buf[(k0 + tig) * ls + m0 + gid + 8],
+                       buf[(k0 + tig + 4) * ls + m0 + gid],
+                       buf[(k0 + tig + 4) * ls + m0 + gid + 8]};
+  unpack(v, hi, lo);
+}
+
+// B's fragment (k8 x n8): b0 (k tig, n gid), b1 (k tig + 4, n gid);
+// B(k, n) = buf[n0 + n][k0 + k] (P1's gamma^T) where kTrans, else
+// buf[k0 + k][n0 + n] (P2's gamma, P3's x^2)
+template <bool kTrans>
+__device__ __forceinline__ void frag_b(const float2* buf, int ls, int k0,
+                                       int n0, int gid, int tig,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const float2 v0 = kTrans ? buf[(n0 + gid) * ls + k0 + tig]
+                           : buf[(k0 + tig) * ls + n0 + gid];
+  const float2 v1 = kTrans ? buf[(n0 + gid) * ls + k0 + tig + 4]
+                           : buf[(k0 + tig + 4) * ls + n0 + gid];
+  hi[0] = __float_as_uint(v0.x);
+  hi[1] = __float_as_uint(v1.x);
+  lo[0] = __float_as_uint(v0.y);
+  lo[1] = __float_as_uint(v1.y);
+}
+
+// The rows kernel with its three products on the tensor cores. Grid
+// (blocks); kT threads (256, two blocks an SM, or 512, one). Per block:
+// gamma split once into (hi, lo) pairs at [o][j] (C8 rows, zero
+// past C), beta, x^2's ones column and u's columns past C8 (zero). Per
+// tile (a multiple of 16 rows): staged flat as stage_tile (x, g as
+// floats; x^2 rounded to float32, then split); P1 over m16 x n8 warp
+// tiles of the tile's rows x C8 channels, K = C8 (x^2's column C meets
+// gamma's zero column), then u (split) and g r (g s) as the CUDA-core
+// path; P2 likewise, v = u @ gamma, then dx in place of x; P3's warp w <
+// m3 x ceil(n3 / kP3N) keeps the sums of its m16 x (kP3N n8) tile of
+// [u^T x^2, u^T 1] in registers over the block's tiles (K: the tile's rows
+// rounded up to 8: u is zero past the real rows, x^2 finite) and stores
+// them once to the block's slice at its end. The four barriers a tile of
+// the CUDA-core path.
+template <typename E, int kT>
+__global__ void __launch_bounds__(kT, 2 * kThreads / kT)
+gdn_backward_mma_kernel(const E* __restrict__ x, const E* __restrict__ g,
+                        const float* __restrict__ gamma,
+                        const float* __restrict__ beta, E* __restrict__ dx,
+                        float* __restrict__ partial, int n, int c,
+                        int tile_rows, int inverse) {
+  constexpr int kW = kT / 32;
+  const int ls = mma_stride(c), lf = mma_fstride(c), c8 = mma_c8(c);
+  const int ps = partial_stride(c), tr = tile_rows;
+  extern __shared__ float4 smem4[];
+  float2* g2 = reinterpret_cast<float2*>(smem4);
+  float2* x2 = g2 + c8 * ls;
+  float2* u2 = x2 + tr * ls;
+  float* xf = reinterpret_cast<float*>(u2 + tr * ls);
+  float* gf = xf + tr * lf;
+  float* b_s = gf + tr * lf;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int tiles = (n + tr - 1) / tr;
+  const float inv_c = 1.f / c;
+  float* slice = partial + static_cast<long long>(blockIdx.x) * c * ps;
+
+  // gamma, split once: its C x C values flat, 4 loads a thread in flight
+  for (int e0 = tid; e0 < c * c; e0 += 4 * kT) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * kT;
+      v[k] = e < c * c ? gamma[e] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * kT;
+      if (e >= c * c) break;
+      const int o = static_cast<int>((e + 0.5f) * inv_c);
+      g2[(o) * ls + e - o * c] = split_tf32(v[k]);
+    }
+  }
+  for (int i = tid; i < c8 * ls; i += kT) {
+    const int o = i / ls, j = i - o * ls;
+    if (o >= c || j >= c) g2[i] = make_float2(0.f, 0.f);
+  }
+  for (int o = tid; o < c8; o += kT) b_s[o] = o < c ? beta[o] : 1.f;
+  // x^2: a 1 at column C (dbeta's), zeros until staged (rows past a
+  // ragged tile's stay finite: zeros or an earlier tile's); u: zeros past
+  // C8, which P1 never writes
+  for (int i = tid; i < tr * ls; i += kT) {
+    const int r = i / ls, j = i - r * ls;
+    x2[i] = make_float2(j == c ? 1.f : 0.f, 0.f);
+    if (j >= c8) u2[i] = make_float2(0.f, 0.f);
+  }
+
+  // P1's and P2's warp tiles: an m16 tile of rows by kMmaNt n8 tiles,
+  // ngr of them across C8, the last n8 tile repeated past C8 (its sums are
+  // not used); P3's warp w < m3 x ng3: an m16 tile of o by kP3N n8 tiles
+  // of j', likewise
+  constexpr int kP3N = mma_p3_nt(kT);
+  const int m16 = tr / 16, n8 = c8 / 8, ngr = cdiv(n8, kMmaNt);
+  const int n3 = mma_n3(c), ng3 = cdiv(n3, kP3N);
+  const bool p3_warp = warp < mma_m3(c) * ng3;
+  const int p3_m0 = warp / ng3 * 16, p3_nb = warp % ng3 * kP3N;
+  float acc3[kP3N][4];
+#pragma unroll
+  for (int q = 0; q < kP3N; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc3[q][i] = 0.f;
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = static_cast<long long>(t) * tr;
+    const int rows = static_cast<int>(n - row0 < tr ? n - row0 : tr);
+    __syncthreads();  // the last tile's dx is stored; gamma is staged
+    {
+      const long long base = row0 * c;
+      const int count = rows * c;
+      for (int e0 = tid; e0 < count; e0 += 4 * kT) {
+        float xv[4], gv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = e0 + k * kT;
+          xv[k] = e < count ? widen(x[base + e]) : 0.f;
+          gv[k] = e < count ? widen(g[base + e]) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = e0 + k * kT;
+          if (e >= count) break;
+          const int r = static_cast<int>((e + 0.5f) * inv_c), j = e - r * c;
+          xf[r * lf + j] = xv[k];
+          gf[r * lf + j] = gv[k];
+          x2[(r) * ls + j] = split_tf32(__fmul_rn(xv[k], xv[k]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // P1: n = beta + x^2 gamma^T; then u (split), and g r (g s) in place
+    // of g
+    for (int wt = warp; wt < m16 * ngr; wt += kW) {
+      const int r0 = wt / ngr * 16, nb = wt % ngr * kMmaNt;
+      int n0[kMmaNt];
+      float acc[kMmaNt][4];
+#pragma unroll
+      for (int q = 0; q < kMmaNt; ++q) {
+        n0[q] = (nb + q < n8 ? nb + q : n8 - 1) * 8;
+        acc[q][0] = acc[q][2] = b_s[n0[q] + 2 * tig];
+        acc[q][1] = acc[q][3] = b_s[n0[q] + 2 * tig + 1];
+      }
+      for (int k0 = 0; k0 < c8; k0 += 8) {
+        uint32_t ah[4], al[4], bh[kMmaNt][2], bl[kMmaNt][2];
+        frag_a(x2, ls, r0, k0, gid, tig, ah, al);
+#pragma unroll
+        for (int q = 0; q < kMmaNt; ++q)
+          frag_b<true>(g2, ls, k0, n0[q], gid, tig, bh[q], bl[q]);
+        mma3(acc, ah, al, bh, bl);
+      }
+      // the accumulators' channel pairs (o, o + 1), a float2 of x and g
+      // each (this thread alone reads and writes them here), a float4 of
+      // u's two (hi, lo) pairs; u is zero past C and past the real rows,
+      // and g's pad columns take what is computed there, never read
+#pragma unroll
+      for (int q = 0; q < kMmaNt; ++q) {
+        if (nb + q >= n8) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + gid + 8 * h, o = n0[q] + 2 * tig;
+          float uo[2] = {0.f, 0.f};
+          if (r < rows) {
+            float2* xp = reinterpret_cast<float2*>(xf + r * lf + o);
+            float2* gp = reinterpret_cast<float2*>(gf + r * lf + o);
+            const float2 xv = *xp, gv = *gp;
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              uo[e] = gdn_u(acc[q][2 * h + e], e ? xv.y : xv.x,
+                            e ? gv.y : gv.x, inverse, d[e]);
+              if (o + e >= c) uo[e] = 0.f;
+            }
+            *gp = make_float2(d[0], d[1]);
+          }
+          const float2 u0 = split_tf32(uo[0]), u1 = split_tf32(uo[1]);
+          *reinterpret_cast<float4*>(u2 + r * ls + o) =
+              make_float4(u0.x, u0.y, u1.x, u1.y);
+        }
+      }
+    }
+    __syncthreads();  // u and g r (g s) complete
+
+    // P2: v = u @ gamma; dx = g r - x v (g s + x v) in place of x
+    for (int wt = warp; wt < m16 * ngr; wt += kW) {
+      const int r0 = wt / ngr * 16, nb = wt % ngr * kMmaNt;
+      int n0[kMmaNt];
+      float acc[kMmaNt][4];
+#pragma unroll
+      for (int q = 0; q < kMmaNt; ++q) {
+        n0[q] = (nb + q < n8 ? nb + q : n8 - 1) * 8;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
+      }
+      for (int k0 = 0; k0 < c8; k0 += 8) {
+        uint32_t ah[4], al[4], bh[kMmaNt][2], bl[kMmaNt][2];
+        frag_a(u2, ls, r0, k0, gid, tig, ah, al);
+#pragma unroll
+        for (int q = 0; q < kMmaNt; ++q)
+          frag_b<false>(g2, ls, k0, n0[q], gid, tig, bh[q], bl[q]);
+        mma3(acc, ah, al, bh, bl);
+      }
+      // channel pairs (j, j + 1) as float2s; x's pad columns take what
+      // is computed there, never read
+#pragma unroll
+      for (int q = 0; q < kMmaNt; ++q) {
+        if (nb + q >= n8) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + gid + 8 * h, j = n0[q] + 2 * tig;
+          if (r >= rows) continue;
+          float2* xp = reinterpret_cast<float2*>(xf + r * lf + j);
+          const float2 xv = *xp;
+          const float2 d = *reinterpret_cast<const float2*>(gf + r * lf + j);
+          *xp = make_float2(gdn_dx(d.x, xv.x, acc[q][2 * h], inverse),
+                            gdn_dx(d.y, xv.y, acc[q][2 * h + 1], inverse));
+        }
+      }
+    }
+
+    // P3: this warp's sums += [u^T x^2, u^T 1] over the tile's rows
+    if (p3_warp) {
+      const int kr = cdiv(rows, 8) * 8;
+      for (int k0 = 0; k0 < kr; k0 += 8) {
+        uint32_t ah[4], al[4];
+        frag_at(u2, ls, p3_m0, k0, gid, tig, ah, al);
+#pragma unroll
+        for (int h = 0; h < kP3N; h += 4) {
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int nt = p3_nb + h + q < n3 ? p3_nb + h + q : n3 - 1;
+            frag_b<false>(x2, ls, k0, nt * 8, gid, tig, bh[q], bl[q]);
+          }
+          mma3(reinterpret_cast<float(&)[4][4]>(acc3[h]), ah, al, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // dx complete in the x tile
+
+    // coalesced stores of dx, flat over the tile's values; the one
+    // rounding to E
+    for (int e = tid; e < rows * c; e += kT) {
+      const int r = static_cast<int>((e + 0.5f) * inv_c);
+      dx[row0 * c + e] = narrow<E>(xf[r * lf + e - r * c]);
+    }
+  }
+  // the block's slice, stored once; columns past C + 1 within the padded
+  // row are written, never read
+  if (p3_warp) {
+#pragma unroll
+    for (int q = 0; q < kP3N; ++q) {
+      if (p3_nb + q >= n3) continue;
+      const int j = (p3_nb + q) * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = p3_m0 + gid + 8 * h;
+        if (o < c && j < ps)
+          *reinterpret_cast<float2*>(slice + static_cast<long long>(o) * ps +
+                                     j) =
+              make_float2(acc3[q][2 * h], acc3[q][2 * h + 1]);
+      }
+    }
+  }
+}
+
 // gamma (C x C) into gamma_rows(c) x row_stride(c) floats and kSlack, zero
 // past C: the copy gdn_backward_kernel reads where gamma does not fit in
 // shared memory.
@@ -585,12 +1024,28 @@ int launch_rows(const Launch& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename E, int kT>
+int launch_mma(const Launch& a) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      gdn_backward_mma_kernel<E, kT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  gdn_backward_mma_kernel<E, kT><<<a.blocks, kT, a.smem, a.st>>>(
+      static_cast<const E*>(a.x), static_cast<const E*>(a.g), a.gamma, a.beta,
+      static_cast<E*>(a.dx), a.partial, a.n, a.c, a.tile_rows, a.inverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instantiations: 4 or 2 rows a thread, gamma in shared or global
 // memory, P3 added to the partials each tile; and P3 kept in registers
 // with 2 rows a thread and gamma in shared memory, by 256 threads (C <=
 // 63) or kWide (C 64-127).
 template <typename E>
-int launch_type(const Launch& a, int rm, int smem_gamma, int threads) {
+int launch_type(const Launch& a, int rm, int smem_gamma, int threads,
+                int mma) {
+  if (mma)
+    return threads == kWide ? launch_mma<E, kWide>(a)
+                            : launch_mma<E, kThreads>(a);
   if (a.split)
     return threads == kWide ? launch_rows<E, 2, true, true, kWide>(a)
                             : launch_rows<E, 2, true, true>(a);
@@ -608,38 +1063,48 @@ int launch_type(const Launch& a, int rm, int smem_gamma, int threads) {
 // outputs. partial: blocks x c x pad4(c + 1) floats of scratch;
 // gamma_pad: gamma_rows(c) x row_stride(c) + 32 floats of scratch where
 // smem_gamma is 0, else unused. n >= 1, c >= 1. The plan
-// (ops/gdn.py:gdn_backward_plan): rm (rows per thread) 2 or 4, tile_rows a
-// multiple of 8 * rm, blocks >= 1 (at most one per tile), smem_gamma 0 or
-// 1, split 0 (P3's sums added to the partials each tile) or 1-16 (kept in
-// registers by `split` warps a warp tile: rm 2, smem_gamma 1, at most
-// threads / 32 / split of P3's 32 x 32 warp tiles, whose 1024 floats each
-// fit in the tile buffers), threads 256, or kWide with a split. Launches,
-// on `stream`, the padding of gamma (where smem_gamma is 0), the rows
-// kernel and the sum; returns the first failed launch's CUDA error (0 on
-// success), or cudaErrorInvalidValue for a plan it has no kernel or
-// shared memory for.
+// (ops/gdn.py:gdn_backward_plan): mma 0 (the CUDA-core path) or 1 (the
+// tensor cores); blocks >= 1 (at most one per tile); threads 256, or
+// kWide. On the CUDA-core path rm (rows per thread) 2 or 4, tile_rows a
+// multiple of 8 * rm, smem_gamma 0 or 1, split 0 (P3's sums added to the
+// partials each tile) or 1-16 (kept in registers by `split` warps a warp
+// tile: rm 2, smem_gamma 1, at most threads / 32 / split of P3's 32 x 32
+// warp tiles, whose 1024 floats each fit in the tile buffers), kWide only
+// with a split. On the tensor cores rm 2, smem_gamma 1 and split 0,
+// tile_rows a multiple of 16, and P3's warp tiles (mma_p3_fits) within the
+// block's warps. Launches, on `stream`, the padding of gamma (where
+// smem_gamma is 0), the rows kernel and the sum; returns the first failed
+// launch's CUDA error (0 on success), or cudaErrorInvalidValue for a plan
+// it has no kernel or shared memory for.
 extern "C" int mmnc_gdn_backward(const void* x, const void* g,
                                  const float* gamma, const float* beta,
                                  float* gamma_pad, void* dx, float* partial,
                                  float* dgamma, float* dbeta, int n, int c,
                                  int rm, int tile_rows, int blocks,
                                  int smem_gamma, int split, int threads,
-                                 int inverse, int bf16, void* stream) {
-  const long long smem = smem_bytes(c, tile_rows, smem_gamma);
+                                 int mma, int inverse, int bf16,
+                                 void* stream) {
+  const long long smem = mma ? mma_smem_bytes(c, tile_rows)
+                             : smem_bytes(c, tile_rows, smem_gamma);
   const int p3_tiles = cdiv(c, kP3) * cdiv(c + 1, kP3);
   const int warps = threads / 32;
-  if (n < 1 || c < 1 || (rm != 2 && rm != 4) || tile_rows < 8 * rm ||
-      tile_rows % (8 * rm) || blocks < 1 ||
-      blocks > (n + tile_rows - 1) / tile_rows ||
-      (smem_gamma != 0 && smem_gamma != 1) || smem > kMaxSmem ||
-      (!smem_gamma && gamma_pad == nullptr) ||
-      (threads != kThreads && (threads != kWide || !split)) || split < 0 ||
-      split > warps ||
-      (split && (rm != 2 || !smem_gamma || p3_tiles * split > warps ||
-                 p3_tiles * 1024 > 4 * tile_rows * row_stride(c))))
+  if (n < 1 || c < 1 || blocks < 1 || (mma != 0 && mma != 1) ||
+      (threads != kThreads && threads != kWide) || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mma ? (rm != 2 || smem_gamma != 1 || split != 0 || tile_rows < 16 ||
+             tile_rows % 16 || !mma_p3_fits(c, threads))
+          : ((rm != 2 && rm != 4) || tile_rows < 8 * rm ||
+             tile_rows % (8 * rm) ||
+             (smem_gamma != 0 && smem_gamma != 1) ||
+             (!smem_gamma && gamma_pad == nullptr) ||
+             (threads == kWide && !split) || split < 0 || split > warps ||
+             (split && (rm != 2 || !smem_gamma || p3_tiles * split > warps ||
+                        p3_tiles * 1024 > 4 * tile_rows * row_stride(c)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > (n + tile_rows - 1) / tile_rows)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!smem_gamma) {
+  if (!mma && !smem_gamma) {
     gdn_backward_pad_kernel<<<cdiv(gamma_rows(c) * row_stride(c) + kSlack,
                                    kThreads),
                               kThreads, 0, st>>>(gamma, c, gamma_pad);
@@ -650,8 +1115,8 @@ extern "C" int mmnc_gdn_backward(const void* x, const void* g,
                  partial, n,        c,     tile_rows, blocks, split,
                  inverse, st,       static_cast<size_t>(smem)};
   const int rc =
-      bf16 ? launch_type<__nv_bfloat16>(a, rm, smem_gamma, threads)
-           : launch_type<float>(a, rm, smem_gamma, threads);
+      bf16 ? launch_type<__nv_bfloat16>(a, rm, smem_gamma, threads, mma)
+           : launch_type<float>(a, rm, smem_gamma, threads, mma);
   if (rc != 0) return rc;
   gdn_backward_sum_kernel<<<cdiv(c * (c + 1), 32), kThreads, 0, st>>>(
       partial, blocks, c, inverse ? 0.5f : -0.5f, dgamma, dbeta);

@@ -22,8 +22,10 @@ an autograd Function whose backward is the closed form of
 gdn_pallas.py:85-101 (`_bwd`, the custom VJP): on a CUDA tensor the
 hand-written kernel `csrc/gdn_backward.cu` (`gdn_backward_cuda`, planned by
 `gdn_backward_plan`: row tiles on persistent blocks, each block's partial
-dgamma and dbeta summed in a fixed order by a second launch), on a CPU
-tensor its plain version `gdn_backward_plain`. A CPU tensor takes the
+dgamma and dbeta summed in a fixed order by a second launch; its three
+products on the tensor cores in 3xTF32 where the plan says `mma`, else
+exact float32 FMAs on the CUDA cores), on a CPU tensor its plain version
+`gdn_backward_plain`. A CPU tensor takes the
 plain version `gdn_plain` forward; a CUDA tensor launches the kernel or
 raises.
 
@@ -272,6 +274,15 @@ _BWD_SLACK = 32  # floats past gamma's padded copy that P2 may read
 BWD_PARTIAL_MAX_BYTES = 64 << 20
 # rows above which C 64-127 takes the 512-thread blocks
 BWD_WIDE_ROWS = 8192
+# the tensor-core path: n8 tiles of a P1/P2 warp tile; its tiles' rows
+# (multiples of the MMA's 16)
+BWD_MMA_NT = 2
+BWD_MMA_TILES = (16, 32, 48, 64)
+# the plan gives the tensor cores every C from this one on, and narrower C
+# at most BWD_MMA_NARROW_ROWS rows (above, those shapes are bound by bytes
+# and the CUDA cores' tiles of 128 rows were faster)
+BWD_MMA_MIN_CHANNELS = 32
+BWD_MMA_NARROW_ROWS = 65536
 
 
 class GDNBackwardPlan(NamedTuple):
@@ -286,13 +297,18 @@ class GDNBackwardPlan(NamedTuple):
     (rm 2, gamma in shared memory, at most warps / split warp tiles, and
     their 1024 floats each within the tile buffers); `threads` 256, or
     512 (one block an SM) with a split: C 64-127, whose 9-16 warp tiles
-    then get a warp each."""
+    then get a warp each. `mma`: the three products on the tensor cores
+    in 3xTF32 (`gdn_backward_mma_kernel`), where rm is 2, smem_gamma True
+    and split 0 (the CUDA-core path's), tile_rows a multiple of 16 and
+    P3's sums kept in registers, an m16 x (`bwd_mma_p3_nt` n8) warp tile a
+    warp (`bwd_mma_p3_fits`)."""
     rm: int
     tile_rows: int
     blocks: int
     smem_gamma: bool
     split: int = 0
     threads: int = 256
+    mma: bool = False
 
 
 def _pad4(c: int) -> int:
@@ -317,21 +333,61 @@ def bwd_partial_stride(c: int) -> int:
     return _pad4(c + 1)
 
 
-def gdn_backward_smem_bytes(c: int, tile_rows: int, smem_gamma: bool) -> int:
+def _c8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+def bwd_mma_stride(c: int) -> int:
+    """The tensor-core path's row stride of gamma, x^2 and u, in (hi, lo)
+    pairs (csrc/gdn_backward.cu:mma_stride): every column a product reads
+    (C rounded up to 8, P3's m16 tiles over C and n8 tiles over C + 1),
+    4 mod 8, so that a fragment's half-warp reads distinct bank pairs."""
+    return max(16 * -(-c // 16), 8 * -(-(c + 1) // 8)) + 4
+
+
+def bwd_mma_fstride(c: int) -> int:
+    """The tensor-core path's row stride of x and g, in floats: C rounded
+    up to 8, 8 mod 16."""
+    return _c8(c) if _c8(c) % 16 else _c8(c) + 8
+
+
+def bwd_mma_p3_nt(threads: int) -> int:
+    """n8 tiles of the tensor-core path's P3 warp tiles (one m16 tile of o
+    by them): 4 in a block of 256 threads, 8 in one of 512 (csrc:
+    mma_p3_nt)."""
+    return 8 if threads == 512 else 4
+
+
+def bwd_mma_p3_fits(c: int, threads: int) -> bool:
+    """Whether P3's warp tiles, one a warp, fit the block's warps (csrc:
+    mma_p3_fits): C <= 63 at 256 threads, C <= 127 at 512."""
+    n3 = -(-(c + 1) // 8)
+    return -(-c // 16) * -(-n3 // bwd_mma_p3_nt(threads)) <= threads // 32
+
+
+def gdn_backward_smem_bytes(c: int, tile_rows: int, smem_gamma: bool,
+                            mma: bool = False) -> int:
     """Dynamic shared memory of one block (csrc/gdn_backward.cu:
     smem_bytes): gamma if staged, four float32 tiles (x^2, u, x, g) and
-    beta, all at `bwd_row_stride`; the same in float32 and bf16."""
+    beta, all at `bwd_row_stride`; on the tensor cores (mma_smem_bytes)
+    gamma's C8 rows, the x^2 and u tiles as (hi, lo) pairs at
+    `bwd_mma_stride`, x and g as floats at `bwd_mma_fstride`, beta. The
+    same in float32 and bf16."""
+    if mma:
+        ls = bwd_mma_stride(c)
+        return (8 * _c8(c) * ls + 16 * tile_rows * ls
+                + 8 * tile_rows * bwd_mma_fstride(c) + 4 * _c8(c))
     ls = bwd_row_stride(c)
     return 4 * ((bwd_gamma_rows(c) * ls if smem_gamma else 0)
                 + 4 * tile_rows * ls + bwd_gamma_rows(c))
 
 
 def bwd_resident_per_sm(c: int, tile_rows: int, smem_gamma: bool,
-                        threads: int = 256) -> int:
+                        threads: int = 256, mma: bool = False) -> int:
     """Blocks one SM holds at once, by registers (128 a thread) and shared
     memory."""
     return min(_BWD_REG_BLOCKS * 256 // threads, _SM_SMEM // (
-        gdn_backward_smem_bytes(c, tile_rows, smem_gamma) + 1024))
+        gdn_backward_smem_bytes(c, tile_rows, smem_gamma, mma) + 1024))
 
 
 def bwd_p3_tiles(c: int) -> int:
@@ -355,23 +411,35 @@ def bwd_gamma_pad_floats(c: int) -> int:
     return bwd_gamma_rows(c) * bwd_row_stride(c) + _BWD_SLACK
 
 
-@functools.lru_cache(maxsize=256)
-def gdn_backward_plan(n: int, c: int) -> GDNBackwardPlan:
-    """The backward's launch for (n, c) rows: gamma in shared memory where
-    it fits beside the tiles; the largest power-of-two tile of 16-256 rows
-    (no more than n needs) at which two blocks share an SM, else one; 2
-    rows a thread where the tile is 16 rows or that leaves P1 at most 8
-    warp tiles (one a warp), else 4; P3's sums kept in registers (`split`
-    warps a warp tile, all 8 warps busy) where its warp tiles allow (C <=
-    63). For C 64-127 (9-16 of P3's warp tiles) and more than 8192 rows,
-    one block of 512 threads an SM, 64-row tiles and P3's sums kept, a
-    warp a warp tile, where gamma fits in shared memory (below 8192 rows
-    the 256-thread blocks were faster). Persistent blocks, at most as
-    many as are resident on the SMs, as there are tiles, and as keep the
-    partials within BWD_PARTIAL_MAX_BYTES. Raises where no plan fits.
-    (Chosen from A/B runs and sweeps of plans at the rgb train step's
-    shapes on an H100: two blocks an SM beat one at every C swept with
-    P3's partials added each tile; see PERF.md.)"""
+def _mma_plan(n: int, c: int):
+    """The tensor-core plan for (n, c), or None where it has none: 256
+    threads, two blocks an SM, where P3's warp tiles fit 8 warps (C <=
+    63), else 512 threads, one block (C <= 127); the smallest tile of
+    BWD_MMA_TILES that leaves each resident block at most one tile, else
+    64 rows where that many blocks fit an SM (C <= 48 at 256 threads),
+    else 32, else 16 (C >= 121); persistent blocks as
+    `gdn_backward_plan`'s. (The best of the tiles and thread counts that
+    a scratch sweep timed at C = 42, 50 and 100 on an H100; chip_smoke's
+    phase 3 times the plan beside the CUDA-core path at every train
+    shape, PERF.md.)"""
+    cap = BWD_PARTIAL_MAX_BYTES // (4 * c * bwd_partial_stride(c))
+    for threads, per_sm in ((256, 2), (512, 1)):
+        if not bwd_mma_p3_fits(c, threads):
+            continue
+        fits = [t for t in BWD_MMA_TILES
+                if gdn_backward_smem_bytes(c, t, True, True) <= MAX_SMEM
+                and bwd_resident_per_sm(c, t, True, threads, True) >= per_sm]
+        if not fits:
+            return None
+        one = [t for t in fits if -(-n // t) <= SMS * per_sm]
+        tr = (one[0] if one else 64 if 64 in fits else 32 if 32 in fits
+              else fits[-1])
+        blocks = max(1, min(-(-n // tr), SMS * per_sm, cap))
+        return GDNBackwardPlan(2, tr, blocks, True, 0, threads, True)
+    return None
+
+
+def _cuda_core_plan(n: int, c: int) -> GDNBackwardPlan:
     cap = BWD_PARTIAL_MAX_BYTES // (4 * c * bwd_partial_stride(c))
     if (8 < bwd_p3_tiles(c) <= 16 and n > BWD_WIDE_ROWS
             and _split_fits(c, 64, 512)
@@ -399,25 +467,79 @@ def gdn_backward_plan(n: int, c: int) -> GDNBackwardPlan:
                      "shared memory")
 
 
+def bwd_takes_mma(n: int, c: int) -> bool:
+    """Whether `gdn_backward_plan` gives (n, c) the tensor cores: where they
+    have a plan (C <= 127) and C is at least BWD_MMA_MIN_CHANNELS or the
+    rows at most BWD_MMA_NARROW_ROWS."""
+    return ((c >= BWD_MMA_MIN_CHANNELS or n <= BWD_MMA_NARROW_ROWS)
+            and _mma_plan(n, c) is not None)
+
+
+@functools.lru_cache(maxsize=512)
+def gdn_backward_plan(n: int, c: int, mma: bool = None) -> GDNBackwardPlan:
+    """The backward's launch for (n, c) rows; `mma` True or False asks for
+    the tensor-core or the CUDA-core path's plan (raising where the
+    tensor cores have none), None takes the tensor cores where
+    `bwd_takes_mma` (the shapes where they were faster in chip_smoke's
+    phase 3 on an H100, PERF.md), else the CUDA cores.
+
+    The tensor cores' plan is `_mma_plan`'s. The CUDA cores': gamma in
+    shared memory where it fits beside the tiles; the largest power-of-two
+    tile of 16-256 rows (no more than n needs) at which two blocks share an
+    SM, else one; 2 rows a thread where the tile is 16 rows or that leaves
+    P1 at most 8 warp tiles (one a warp), else 4; P3's sums kept in
+    registers (`split` warps a warp tile, all 8 warps busy) where its warp
+    tiles allow (C <= 63). For C 64-127 (9-16 of P3's warp tiles) and more
+    than 8192 rows, one block of 512 threads an SM, 64-row tiles and P3's
+    sums kept, a warp a warp tile, where gamma fits in shared memory
+    (below 8192 rows the 256-thread blocks were faster). Persistent blocks,
+    at most as many as are resident on the SMs, as there are tiles, and as
+    keep the partials within BWD_PARTIAL_MAX_BYTES. Raises where no plan
+    fits. (Chosen from A/B runs and sweeps of plans at the rgb train
+    step's shapes on an H100: two blocks an SM beat one at every C swept
+    with P3's partials added each tile; see PERF.md.)"""
+    if mma is None:
+        mma = bwd_takes_mma(n, c)
+    if not mma:
+        return _cuda_core_plan(n, c)
+    plan = _mma_plan(n, c)
+    if plan is None:
+        raise ValueError(f"gdn backward: the tensor cores have no plan at "
+                         f"C={c}")
+    return plan
+
+
 @functools.lru_cache(maxsize=256)
 def check_backward_plan(n: int, c: int, plan: GDNBackwardPlan) -> None:
     """Raise ValueError for a plan csrc/gdn_backward.cu has no kernel for
-    at (n, c): rows per thread other than 2 or 4, tiles off the warps'
-    8 x rm rows, no blocks or more than tiles, too much shared memory,
-    threads other than 256 or 512, a split of P3 past the block's warps,
-    or one with 4 rows a thread, gamma in global memory, more warps than
-    the block has or sums its tile buffers do not hold; 512 threads
-    without a split."""
-    rm, tr, blocks, smem_gamma, split, nthreads = plan
+    at (n, c): no blocks or more than tiles, too much shared memory,
+    threads other than 256 or 512, flags that are not bools. On the CUDA
+    cores: rows per thread other than 2 or 4, tiles off the warps' 8 x rm
+    rows, a split of P3 past the block's warps, or one with 4 rows a
+    thread, gamma in global memory, more warps than the block has or sums
+    its tile buffers do not hold; 512 threads without a split. On the
+    tensor cores: rm other than 2, gamma not in shared memory, a split,
+    tiles off 16 rows, P3's warp tiles past the block's warps."""
+    rm, tr, blocks, smem_gamma, split, nthreads, mma = plan
     warps = nthreads // 32
-    if (rm not in BWD_RMS or tr < 8 * rm or tr % (8 * rm) or blocks < 1
-            or blocks > -(-n // tr) or not isinstance(smem_gamma, bool)
-            or gdn_backward_smem_bytes(c, tr, smem_gamma) > MAX_SMEM
-            or nthreads not in BWD_THREADS or not 0 <= split <= warps
-            or (nthreads != 256 and not split)
-            or (split and (rm != 2 or not smem_gamma
-                           or not _split_fits(c, tr, nthreads)
-                           or bwd_p3_tiles(c) * split > warps))):
+    if (not isinstance(mma, bool) or not isinstance(smem_gamma, bool)
+            or blocks < 1 or nthreads not in BWD_THREADS):
+        bad = True
+    elif mma:
+        bad = (rm != 2 or not smem_gamma or split != 0 or tr < 16
+               or tr % 16 or blocks > -(-n // tr)
+               or not bwd_mma_p3_fits(c, nthreads)
+               or gdn_backward_smem_bytes(c, tr, True, True) > MAX_SMEM)
+    else:
+        bad = (rm not in BWD_RMS or tr < 8 * rm or tr % (8 * rm)
+               or blocks > -(-n // tr)
+               or gdn_backward_smem_bytes(c, tr, smem_gamma) > MAX_SMEM
+               or not 0 <= split <= warps
+               or (nthreads != 256 and not split)
+               or (split and (rm != 2 or not smem_gamma
+                              or not _split_fits(c, tr, nthreads)
+                              or bwd_p3_tiles(c) * split > warps)))
+    if bad:
         raise ValueError(f"gdn backward plan {tuple(plan)}: no kernel for "
                          f"it at N={n}, C={c}")
 
@@ -467,7 +589,7 @@ def gdn_backward_plain(x2d, g, gamma, beta, inverse: bool):
 @functools.cache
 def _backward_entry():
     fn = _build.load("gdn_backward").mmnc_gdn_backward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -519,7 +641,7 @@ def gdn_backward_cuda(x2d, g, gamma, beta, inverse: bool,
         None if gamma_pad is None else gamma_pad.data_ptr(), dx.data_ptr(),
         partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, c,
         plan.rm, plan.tile_rows, plan.blocks, int(plan.smem_gamma),
-        plan.split, plan.threads, int(inverse),
+        plan.split, plan.threads, int(plan.mma), int(inverse),
         int(x2d.dtype == torch.bfloat16),
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check_launch(rc, "gdn backward")

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from mmnc_tpu_torch import build_model, graphs
 from mmnc_tpu_torch.models.streaming import stream_roundtrip
 from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -37,7 +38,8 @@ from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
 from mmnc_tpu_torch.ops.gdn import (MAX_CHANNELS, GDNBackwardPlan,
                                    GDNFunction, GDNPlan, gdn,
                                    gdn_backward_cuda, gdn_backward_plain,
-                                   gdn_cuda, gdn_plain, gdn_plan)
+                                   gdn_backward_plan, gdn_cuda, gdn_plain,
+                                   gdn_plan)
 from mmnc_tpu_torch.train import (create_train_state, make_eval_step,
                                   make_train_step)
 from mmnc_tpu_torch.weights import scale_conv_kernels
@@ -456,13 +458,23 @@ def test_gdn_backward_kernel_takes_unaligned_rows_and_strided_gradients(
     (21, GDNBackwardPlan(2, 32, 6, True, 3)),
     (3, GDNBackwardPlan(2, 128, 4, True, 8)),
     (100, GDNBackwardPlan(2, 64, 9, True, 1, 512)),
-    (90, GDNBackwardPlan(2, 64, 4, True, 1, 512))])
+    (90, GDNBackwardPlan(2, 64, 4, True, 1, 512)),
+    (100, GDNBackwardPlan(2, 32, 9, True, 0, 512, True)),
+    (100, GDNBackwardPlan(2, 16, 7, True, 0, 512, True)),
+    (50, GDNBackwardPlan(2, 64, 5, True, 0, 256, True)),
+    (50, GDNBackwardPlan(2, 16, 7, True, 0, 512, True)),
+    (63, GDNBackwardPlan(2, 32, 5, True, 0, 256, True)),
+    (127, GDNBackwardPlan(2, 16, 6, True, 0, 512, True)),
+    (21, GDNBackwardPlan(2, 64, 3, True, 0, 256, True)),
+    (3, GDNBackwardPlan(2, 48, 4, True, 0, 256, True))])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_gdn_backward_kernel_forced_plans_match_plain(device, c, plan,
                                                       inverse):
     """Each instantiation (2 and 4 rows a thread, gamma in shared or in
     global memory, P3's sums added each tile or kept by 1-8 warps a warp
-    tile, 256 or 512 threads) with blocks walking several tiles each."""
+    tile, 256 or 512 threads; the tensor cores at 256 and 512 threads,
+    tiles of 16-64 rows, C from 3 to 127) with blocks walking several
+    tiles each."""
     _check_backward(*_backward_inputs(device, 1031, c, 5), inverse,
                     plan=plan)
 
@@ -475,9 +487,44 @@ def test_gdn_backward_kernel_refuses_what_it_has_no_kernel_for(device):
                  (x.cpu(), g, gamma, beta)):
         with pytest.raises(ValueError):
             gdn_backward_cuda(*args, False)
-    with pytest.raises(ValueError):
-        gdn_backward_cuda(x, g, gamma, beta, False,
-                          plan=GDNBackwardPlan(4, 48, 1, True))
+    for plan in (GDNBackwardPlan(4, 48, 1, True),
+                 GDNBackwardPlan(2, 40, 1, True, 0, 256, True)):
+        with pytest.raises(ValueError):
+            gdn_backward_cuda(x, g, gamma, beta, False, plan=plan)
+
+
+def _tensor_core_train_shapes():
+    """(rows, C, inverse, dtype) of every distinct (I)GDN of the rgb train
+    step at 16 in float32 and bf16 and of shared4's at 16 and 2 in float32
+    whose backward the plan gives the tensor cores."""
+    lay = chip_smoke.paper_layout(*chip_smoke.PAPER["shared4"])
+    rgb = chip_smoke.gdn_train_shapes(chip_smoke.TRAIN_BATCH)
+    f32 = set(rgb + chip_smoke.mt_gdn_shapes(lay, 16, train=True)
+              + chip_smoke.mt_gdn_shapes(lay, 2, train=True))
+    return ([(n, c, inv, torch.float32) for n, c, inv in sorted(f32)
+             if gdn_backward_plan(n, c).mma]
+            + [(n, c, inv, torch.bfloat16) for n, c, inv in sorted(set(rgb))
+               if gdn_backward_plan(n, c).mma])
+
+
+@pytest.mark.parametrize("n,c,inverse,dtype", _tensor_core_train_shapes())
+def test_gdn_backward_tensor_cores_match_plain_at_train_shapes(
+        device, n, c, inverse, dtype):
+    """The tensor-core path (3xTF32) under its plan at every rgb, bf16 and
+    shared4 train shape it takes: dx, dgamma and dbeta within 1e-4 x
+    max(1, |plain|max) (a bf16 dx 2^-7), bitwise repeatable."""
+    _check_backward(*_backward_inputs(device, n, c, n + c, dtype), inverse)
+
+
+@pytest.mark.parametrize("n", [4099, 333])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_backward_at_c655_takes_the_cuda_cores(device, n, inverse):
+    """At C = 655 split gamma does not fit a block: the plan stays on the
+    CUDA cores (gamma from global memory) and matches the plain
+    version."""
+    plan = gdn_backward_plan(n, MAX_CHANNELS)
+    assert not plan.mma and not plan.smem_gamma
+    _check_backward(*_backward_inputs(device, n, MAX_CHANNELS, n), inverse)
 
 
 def _train_models(device):

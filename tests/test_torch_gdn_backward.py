@@ -4,7 +4,11 @@ of gdn_pallas_2d) in mmnc_tpu_torch on the CPU: the plain version
 mode), csrc/gdn_backward.cu's plan emulated in torch (row tiles on
 persistent blocks, shared-memory layout, per-block partials and their
 fixed-order sum) against JAX's `_bwd`, the plan's coverage and shared
-memory, and the routing of `GDNFunction` on the CPU.
+memory, and the routing of `GDNFunction` on the CPU. The tensor-core path
+(3xTF32 on mma.sync): TF32 rounding (cvt.rna) and the 3xTF32 product
+emulated in numpy against float64, the kernel's padded (hi, lo) layout,
+warp tiles and k steps emulated against the plain version and JAX, its
+fragments' shared-memory banks, and which shapes the plan gives it.
 
 Inputs come from a numpy seed and go to both packages as the same arrays.
 """
@@ -18,15 +22,20 @@ import jax.numpy as jnp
 import chip_smoke
 from mmnc_tpu.ops.gdn_pallas import _bwd, gdn_pallas_2d
 
-from mmnc_tpu_torch.ops.gdn import (BWD_MAX_CHANNELS, BWD_PARTIAL_MAX_BYTES,
-                                   MAX_CHANNELS, MAX_SMEM, SMS,
-                                   GDNBackwardPlan, GDNFunction,
-                                   backward_block_tiles,
+from mmnc_tpu_torch.ops.gdn import (BWD_MAX_CHANNELS, BWD_MMA_MIN_CHANNELS,
+                                   BWD_MMA_NARROW_ROWS,
+                                   BWD_PARTIAL_MAX_BYTES, MAX_CHANNELS,
+                                   MAX_SMEM, SMS, GDNBackwardPlan,
+                                   GDNFunction, backward_block_tiles,
                                    backward_partial_tiles,
                                    bwd_gamma_pad_floats,
-                                   bwd_gamma_rows, bwd_p3_tiles,
+                                   bwd_gamma_rows, BWD_MMA_NT,
+                                   bwd_mma_fstride, bwd_mma_p3_fits,
+                                   bwd_mma_p3_nt, bwd_mma_stride,
+                                   bwd_p3_tiles,
                                    bwd_partial_floats, bwd_partial_stride,
                                    bwd_resident_per_sm, bwd_row_stride,
+                                   bwd_takes_mma,
                                    check_backward_plan, gdn_backward_cuda,
                                    gdn_backward_plain, gdn_backward_plan,
                                    gdn_backward_smem_bytes, gdn_cuda)
@@ -119,7 +128,7 @@ def _emulate_backward(x, g, gamma, beta, inverse, plan):
     added up in phase order and written once; and their sum, block 0
     first. Returns (dx, dgamma, dbeta, stores per partial value)."""
     n, c = x.shape
-    rm, tr, blocks, smem_gamma, split, _ = plan
+    rm, tr, blocks, smem_gamma, split, _, _ = plan
     slices = max(split, 1)
     ls, grows, ps = (bwd_row_stride(c), bwd_gamma_rows(c),
                      bwd_partial_stride(c))
@@ -221,9 +230,184 @@ def _emulate_backward(x, g, gamma, beta, inverse, plan):
     return dx, scale * total[:, :c], scale * total[:, c], stores
 
 
-# (n, c, plan or None for gdn_backward_plan's): the path's C at ragged row
-# counts; blocks walking several tiles, 2 rows a thread, gamma read from
-# its padded global copy, C = 655 (the forward's widest)
+def _tf32(a):
+    """cvt.rna.tf32.f32 in numpy: each float32 to its nearest TF32 value
+    (10 mantissa bits), ties away from zero: half the unit of the 13
+    dropped bits added to the magnitude's bits (the sign is apart), then
+    those 13 bits cleared."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(a):
+    """(hi, lo) of float32 values as the kernel's split_tf32: hi = tf32(a),
+    lo = tf32(a - hi), a - hi exact in float32."""
+    a = np.asarray(a, np.float32)
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _mma_product(ah, al, bh, bl, acc):
+    """acc (m x n, float32) + A B in 3xTF32 from split operands (A m x K,
+    B K x n, K a multiple of 8), k step by k step as the kernel's mma3:
+    a_lo b_hi, a_hi b_lo, then a_hi b_hi, each an m16n8k8 whose exact
+    products are summed and added to the float32 accumulator with one
+    rounding."""
+    acc = np.array(acc, np.float32)
+    for k in range(0, ah.shape[1], 8):
+        for a, b in ((al, bh), (ah, bl), (ah, bh)):
+            acc = (acc.astype(np.float64)
+                   + a[:, k:k + 8].astype(np.float64)
+                   @ b[k:k + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def _product_3xtf32(a, b):
+    """a @ b (float32) in 3xTF32 with float32 accumulation, K padded with
+    zeros to a multiple of 8."""
+    k8 = _cdiv(a.shape[1], 8) * 8
+    a = np.pad(np.asarray(a, np.float32), ((0, 0), (0, k8 - a.shape[1])))
+    b = np.pad(np.asarray(b, np.float32), ((0, k8 - b.shape[0]), (0, 0)))
+    return _mma_product(*_split(a), *_split(b),
+                        np.zeros((a.shape[0], b.shape[1]), np.float32))
+
+
+def _sw(r, j, ls):
+    """The (hi, lo) pair of element (r, j) at row stride ls."""
+    return r * ls + j
+
+
+def _mma_warp_tiles(tr, c):
+    """P1's and P2's warp tiles in the kernel's order: [(first row, [the n8
+    tiles whose sums it uses])]; each computes BWD_MMA_NT n8 tiles, the
+    last repeated past C8."""
+    n8 = _cdiv(c, 8)
+    ngr = _cdiv(n8, BWD_MMA_NT)
+    return [(wt // ngr * 16, [t for t in range(wt % ngr * BWD_MMA_NT,
+                                               (wt % ngr + 1) * BWD_MMA_NT)
+                              if t < n8])
+            for wt in range(tr // 16 * ngr)]
+
+
+def _mma_p3_tiles(c, threads):
+    """P3's warp tiles of warps 0, 1, ...: [(first o, [the n8 tiles of j'
+    it stores])]; each computes bwd_mma_p3_nt n8 tiles, the last repeated
+    past 8 n3."""
+    nt3, n3 = bwd_mma_p3_nt(threads), _cdiv(c + 1, 8)
+    ng3 = _cdiv(n3, nt3)
+    return [(w // ng3 * 16, [t for t in range(w % ng3 * nt3,
+                                              (w % ng3 + 1) * nt3) if t < n3])
+            for w in range(_cdiv(c, 16) * ng3)]
+
+
+def _emulate_backward_mma(x, g, gamma, beta, inverse, plan):
+    """csrc/gdn_backward.cu's tensor-core kernel run block by block in
+    numpy: each block's flat shared memory (unwritten words NaN) with its
+    buffers in the kernel's order (gamma, x^2 and u as (hi, lo) pairs at
+    `bwd_mma_stride`, x and g as floats, beta); gamma split once, x^2's
+    ones column and u's columns past C8 set once a block; per tile x^2
+    rounded to float32 and split, P1 and P2 over the tile's rows x C8 and
+    K = C8, P3 over K = the rows rounded up to 8 into sums kept over the
+    block's tiles, all in 3xTF32 (`_mma_product`), the elementwise parts
+    in float32; the block's slice stored by P3's warp tiles
+    (`_mma_p3_tiles`, unwritten NaN), and their sum, block 0 first.
+    Returns (dx, dgamma, dbeta, stores per partial value)."""
+    n, c = x.shape
+    tr, blocks = plan.tile_rows, plan.blocks
+    ls, lf, c8 = bwd_mma_stride(c), bwd_mma_fstride(c), _cdiv(c, 8) * 8
+    m3, n3, ps = _cdiv(c, 16), _cdiv(c + 1, 8), bwd_partial_stride(c)
+    f32 = np.float32
+    x, g, gamma, beta = (np.asarray(a, f32) for a in (x, g, gamma, beta))
+    words = gdn_backward_smem_bytes(c, tr, True, True) // 4
+    x2_at = 2 * c8 * ls
+    u_at = x2_at + 2 * tr * ls
+    xf_at = u_at + 2 * tr * ls
+    gf_at = xf_at + tr * lf
+    b_at = gf_at + tr * lf
+    assert b_at + c8 == words
+    partial = np.full((blocks, c, ps), np.nan, f32)
+    stores = np.zeros((blocks, c, ps), np.int64)
+    dx = np.full((n, c), np.nan, f32)
+    every, k8 = np.arange(tr), np.arange(c8)
+
+    def pairs(at, rows, cols):
+        idx = at + 2 * _sw(rows[:, None], cols[None, :], ls)
+        return smem[idx], smem[idx + 1]
+
+    def put(at, rows, cols, v):
+        idx = at + 2 * _sw(rows[:, None], cols[None, :], ls)
+        smem[idx], smem[idx + 1] = _split(v)
+
+    for b, tiles in enumerate(backward_block_tiles(n, plan)):
+        smem = np.full(words, np.nan, f32)
+        xf = smem[xf_at:gf_at].reshape(tr, lf)
+        gf = smem[gf_at:b_at].reshape(tr, lf)
+        gpad = np.zeros((c8, ls), f32)
+        gpad[:c, :c] = gamma
+        put(0, k8, np.arange(ls), gpad)
+        smem[b_at:] = np.concatenate([beta, np.ones(c8 - c, f32)])
+        ones = np.zeros((tr, ls), f32)
+        ones[:, c] = 1.0
+        put(x2_at, every, np.arange(ls), ones)
+        put(u_at, every, np.arange(c8, ls), np.zeros((tr, ls - c8), f32))
+        acc3 = np.zeros((16 * m3, 8 * n3), f32)
+        for row0, rows in tiles:
+            xs, gs = x[row0:row0 + rows], g[row0:row0 + rows]
+            xf[:rows, :c], gf[:rows, :c] = xs, gs
+            put(x2_at, np.arange(rows), np.arange(c), xs * xs)
+            # P1 (B = gamma^T) and its epilogue
+            ah, al = pairs(x2_at, every, k8)
+            bh, bl = pairs(0, k8, k8)
+            norm = _mma_product(ah, al, bh.T, bl.T,
+                                np.broadcast_to(smem[b_at:], (tr, c8)))
+            real = (every[:, None] < rows) & (k8[None, :] < c)
+            xv, gv = xf[:, :c8], gf[:, :c8]
+            with np.errstate(invalid="ignore"):
+                if inverse:
+                    s = np.sqrt(norm)
+                    u, d = gv * xv / s, gv * s
+                else:
+                    r = f32(1) / np.sqrt(norm)
+                    u, d = gv * xv * (r * r * r), gv * r
+            u = np.where(real, u, f32(0))
+            assert not np.isnan(u).any()
+            gf[:, :c8] = np.where(real, d, gv)
+            put(u_at, every, k8, u)
+            # P2 (B = gamma) and dx in place of x
+            ah, al = pairs(u_at, every, k8)
+            bh, bl = pairs(0, k8, k8)
+            v = _mma_product(ah, al, bh, bl, np.zeros((tr, c8), f32))
+            xv, d = xf[:rows, :c], gf[:rows, :c]
+            xf[:rows, :c] = (d + xv * v[:rows, :c] if inverse
+                             else d - xv * v[:rows, :c])
+            # P3 (A = u^T, B = x^2) over the rows rounded up to 8
+            kr = np.arange(_cdiv(rows, 8) * 8)
+            uh, ul = pairs(u_at, kr, np.arange(16 * m3))
+            xh, xl = pairs(x2_at, kr, np.arange(8 * n3))
+            acc3 = _mma_product(uh.T, ul.T, xh, xl, acc3)
+            dx[row0:row0 + rows] = xf[:rows, :c]
+        for m0, nts in _mma_p3_tiles(c, plan.threads):
+            for q in nts:
+                o = np.arange(m0, min(m0 + 16, c))
+                j = np.arange(8 * q, min(8 * q + 8, ps))
+                partial[b][np.ix_(o, j)] = acc3[np.ix_(o, j)]
+                stores[b][np.ix_(o, j)] += 1
+    total = np.zeros((c, c + 1))
+    for b in range(blocks):
+        total = total + partial[b, :, :c + 1]
+    scale = 0.5 if inverse else -0.5
+    return (torch.from_numpy(dx), torch.from_numpy(scale * total[:, :c]),
+            torch.from_numpy(scale * total[:, c]), torch.from_numpy(stores))
+
+
+# (n, c, plan): None for gdn_backward_plan's CUDA-core plan (mma=False),
+# "plan" for its own choice (the tensor cores at every such entry), or a
+# forced plan. The path's C at ragged row counts; blocks walking several
+# tiles, 2 rows a thread, gamma read from its padded global copy, C = 655
+# (the forward's widest); the tensor cores: 256 and 512 threads, tiles of
+# 16-64 rows, a ragged last tile, the widest C they take (127), small C
+# padded to the MMA's 8
 _EMULATED = [
     (1031, 50, None), (1031, 100, None), (777, 168, None), (1000, 3, None),
     (300, 21, None), (37, 1, None),
@@ -235,29 +419,53 @@ _EMULATED = [
     (1031, 96, GDNBackwardPlan(2, 64, 5, True, 1, 512)),
     (999, 100, GDNBackwardPlan(4, 32, 3, False)),
     (333, 168, GDNBackwardPlan(2, 32, 4, False)),
-    (200, MAX_CHANNELS, None)]
+    (200, MAX_CHANNELS, None),
+    (1031, 42, None), (37, 100, None),
+    (1031, 100, GDNBackwardPlan(2, 32, 9, True, 0, 512, True)),
+    (1031, 50, GDNBackwardPlan(2, 64, 5, True, 0, 256, True)),
+    (1031, 50, GDNBackwardPlan(2, 16, 7, True, 0, 512, True)),
+    (777, 63, GDNBackwardPlan(2, 32, 5, True, 0, 256, True)),
+    (333, 127, GDNBackwardPlan(2, 16, 6, True, 0, 512, True)),
+    (300, 21, GDNBackwardPlan(2, 64, 2, True, 0, 256, True)),
+    (37, 3, GDNBackwardPlan(2, 16, 2, True, 0, 256, True)),
+    (1031, 50, "plan"), (1031, 100, "plan"), (1000, 3, "plan"),
+    (300, 21, "plan"), (37, 1, "plan"), (1031, 42, "plan"),
+    (37, 100, "plan")]
 
 
 @pytest.mark.parametrize("n,c,plan", _EMULATED)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_plan_as_emulated_matches_jax_bwd(n, c, plan, inverse):
-    """The kernel's indexing, emulated (`_emulate_backward`), computes the
-    plain version's gradients in float64 (no NaN from an unwritten word
-    reaches one), JAX's `_bwd` within the plain version's tolerance, and
-    stores every partial value a tile of its block."""
+    """The kernel's indexing, emulated (`_emulate_backward`, or
+    `_emulate_backward_mma` for the tensor cores), computes the plain
+    version's gradients (no NaN from an unwritten word reaches one): in
+    float64 within 1e-10 on the CUDA cores; in 3xTF32 with float32
+    elementwise parts within chip_smoke's GDN_BACKWARD_TOL x max(1,
+    |plain|max) on the tensor cores, the card's gate; JAX's `_bwd` within
+    the plain version's tolerance; and stores every partial value a tile
+    of its block (once a block where P3's sums are kept)."""
     x, g, gamma, beta = _case(n, c, seed=n + c)
-    plan = plan or gdn_backward_plan(n, c)
+    if plan is None:
+        plan = gdn_backward_plan(n, c, mma=False)
+        assert not plan.mma
+    elif plan == "plan":
+        plan = gdn_backward_plan(n, c)
+        assert plan.mma
     check_backward_plan(n, c, plan)
-    dx, dgamma, dbeta, stores = _emulate_backward(x, g, gamma, beta,
-                                                  inverse, plan)
+    emulate = _emulate_backward_mma if plan.mma else _emulate_backward
+    dx, dgamma, dbeta, stores = emulate(x, g, gamma, beta, inverse, plan)
     counts = [len(t) for t in backward_block_tiles(n, plan)]
-    want_stores = (torch.ones(plan.blocks) if plan.split
+    want_stores = (torch.ones(plan.blocks) if plan.split or plan.mma
                    else torch.tensor(counts))
     assert (stores == want_stores[:, None, None]).all()
     want = gdn_backward_plain(*(torch.from_numpy(a).double()
                                 for a in (x, g, gamma, beta)), inverse)
     for got, w in zip((dx, dgamma, dbeta), want):
-        torch.testing.assert_close(got, w, rtol=1e-10, atol=1e-10)
+        if plan.mma:
+            tol = chip_smoke.GDN_BACKWARD_TOL * max(1.0, w.abs().max())
+            assert (got.double() - w).abs().max() <= tol
+        else:
+            torch.testing.assert_close(got, w, rtol=1e-10, atol=1e-10)
     _assert_grads([dx.numpy(), dgamma.numpy(), dbeta.numpy()],
                   _jax_bwd(x, g, gamma, beta, inverse))
 
@@ -279,32 +487,73 @@ _PLAN_SHAPES = _train_path_shapes() + [
                                            MAX_CHANNELS)]
 
 
+def _check_mma_plan_covers(n, c, plan):
+    """The tensor cores' warp tiles: P1's and P2's cover every m16 x n8
+    tile of a tile's rows x C8 once, P3's take at most the block's warps
+    and cover every m16 x n8 tile of o x j' once, its stores every (o, j)
+    of the partials once; every column a product reads within the
+    padded rows."""
+    warps, tr = plan.threads // 32, plan.tile_rows
+    c8, m3, n3 = _cdiv(c, 8) * 8, _cdiv(c, 16), _cdiv(c + 1, 8)
+    hits = np.zeros((tr // 16, c8 // 8), np.int64)
+    for r0, nts in _mma_warp_tiles(tr, c):
+        assert nts and len(nts) <= BWD_MMA_NT
+        hits[r0 // 16, nts] += 1
+    assert (hits == 1).all()
+    assert bwd_mma_p3_fits(c, plan.threads)
+    p3 = _mma_p3_tiles(c, plan.threads)
+    assert 1 <= len(p3) <= warps
+    hits = np.zeros((m3, n3), np.int64)
+    for m0, nts in p3:
+        assert nts and len(nts) <= bwd_mma_p3_nt(plan.threads)
+        hits[m0 // 16, nts] += 1
+    assert (hits == 1).all()
+    stored = np.zeros((c, bwd_partial_stride(c)), np.int64)
+    for m0, nts in p3:
+        for q in nts:
+            stored[m0:m0 + 16, 8 * q:8 * q + 8] += 1
+    assert (stored == 1).all()
+    assert max(c8, 16 * m3, 8 * n3) <= bwd_mma_stride(c)
+    assert c8 <= bwd_mma_fstride(c)
+
+
 @pytest.mark.parametrize("n,c", _PLAN_SHAPES)
 def test_backward_plan_covers_rows_and_partials_once_and_fits(n, c):
-    """Every row in exactly one tile of one block, every block at least one
-    tile; every (o, j) of dgamma and dbeta stored by exactly one of P3's
-    warp tiles; the block's shared memory, its residency and the partials
-    within the card's and the plan's limits; the kernel's reads past a
-    row's end (P2's last warp column of gamma, P3's of u and x^2) within
-    the block's shared memory or gamma's padded copy."""
-    plan = gdn_backward_plan(n, c)
+    """For the plan and, where the tensor cores have one, the other path's
+    too (`chip_smoke.backward_paths`): every row in exactly one tile of
+    one block, every block at least one tile; every (o, j) of dgamma and
+    dbeta stored by exactly one of
+    P3's warp tiles (`_check_mma_plan_covers` on the tensor cores); the
+    block's shared memory, its residency and the partials within the
+    card's and the plan's limits; on the CUDA cores the kernel's reads
+    past a row's end (P2's last warp column of gamma, P3's of u and x^2)
+    within the block's shared memory or gamma's padded copy."""
+    for plan in chip_smoke.backward_paths(n, c):
+        _check_plan_covers(n, c, plan)
+
+
+def _check_plan_covers(n, c, plan):
     check_backward_plan(n, c, plan)
     tiles = backward_block_tiles(n, plan)
     assert len(tiles) == plan.blocks and all(tiles)
     covered = sorted(r for block in tiles for row0, rows in block
                      for r in range(row0, row0 + rows))
     assert covered == list(range(n))
+    smem = gdn_backward_smem_bytes(c, plan.tile_rows, plan.smem_gamma,
+                                   plan.mma)
+    assert smem <= MAX_SMEM
+    per_sm = bwd_resident_per_sm(c, plan.tile_rows, plan.smem_gamma,
+                                 plan.threads, plan.mma)
+    assert 1 <= per_sm and plan.blocks <= SMS * per_sm
+    assert 4 * bwd_partial_floats(c, plan.blocks) <= \
+        max(BWD_PARTIAL_MAX_BYTES, 4 * c * bwd_partial_stride(c))
+    if plan.mma:
+        _check_mma_plan_covers(n, c, plan)
+        return
     hits = np.zeros((c, bwd_partial_stride(c)), np.int64)
     for o0, o1, j0, j1 in backward_partial_tiles(c):
         hits[o0:o1, j0:j1] += 1
     assert (hits == 1).all()
-    smem = gdn_backward_smem_bytes(c, plan.tile_rows, plan.smem_gamma)
-    assert smem <= MAX_SMEM
-    per_sm = bwd_resident_per_sm(c, plan.tile_rows, plan.smem_gamma,
-                                 plan.threads)
-    assert 1 <= per_sm and plan.blocks <= SMS * per_sm
-    assert 4 * bwd_partial_floats(c, plan.blocks) <= \
-        max(BWD_PARTIAL_MAX_BYTES, 4 * c * bwd_partial_stride(c))
     ls, tr = bwd_row_stride(c), plan.tile_rows
     if plan.split:
         assert plan.rm == 2 and plan.smem_gamma
@@ -321,13 +570,14 @@ def test_backward_plan_covers_rows_and_partials_once_and_fits(n, c):
 
 @pytest.mark.parametrize("c", sorted({c for _, c in _train_path_shapes()}))
 def test_backward_stages_gamma_at_every_train_path_c(c):
-    """At the train path's C (1-168) gamma sits in shared memory beside
-    tiles of at least 32 rows; two blocks of 256 threads an SM (C <= 63,
-    P3's sums kept by all 8 warps), one of 512 (C = 100: P3's 16 warp
-    tiles a warp each, its sums kept), or one of 256 where gamma leaves
-    no room for two (C = 168); P1 gives at least 6 of 8 warps (12 of 16)
-    a warp tile (C = 168: 6 warp tiles of 28 channels)."""
-    plan = gdn_backward_plan(1 << 20, c)
+    """At the train path's C (1-168) the CUDA cores' plan keeps gamma in
+    shared memory beside tiles of at least 32 rows; two blocks of 256
+    threads an SM (C <= 63, P3's sums kept by all 8 warps), one of 512
+    (C = 100: P3's 16 warp tiles a warp each, its sums kept), or one of
+    256 where gamma leaves no room for two (C = 168); P1 gives at least 6
+    of 8 warps (12 of 16) a warp tile (C = 168: 6 warp tiles of 28
+    channels)."""
+    plan = gdn_backward_plan(1 << 20, c, mma=False)
     assert plan.smem_gamma and plan.tile_rows >= 32
     per_sm = bwd_resident_per_sm(c, plan.tile_rows, plan.smem_gamma,
                                  plan.threads)
@@ -347,6 +597,16 @@ def test_backward_covers_every_c_the_forward_launches_at():
 
 
 @pytest.mark.parametrize("plan", [
+    GDNBackwardPlan(2, 40, 1, True, 0, 512, True),
+    GDNBackwardPlan(4, 32, 1, True, 0, 512, True),
+    GDNBackwardPlan(2, 32, 1, False, 0, 512, True),
+    GDNBackwardPlan(2, 32, 1, True, 1, 512, True),
+    GDNBackwardPlan(2, 32, 1, True, 0, 256, True),
+    GDNBackwardPlan(2, 64, 1, True, 0, 512, True),
+    GDNBackwardPlan(2, 16, 1, True, 0, 384, True),
+    GDNBackwardPlan(2, 16, 1, True, 0, 128, True),
+    GDNBackwardPlan(2, 32, 0, True, 0, 512, True),
+    GDNBackwardPlan(2, 32, 200, True, 0, 512, True),
     GDNBackwardPlan(3, 64, 1, True), GDNBackwardPlan(4, 48, 1, True),
     GDNBackwardPlan(4, 16, 1, True), GDNBackwardPlan(4, 64, 0, True),
     GDNBackwardPlan(4, 64, 200, True), GDNBackwardPlan(4, 256, 1, True),
@@ -357,17 +617,158 @@ def test_backward_covers_every_c_the_forward_launches_at():
     GDNBackwardPlan(2, 32, 1, True, 1, 512),
     GDNBackwardPlan(2, 64, 1, True, 1, 384)])
 def test_check_backward_plan_refuses_plans_without_a_kernel(plan):
-    """Rows per thread other than 2 or 4, tiles off the warps' rows, no
-    blocks or more blocks than tiles, too much shared memory at C = 100,
-    a flag that is not a bool; P3's sums kept with 4 rows a thread, with
-    gamma in global memory, by 9 warps, or by more warps than the block
-    has (C = 100: 16 warp tiles); 512 threads without a split, with tiles
-    too small for P3's sums, 384 threads."""
+    """On the tensor cores (C = 100): tiles off 16 rows, 4 rows a thread,
+    gamma in global memory, a split, 256 threads (P3's 14 warp tiles
+    need more than 8 warps), 64-row tiles (too much shared memory), 384
+    threads, 128 threads, no blocks or more blocks than tiles. On the CUDA
+    cores: rows
+    per thread other than 2 or 4, tiles off the warps' rows, no blocks or
+    more blocks than tiles, too much shared memory at C = 100, a flag that
+    is not a bool; P3's sums kept with 4 rows a thread, with gamma in
+    global memory, by 9 warps, or by more warps than the block has (C =
+    100: 16 warp tiles); 512 threads without a split, with tiles too small
+    for P3's sums, 384 threads."""
     with pytest.raises(ValueError):
         check_backward_plan(4099, 100, plan)
 
 
-# --- (d) routing on the CPU --------------------------------------------------
+# --- (d) the tensor cores' arithmetic and layout -------------------------
+
+def test_tf32_rounding_is_to_nearest_ties_away_with_13_bits_clear():
+    """`_tf32` (cvt.rna.tf32.f32): ties 1 +- 2^-11 go away from zero, a
+    value below the tie goes down; on random values of every exponent the
+    low 13 bits are clear and the result is the nearer of the two TF32
+    values around it (of 11 significant bits)."""
+    one = np.float32(1)
+    tie, below = one + np.float32(2 ** -11), np.nextafter(
+        one + np.float32(2 ** -11), one)
+    got = _tf32(np.array([tie, -tie, below, -below, 0, -0.0], np.float32))
+    want = [1 + 2 ** -10, -(1 + 2 ** -10), 1, -1, 0, 0]
+    np.testing.assert_array_equal(got, np.array(want, np.float32))
+    rng = np.random.default_rng(0)
+    a = (rng.normal(size=4096) * 2.0 ** rng.integers(-60, 60, 4096)).astype(
+        np.float32)
+    t = _tf32(a)
+    assert not (t.view(np.uint32) & np.uint32(0x1FFF)).any()
+    down = (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    up = (down.view(np.uint32) + np.uint32(0x2000)).view(np.float32)
+    err = np.abs(t.astype(np.float64) - a)
+    assert (err <= np.minimum(np.abs(down.astype(np.float64) - a),
+                              np.abs(up.astype(np.float64) - a))).all()
+    assert (err <= 2.0 ** -11 * np.abs(a.astype(np.float64))).all()
+
+
+@pytest.mark.parametrize("c", sorted({c for _, c in _train_path_shapes()}
+                                     | {BWD_MAX_CHANNELS}))
+def test_3xtf32_product_is_within_its_bound_of_float64(c):
+    """The 3xTF32 product with float32 accumulation (`_product_3xtf32`, as
+    the kernel's mma3) at every C of the rgb and shared4 train paths and
+    at BWD_MAX_CHANNELS, for P1's x^2 gamma^T, P2's u @ gamma and P3's
+    u^T x^2 (K = 64 rows): within (13 + 4 ceil(K / 8)) 2^-24 sum_k
+    |a_k b_k| of the float64 product at every output. The split drops
+    a_lo b_lo and the two splits' residues, at most ~3 2^-22 |a b| a
+    product; each of the 3 ceil(K / 8) MMAs rounds the float32 sum once."""
+    rng = np.random.default_rng(c)
+    x = rng.normal(size=(64, c)).astype(np.float32)
+    u = (rng.normal(size=(64, c)) * 1e-3).astype(np.float32)
+    gamma = (0.1 * np.eye(c) + 0.01 * rng.random((c, c))).astype(np.float32)
+    x2 = x * x
+    for a, b in ((x2, gamma.T), (u, gamma), (u.T, x2)):
+        got = _product_3xtf32(a, b).astype(np.float64)
+        a64, b64 = a.astype(np.float64), b.astype(np.float64)
+        bound = ((13 + 4 * _cdiv(a.shape[1], 8)) * 2.0 ** -24
+                 * (np.abs(a64) @ np.abs(b64)))
+        assert (np.abs(got - a64 @ b64) <= bound).all()
+    # one TF32 product (no split) is ~2^11 times further off
+    one = (_tf32(x2).astype(np.float64) @ _tf32(gamma.T).astype(np.float64))
+    exact = x2.astype(np.float64) @ gamma.T.astype(np.float64)
+    three = _product_3xtf32(x2, gamma.T).astype(np.float64)
+    assert np.abs(three - exact).max() * 64 < np.abs(one - exact).max()
+
+
+def _bank_pairs(ls, rows, cols):
+    """The 8-byte bank pair (of 16) of each (hi, lo) element read."""
+    return _sw(rows, cols, ls) % 16
+
+
+@pytest.mark.parametrize("c", [3, 10, 21, 42, 50, 100, 127])
+def test_mma_fragments_read_distinct_bank_pairs(c):
+    """Each 8-byte load of a fragment (gid = lane / 4, tig = lane % 4; the
+    card serves a warp's 8-byte loads a half-warp at a time): the 16 lanes
+    of a half-warp read 16 distinct bank pairs in every pattern the kernel
+    has, at any m16, n8 and k8 offset: A (rows gid (+8), columns tig (+4):
+    P1's x^2, P2's u) and P1's B (gamma^T: rows gid, columns tig (+4));
+    P2's and P3's B and P3's A (rows tig (+4), columns gid (+8): gamma,
+    x^2, u^T); and the epilogues' float2 reads of x and g (rows gid (+8),
+    columns 2 tig)."""
+    lf = bwd_mma_fstride(c)
+    assert lf % 16 == 8
+    for r0 in (0, 8, 16):
+        f = ((r0 + np.arange(32) // 4) * lf // 2 + np.arange(32) % 4) % 16
+        assert len(set(f[:16])) == len(set(f[16:])) == 16
+    ls = bwd_mma_stride(c)
+    assert ls % 8 == 4
+    lanes = np.arange(32)
+    gid, tig = lanes // 4, lanes % 4
+    for base_r in range(0, 64, 8):
+        for base_c in range(0, ls - 8, 8):
+            for dr, dc in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                if base_c + dc + 4 > ls:
+                    continue
+                a = _bank_pairs(ls, base_r + gid + dr, base_c + tig + dc)
+                for half in (a[:16], a[16:]):
+                    assert len(set(half)) == 16
+            for dr, dc in ((0, 0), (4, 0), (0, 8), (4, 8)):
+                if base_c + dc + 8 > ls:
+                    continue
+                b = _bank_pairs(ls, base_r + tig + dr, base_c + gid + dc)
+                for half in (b[:16], b[16:]):
+                    assert len(set(half)) == 16
+
+
+@pytest.mark.parametrize("n,c", _train_path_shapes())
+def test_backward_takes_the_tensor_cores_from_bwd_mma_min_channels(n, c):
+    """At every train-path shape the plan is the tensor cores' where they
+    have a plan (C <= 127) and C is at least BWD_MMA_MIN_CHANNELS or the
+    rows at most BWD_MMA_NARROW_ROWS, else the CUDA cores': the rgb step's
+    C = 3 and shared4's C = 1-21 at 131072 rows and more, and shared4's
+    C = 168 (split gamma does not fit a block). The tensor cores' plan:
+    256 threads two blocks an SM where P3's warp tiles fit 8 warps (C <=
+    63), else 512 threads one block (C = 100); 16-row tiles where those
+    leave each block one tile at most (1024 rows at C = 100), else 64 rows
+    (C <= 42) or 32."""
+    plan = gdn_backward_plan(n, c)
+    assert plan.mma == bwd_takes_mma(n, c)
+    assert plan.mma == ((c >= BWD_MMA_MIN_CHANNELS or n <= BWD_MMA_NARROW_ROWS)
+                        and c <= 127)
+    if not plan.mma:
+        return
+    per_sm = bwd_resident_per_sm(c, plan.tile_rows, True, plan.threads, True)
+    assert (plan.threads, per_sm) == ((256, 2) if c < 64 else (512, 1))
+    fits = (16, 32, 48, 64) if c <= 42 else (16, 32, 48)
+    one_tile = [t for t in fits if -(-n // t) <= SMS * per_sm]
+    assert plan.tile_rows == (one_tile[0] if one_tile
+                              else 64 if c <= 42 else 32)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::gdn_backward_kernel<float, 2, true, true, "
+     "256>(float const*, ...)", "gdn_backward"),
+    ("void (anonymous namespace)::gdn_backward_mma_kernel<__nv_bfloat16, "
+     "512>(__nv_bfloat16 const*, ...)", "gdn_backward"),
+    ("void (anonymous namespace)::gdn_backward_sum_kernel(float const*, ...)",
+     "gdn_backward_aux"),
+    ("void (anonymous namespace)::gdn_backward_pad_kernel(float const*, ...)",
+     "gdn_backward_aux")])
+def test_chip_smoke_counts_either_rows_kernel_as_a_backward_launch(name,
+                                                                   kind):
+    """chip_smoke's `kernel_kind`: a launch's rows kernel, on the CUDA
+    cores or the tensor cores, is its one "gdn_backward" record; the sum
+    and the padding of gamma are its aux records."""
+    assert chip_smoke.kernel_kind(name) == kind
+
+
+# --- (e) routing on the CPU --------------------------------------------------
 
 @pytest.mark.parametrize("inverse", [False, True])
 def test_gdn_function_on_the_cpu_takes_the_plain_backward(inverse):
