@@ -307,6 +307,7 @@ IMAGE = 256
 LATENT = 128
 CONV = 100
 BATCH, BATCHES, SEED = 8, 3, 0
+BENCH_BATCH = 64  # mmnc_tpu_torch.bench's batch (its widths are LATENT, CONV)
 WIDE_CONVS = (192, 300)  # phase 6: CompressAI's N, three tasks at bench width
 # phase 7: mmnc_tpu/cli/train.py's defaults (batch 16, lmbda 1e-2, learning
 # rates 1e-4 / 1e-3) over a 20-step schedule, clipped at 5.0
@@ -1122,17 +1123,23 @@ def check_deconv(torch, b, gen):
 
 def plan_note(b, h, w, cin, cout, plan):
     """A tiled plan's blocks and `tiled_config` (positions a thread, Cin
-    slices, Cin chunk, threads, shared memory), else "" (the split and
-    L2 kernels, and a checkout without `tiled_config`)."""
+    slices, Cin chunk, threads, shared memory), a tensor-core plan's blocks
+    and `tiled_mma_config` (n8 tiles a warp, N groups, Cin chunk, threads,
+    shared memory), else "" (the split and L2 kernels, and a checkout
+    without those configs)."""
     from mmnc_tpu_torch.ops import deconv_igdn
 
+    blocks = f"blocks={deconv_igdn.tiled_blocks(b, h, w, *plan[1:3], cout)} "
+    if plan[0] == "tiled_mma":
+        c = deconv_igdn.tiled_mma_config(h, w, cin, cout, plan[1], plan[2])
+        return (f"{blocks}nt={c.nt} ng={c.ng} chunk={c.chunk} "
+                f"threads={c.threads} smem={c.smem_bytes}")
     config = getattr(deconv_igdn, "tiled_config", None)
     if plan[0] != "tiled" or config is None:
         return ""
     c = config(b, h, w, cin, cout, plan[1], plan[2])
-    return (f"blocks={deconv_igdn.tiled_blocks(b, h, w, *plan[1:3], cout)} "
-            f"p={c.p} slices={c.slices} chunk={c.chunk} threads={c.threads} "
-            f"smem={c.smem_bytes}")
+    return (f"{blocks}p={c.p} slices={c.slices} chunk={c.chunk} "
+            f"threads={c.threads} smem={c.smem_bytes}")
 
 
 def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
@@ -1142,11 +1149,16 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
     by stage (check_deconv_bf16; the error reported is against the whole
     plain version), two launches bitwise equal; where the plan is the
     split kernel the tiled kernel forced at the same shape likewise
-    (unless forced=False). Then device ms of the kernel, the plain version
-    and the library call (F.conv_transpose2d in x's type) and the bound
-    (x's bytes and rate), printed with the plan (`plan_note`) and summed by
-    key; each shape's numbers also go to the list `rows` if one is given.
-    Returns (the sums, the largest error)."""
+    (unless forced=False), and where it is the tensor-core kernel
+    ("tiled_mma", bf16) the CUDA-core tiled kernel at `tile_shape`'s tiles
+    likewise, always. Then device ms of the kernel, the plain version and
+    the library call (F.conv_transpose2d in x's type) and the bound (x's
+    bytes and rate), printed with the plan (`plan_note`) and summed by key;
+    where the plan is "tiled_mma" the two paths are timed in turns (plan,
+    other, other, plan; each side's mean), and "cuda_core_ms" sums the
+    CUDA-core path's time at every shape, "mma_launches" the launches the
+    plan gives the tensor cores. Each shape's numbers also go to the list
+    `rows` if one is given. Returns (the sums, the largest error)."""
     import torch.nn.functional as F
 
     from mmnc_tpu_torch.ops.deconv_igdn import (deconv_igdn_cuda,
@@ -1159,9 +1171,10 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
     for (bb, h, w, cin, cout, mode), uses in shape_cases(groups).items():
         x, wt, taps, bias, gamma, beta = deconv_case(torch, gen, bb, h, w,
                                                      cin, cout, dtype)
-        plan = launch_plan(bb, h, w, cin, cout)
+        plan = launch_plan(bb, h, w, cin, cout, dtype=x.dtype)
+        mma = plan[0] == "tiled_mma"
         plans = [plan] + ([("tiled", *tile_shape(bb, h, w, cin, cout), 1)]
-                          if forced and plan[0] == "split" else [])
+                          if mma or (forced and plan[0] == "split") else [])
         for p in plans:
             where = (f"deconv_igdn {x.dtype} {(bb, h, w, cin, cout, mode)} "
                      f"plan {p}")
@@ -1185,8 +1198,19 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
                         if bf16 else "")
         x_nchw = x.permute(0, 3, 1, 2)
         wt_x, bias_x = wt.to(x.dtype), bias.to(x.dtype)
-        ms, host = time_ms(torch, lambda: deconv_igdn_cuda(
-            x, taps, bias, gamma, beta, mode))
+
+        def timed(p):
+            return time_ms(torch, lambda: deconv_igdn_cuda(
+                x, taps, bias, gamma, beta, mode, plan=p))
+
+        if mma:  # in turns: plan, other, other, plan
+            turns = [timed(p) for p in (plan, plans[1], plans[1], plan)]
+            ms, host = ((turns[0][i] + turns[3][i]) / 2 for i in (0, 1))
+            cc_ms = (turns[1][0] + turns[2][0]) / 2
+            other = (f" other_path={plans[1]} other_ms={cc_ms:.5f} "
+                     f"turns_ms={[round(t[0], 5) for t in turns]}")
+        else:
+            (ms, host), cc_ms, other = timed(plan), None, ""
         plain, plain_host = time_ms(torch, lambda: deconv_igdn_plain(
             x, taps, bias, gamma, beta, mode))
         lib, lib_host = time_ms(torch, lambda: F.conv_transpose2d(
@@ -1198,27 +1222,33 @@ def check_deconv_cases(torch, gen, groups, tol_rel, dtype=None, forced=True,
               f"{cin}) Cout={cout} mode={mode} plan={plan} {detail} launches="
               f"{json.dumps(uses, separators=(',', ':'))} "
               f"max_abs_err={err:.3e} (|ref|max {scale:.3g}{note}) "
-              f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f} "
+              f"bitwise_repeat=ok ms={ms:.5f} host_ms={host:.5f}{other} "
               f"plain_ms={plain:.5f} plain_host_ms={plain_host:.5f} "
               f"library_ms={lib:.5f} library_host_ms={lib_host:.5f} "
               f"bound_ms={bms:.5f} bound_by={by}")
         max_err_seen = max(max_err_seen, err)
         add_times(totals, uses, {"ms": ms, "host_ms": host,
                                    "plain_ms": plain, "library_ms": lib,
-                                   "bound_ms": bms}, by)
+                                   "bound_ms": bms,
+                                   "cuda_core_ms": ms if cc_ms is None
+                                   else cc_ms,
+                                   "mma_launches": float(mma)}, by)
         if rows is not None:
             rows.append({"shape": [bb, h, w, cin, cout], "mode": mode,
                          "dtype": "bf16" if bf16 else "f32",
                          "plan": list(plan), "detail": detail, "uses": uses,
                          "ms": ms, "library_ms": lib, "plain_ms": plain,
-                         "bound_ms": bms, "max_abs_err": err})
+                         "bound_ms": bms, "max_abs_err": err,
+                         "other_plan": list(plans[1]) if mma else None,
+                         "other_ms": cc_ms})
         del x, wt, taps, bias, gamma, beta
     return totals, max_err_seen
 
 
 # the port's kernel launches that the serving programs' CUDA graphs made in
-# their replays, which the wrappers never see (`tally_graph_launches`)
-REPLAYED = {k: 0 for k in KERNELS}
+# their replays, which the wrappers never see (`tally_graph_launches`), and
+# of the deconv+IGDN ones those on the tensor cores ("deconv_mma")
+REPLAYED = {k: 0 for k in KERNELS + ("deconv_mma",)}
 
 
 def wrapper_counts():
@@ -1238,11 +1268,19 @@ def counts():
     return {k: n + REPLAYED[k] for k, n in wrapper_counts().items()}
 
 
+def mma_count():
+    """The deconv+IGDN launches on the tensor cores: the wrapper's counter
+    where it launches that kernel, plus the serving graphs' replays of
+    it (REPLAYED)."""
+    from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
+    return deconv_igdn_cuda.mma_launches + REPLAYED["deconv_mma"]
+
+
 def reset_counts():
     from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
     from mmnc_tpu_torch.ops.gdn import gdn_backward_cuda, gdn_cuda
     gdn_cuda.launches = 0
-    deconv_igdn_cuda.launches = 0
+    deconv_igdn_cuda.launches = deconv_igdn_cuda.mma_launches = 0
     gdn_backward_cuda.launches = 0
     for k in REPLAYED:
         REPLAYED[k] = 0
@@ -1254,18 +1292,24 @@ def tally_graph_launches():
     graph holds, and add them to REPLAYED at each replay but the one that
     follows the capture in the same call (a capture call counts once, as
     the train call's: `graph_launched`). Profiled replays hold that count
-    to the graph's kernel records (`graph_launches`)."""
+    to the graph's kernel records (`graph_launches`). The tensor-core
+    deconv+IGDN launches are tallied likewise (`mma_count`)."""
     from mmnc_tpu_torch import graphs
+    from mmnc_tpu_torch.ops.deconv_igdn import deconv_igdn_cuda
 
     cls = graphs._Graph
     if getattr(cls, "tallied", False):
         return
     init, replay = cls.__init__, cls.replay
 
+    def counters():
+        return dict(wrapper_counts(),
+                    deconv_mma=deconv_igdn_cuda.mma_launches)
+
     def counted_init(self, *args, **kwargs):
-        before = wrapper_counts()
+        before = counters()
         init(self, *args, **kwargs)
-        after = wrapper_counts()
+        after = counters()
         self.launched = {k: after[k] - before[k] for k in after}
         self.captured = True
 
@@ -2475,7 +2519,8 @@ def profile_device(torch, fn, trace=None, tries=TIMING_TRIES, graph=None):
     union), records, by_kernel (ms of the device records of each
     `kernel_kind`), conv_ms (the records launched by cuDNN's
     convolutions), graph (`graph_launches`), kernels (kernel records of
-    each `kernel_kind`), lost (`lost_launches`)}; the chrome trace goes to
+    each `kernel_kind`), deconv_mma (the tensor-core deconv+IGDN kernel's
+    kernel records), lost (`lost_launches`)}; the chrome trace goes to
     `trace` if given."""
     run = profiled(torch, fn, trace, tries, complete=None if graph is None
                    else lambda ev: graph_launches(ev) == graph)
@@ -2484,6 +2529,8 @@ def profile_device(torch, fn, trace=None, tries=TIMING_TRIES, graph=None):
     conv = launched_in_spans(trace_events, lambda n: n.startswith(
         "aten::cudnn_convolution"))
     by_kernel, kernels = {}, {}
+    mma = sum(e.get("cat") == "kernel" and "deconv_igdn_mma" in e["name"]
+              for e in events)
     for e in events:
         kind = kernel_kind(e["name"])
         by_kernel[kind] = by_kernel.get(kind, 0.0) + e["dur"] / 1e3
@@ -2494,7 +2541,7 @@ def profile_device(torch, fn, trace=None, tries=TIMING_TRIES, graph=None):
             "busy_ms": busy_us(events) / 1e3, "records": len(events),
             "by_kernel": by_kernel, "conv_ms": conv / 1e3,
             "graph": graph_launches(trace_events), "kernels": kernels,
-            "lost": run["lost"]}
+            "deconv_mma": mma, "lost": run["lost"]}
 
 
 # --- the serving programs as CUDA graphs (graphs.py) -------------------------
@@ -2595,8 +2642,9 @@ def round_trips(torch, model, batches, want, label):
         compress's and one decompress's launches; eager: no graph
         records), the captures' host ms and the peak memory.
     Returns {mode: {"mps", "device_ms", "busy", "wall_ms", "capture_ms",
-    "peak", "profile", "launches"}, "outs", "answers", "n_bytes"}: the
-    graphed mode's counted trips' outputs."""
+    "peak", "profile", "launches", "mma_launches" (a counted trip's
+    deconv+IGDN launches on the tensor cores, `mma_count`)}, "outs",
+    "answers", "n_bytes"}: the graphed mode's counted trips' outputs."""
     from mmnc_tpu_torch import graphs
 
     per = {c: as_counts(want[c]) for c in ("compress", "decompress")}
@@ -2644,7 +2692,7 @@ def round_trips(torch, model, batches, want, label):
                 outs.append(x)
                 answers.append(ans)
                 n_bytes += nb
-            launches = counts()
+            launches, mma = counts(), mma_count()
             # graphed: the first trip captures what the warm-up did not
             # (an earlier call may have), the rest replay
             good = (all(k in ("capture", "replay") for k in kinds[:2])
@@ -2677,7 +2725,7 @@ def round_trips(torch, model, batches, want, label):
                 "wall_ms": prof["wall_ms"],
                 "capture_ms": capture_ms(graphs, model, marks),
                 "peak": torch.cuda.max_memory_allocated(), "profile": prof,
-                "launches": launches}
+                "launches": launches, "mma_launches": mma / len(batches)}
             if mode == "graphed":
                 out.update(outs=outs, answers=answers, n_bytes=n_bytes)
     return out
@@ -3012,6 +3060,7 @@ def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
           f"equal to the eval forward; graphed trips equal the eager ones "
           f"(deterministic cuDNN: streams, bytes, x_hats bitwise)")
     print_modes(f"bf16 rgb batch={BATCH} x {BATCHES}", trips, card)
+    mma = {"trip": check_mma_records(sums, "trip", "bf16 rgb", trips)}
     refs = stream_refs(torch, model, batches)
     with cudnn_deterministic(torch):
         exact_refs = stream_refs(torch, model, batches)
@@ -3047,6 +3096,8 @@ def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
     s4_seconds = BATCH * BATCHES * IMAGE * IMAGE / 1e6 / s4_mps
     s4_prof = s4_trips["graphed"]["profile"]
     s4_conv = s4_trips["eager"]["profile"]["conv_ms"]
+    mma["shared4"] = check_mma_records(sums, "shared4", f"bf16 {name}",
+                                       s4_trips)
     print_modes(f"bf16 {name} batch={BATCH} x {BATCHES}", s4_trips, card)
     print(f"bf16 {name} {PAPER[name]} batch={BATCH} batches={BATCHES}: "
           f"round trip {s4_seconds:.4f} s, {s4_mps:.3f} MP/s (phase 8's f32 "
@@ -3132,7 +3183,31 @@ def run_bf16(torch, f32_model, batches, train, mt, f32_trips, profile_dir,
             "shared4_launches": s4_launches, "train_launches": measured,
             "profiles": profs, "shared4_profile": s4_prof,
             "streams": streams, "peak_bytes": peak, "step_wall_ms": wall * 1e3,
-            "train_profile": prof, "trips": trips, "shared4_trips": s4_trips}
+            "train_profile": prof, "trips": trips, "shared4_trips": s4_trips,
+            "mma": mma}
+
+
+def check_mma_records(sums, key, what, trips):
+    """The tensor-core deconv+IGDN kernel in an eager and a graphed round
+    trip (`round_trips`): its launches a counted trip (`mma_count`: the
+    wrapper's counter where it launches that kernel, the graphs' replays
+    added) and its kernel records in the profiled trip, each held to the
+    launches the plan gives it at the trip's shapes (phase "bf16"'s sums
+    under `key`); the records may be short by the launches whose records
+    the profiler lost. Returns {mode: {"launches", "records"}}, as
+    measured."""
+    want = round(sums["deconv_igdn"][key]["mma_launches"])
+    got = {m: {"launches": trips[m]["mma_launches"],
+               "records": trips[m]["profile"]["deconv_mma"]}
+           for m in ("eager", "graphed")}
+    if want == 0 or any(
+            g["launches"] != want or not want - trips[m]["profile"]["lost"]
+            <= g["records"] <= want for m, g in got.items()):
+        raise RuntimeError(f"{what}: tensor-core deconv+IGDN launches and "
+                           f"records a trip {got}, the plan gives {want}")
+    print(f"{what}: deconv+IGDN launches a trip on the tensor cores, counted "
+          f"and profiled {json.dumps(got)} (the plan gives {want})")
+    return got
 
 
 def bf16_sums(bf, kernel):
@@ -3141,18 +3216,28 @@ def bf16_sums(bf, kernel):
     trip, a shared4 round trip and a train step."""
     def part(key):
         t = bf["sums"][kernel][key]
-        return {"launches_per_call": t["launches"], "ms": t["ms"],
-                "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"],
-                "bound_by": max(t["by"], key=t["by"].get),
-                "library_ms": t.get("library_ms")}
+        out = {"launches_per_call": t["launches"], "ms": t["ms"],
+               "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"],
+               "bound_by": max(t["by"], key=t["by"].get),
+               "library_ms": t.get("library_ms")}
+        if kernel == "deconv_igdn":
+            out.update(cuda_core_ms=t["cuda_core_ms"],
+                       mma_launches_per_call=bf["mma"][key]["graphed"][
+                           "launches"])
+        return out
 
     tolerance = f"{BF16_TOL} x max(1, |plain|max)"
     if kernel == "deconv_igdn":
         tolerance += (" of the plain epilogue on the kernel's y; the sums "
                       "round as cuDNN's but at a boundary within float32 "
                       "summation error; max_abs_err is against the whole "
-                      "plain version")
+                      "plain version; cuda_core_ms: the CUDA-core tiled "
+                      "path at every launch (timed in turns with the "
+                      "tensor cores' where the plan is theirs); "
+                      "mma_launches_per_call: a graphed trip's launches on "
+                      "the tensor cores, counted; mma: each mode's, counted, "
+                      "and the profiled trip's records of them")
     out = {"launches": bf["launches"][kernel],
            "max_abs_err": bf["worst"][kernel], "tolerance": tolerance,
            **part("trip"), "shared4": dict(
@@ -3160,6 +3245,8 @@ def bf16_sums(bf, kernel):
     if "train" in bf["sums"][kernel]:
         out["train"] = dict(part("train"),
                             launches=bf["train_launches"][kernel])
+    if kernel == "deconv_igdn":
+        out["mma"] = bf["mma"]
     return out
 
 
@@ -5175,12 +5262,25 @@ def profile_windows(torch, rounds, card):
         for wait, got in lost.items()}}))
 
 
+# bf16 shapes whose tensor-core plans have the n8 tiles a warp (kNT) that
+# no launch of the other groups plans: 5 and 8 (the 32x32 stage of an rgb
+# codec of conv 80 and 128), 6 in one N group (conv 96) and 1 (shared4's
+# 32x32 stage in a decode of one image)
+MMA_NT_SHAPES = [(BATCH, 32, 32, 40, 40, "igdn"),
+                 (BATCH, 32, 32, 64, 64, "igdn"),
+                 (BATCH, 32, 32, 48, 48, "igdn"), (1, 32, 32, 21, 21, "igdn")]
+
+
 def time_deconv(torch, tree, card):
     """`--time-deconv TREE`: phase 3's deconv+IGDN checks and device times
-    (forced plans left out) at every launch shape of an rgb and a shared4
-    round trip of BATCH images, in float32 and in bf16, on the kernel of
-    the checkout at TREE; then one JSON line: each shape's numbers and each
-    trip's sums of the kernel's and the library call's device ms."""
+    (the split shapes' forced tiled plans left out; where the plan is the
+    tensor-core kernel, the CUDA-core tiled kernel checked and timed beside
+    it in turns) at every launch shape of an rgb and a shared4 round trip
+    of BATCH images, of the bench's rgb trip of BENCH_BATCH, of an rgb trip
+    at conv 192 ("conv192") and of MMA_NT_SHAPES ("nt"), in float32 and in
+    bf16, on the kernel of the checkout at TREE; then one JSON line: each
+    shape's numbers and each group's sums of the kernel's, the CUDA-core
+    path's and the library call's device ms."""
     from mmnc_tpu_torch.ops import deconv_igdn
 
     if not deconv_igdn.__file__.startswith(os.path.abspath(tree)):
@@ -5188,15 +5288,18 @@ def time_deconv(torch, tree, card):
     gen = torch.Generator().manual_seed(SEED)
     groups = [(deconv_path_shapes(BATCH), "trip"),
               (mt_deconv_shapes(paper_layout(*PAPER["shared4"]), BATCH),
-               "shared4")]
+               "shared4"), (deconv_path_shapes(BENCH_BATCH), "bench"),
+              (deconv_path_shapes(BATCH, 192), "conv192"),
+              (MMA_NT_SHAPES, "nt")]
     rows, sums = [], {}
     for dtype, tag, tol in ((None, "f32", 1e-4),
                             (torch.bfloat16, "bf16", BF16_TOL)):
         tot, _ = check_deconv_cases(torch, gen, groups, tol, dtype,
                                     forced=False, rows=rows)
         for key, t in tot.items():
-            sums[f"{tag}_{key}"] = {k: t[k] for k in (
-                "launches", "ms", "library_ms", "plain_ms", "bound_ms")}
+            sums[f"{tag}_{key}"] = {k: t.get(k) for k in (
+                "launches", "ms", "library_ms", "plain_ms", "bound_ms",
+                "cuda_core_ms", "mma_launches")}
     print(json.dumps({"tree": tree, "card": card, "sums": sums,
                       "shapes": rows}))
 

@@ -99,19 +99,69 @@
 //   bitwise equal) and runs the bias + (I)GDN epilogue on whole pixels. A
 //   second cluster.sync() keeps each block's partials alive until the
 //   remote reads are done.
-// Plain FMAs, exact f32, no tensor cores.
+// These three: plain FMAs, exact f32, no tensor cores (the port's exact-f32
+// policy, device.py).
 //
 // bfloat16 activations (the bf16 model): x and out are bf16; the weights,
 // bias, gamma and beta stay float32 (the layer hands over values rounded to
-// bf16), so the weight staging and gamma's do not change. x widens to
-// float32 as it is staged (plain loads: a bf16 channel at an odd offset is
-// not 4-byte aligned for cp.async, and the split stages' inputs are 1x1 to
-// 4x4), the sums are float32, and y is rounded to bf16 before the epilogue
-// as the unfused chain rounds it: the sum of products (the bf16 conv's
-// output), then that + the bias (the bf16 bias add); the output is rounded
-// once more at the store. (Rounding sum + bias once instead differs from
-// the chain's two roundings in a large share of y values, and the IGDN,
-// which squares y, amplifies that difference.)
+// bf16), so the weight staging and gamma's do not change. The three kernels
+// widen x to float32 as they stage it (plain loads: a bf16 channel at an
+// odd offset is not 4-byte aligned for cp.async, and the split stages'
+// inputs are 1x1 to 4x4), sum in float32, and round y to bf16 before the
+// epilogue as the unfused chain rounds it: the sum of products (the bf16
+// conv's output), then that + the bias (the bf16 bias add); the output is
+// rounded once more at the store. (Rounding sum + bias once instead
+// differs from the chain's two roundings in a large share of y values, and
+// the IGDN, which squares y, amplifies that difference.)
+//
+// Tiled on the tensor cores (deconv_igdn_mma_kernel; bf16 only, the plan
+// "tiled_mma" in place of "tiled" where the tile's width is a multiple of
+// 8 and Cout > 4). With bf16 x the CUDA-core kernel lost to cuDNN's bf16
+// transposed conv, which runs on the tensor cores, at five stages by
+// 1.1-2.8x. A product of a bf16 value of x and a weight holding a bf16
+// value is exact in float32, so mma.sync.m16n8k16.f32.bf16.bf16.f32 changes
+// only the order of the float32 sums, as cuDNN's does. The block is the
+// tiled kernel's (image, tile, parity plane) and its sum an implicit GEMM:
+// M = the tile's positions, N = Cout padded to 8 nt ng, K = the plane's
+// taps x Cin padded to 16 (mma_plan: one m16 tile a warp, N split into ng
+// groups of nt n8 tiles where the tile has few positions):
+// - A: the input tile + halo in bf16, position-major [pixel][Cin padded +
+//   8], rows an odd number of 16 bytes apart so that ldmatrix's 8 rows fall
+//   in distinct banks. A halo row's pixels lie contiguous in x, so it is
+//   read by 16-byte loads and each value stored at its pixel and channel
+//   (2- and 4-byte copies a pixel were the slowest phase). A tap's A rows
+//   are the halo pixels shifted by its offset, and ldmatrix.x4 takes a row
+//   address a lane: no im2col copy.
+// - B: the plane's weight taps for a chunk of Cin, converted to bf16 as
+//   they are staged (__float2bfloat16_rn, exact: the weights hold bf16
+//   values) and kept as the (tap, Cin, Cout) rows of w, [slot][c][N
+//   padded], read by ldmatrix.x4.trans, two n8 tiles a load. cp.async
+//   cannot convert, so a thread loads its (row, column pair) items of
+//   chunk k + 1 into registers before chunk k's MMAs and stores them into
+//   the other of two stages after them: the loads are in flight while the
+//   tensor cores run. (Stages kept in float32, each lane packing its own
+//   fragments, cost 4 loads and 2 conversions an MMA and were slower at
+//   every rgb stage.)
+// - pads: every pad of K and N reads zeros, never an unwritten word (NaN x
+//   0 is NaN): a chunk's stores write its rows past Cin and its columns
+//   past Cout as 0, and the input tile starts zeroed.
+// - order: chunks, then taps in kernel-index order, then k16 steps; no
+//   split of K between warps or blocks, no atomics, nothing set by the
+//   mode: two launches are bitwise equal and a launch with gamma 0 and
+//   beta 1 reads back the same sums.
+// - epilogue: y (the sum rounded, + the bias, rounded) and y^2 go to shared
+//   memory and the tiled kernel's one-plane (I)GDN runs on the CUDA cores
+//   in float32 (plane_epilogue), y^2 skewed by 4 floats a position group
+//   so that the groups a warp reads at once fall in distinct banks.
+// What bounds it is not the MMAs: a block's staging, main loop and
+// epilogue run one after the other, one block an SM at the rgb stages (two
+// at shared4's 16x16 tiles), and every block stages the plane's whole
+// weight. Staging the input tile, the chunks' round trips to L2 where Cin
+// is large, and the epilogue's phase (not its FMAs) take most of a
+// block's time; the stages run at 19-77x their bound, and 16x16 100 -> 50
+// at batch 8 still loses to cuDNN (PERF.md §6). The plan's tiles give at least 128 blocks: every
+// block stages the whole weight, so fewer, larger tiles won
+// (ops/deconv_igdn.py:mma_tile_shape).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -287,6 +337,94 @@ __host__ __device__ __forceinline__ int parity_taps(int d, int p0, int t,
   return count;
 }
 
+// gamma transposed by the copies' addresses, gT[j cp + o] = gamma[o][j],
+// and beta (cp floats), by cp.async.
+__device__ __forceinline__ void stage_gamma(float* g_s, float* b_s,
+                                            const float* gamma,
+                                            const float* beta, int cout,
+                                            int cp) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  int o = tid / cout, j = tid - o * cout;
+  const int o_by = nthreads / cout, j_by = nthreads - o_by * cout;
+  for (int i = tid; i < cout * cout; i += nthreads) {
+    cp_async4(g_s + j * cp + o, gamma + i);
+    o += o_by;
+    j += j_by;
+    if (j >= cout) {
+      j -= cout;
+      ++o;
+    }
+  }
+  for (int i = tid; i < cout; i += nthreads) cp_async4(b_s + i, beta + i);
+}
+
+// The epilogue of a block that owns one parity plane (dh, dw) of the
+// ta x tb tile at (a0, b0): its y and y^2 in shared memory, y [position
+// in row-major tile order][cp], y^2 of position p at p cp + (p / kP)
+// skew, gT [j][cp] and beta (cp floats); item = (group of kP positions
+// along a tile row, channel quad), as the tiled kernel's main loop: per
+// input channel j one float4 of gT (4 output channels) and the group's kP
+// values of y^2 for 4 kP FMAs. Stores run along an output pixel's
+// channels. The norm sums over j in order from beta. (A group's y^2 rows
+// lie kP cp floats, a multiple of 32 banks, from the next group's: a skew
+// of 4 puts the groups a warp reads at once in distinct banks.)
+template <typename E, int kP>
+__device__ __forceinline__ void plane_epilogue(
+    const float* y_s, const float* y2_s, const float* g_s, const float* b_s,
+    E* __restrict__ out, int n, int h, int wd, int cout, int npos, int tb,
+    int a0, int b0, int edh, int edw, int mode, int skew) {
+  const int cq = (cout + 3) / 4, cp = 4 * cq;
+  const int oh = 2 * h, ow = 2 * wd;
+  for (int e = threadIdx.x; e < npos / kP * cq; e += blockDim.x) {
+    const int eg = e / cq;
+    const int o = 4 * (e - eg * cq);
+    const int row = eg * kP / tb, col0 = eg * kP % tb;
+    const int at = (row * tb + col0) * cp;
+    const float* y2g = y2_s + at + eg * skew;
+    float norm[kP][4];
+    if (mode) {
+      const float4 b4 = *reinterpret_cast<const float4*>(b_s + o);
+#pragma unroll
+      for (int i = 0; i < kP; ++i) {
+        norm[i][0] = b4.x;
+        norm[i][1] = b4.y;
+        norm[i][2] = b4.z;
+        norm[i][3] = b4.w;
+      }
+#pragma unroll 2
+      for (int j = 0; j < cout; ++j) {
+        const float4 g4 = *reinterpret_cast<const float4*>(g_s + j * cp + o);
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const float yy = y2g[i * cp + j];
+          norm[i][0] = fmaf(g4.x, yy, norm[i][0]);
+          norm[i][1] = fmaf(g4.y, yy, norm[i][1]);
+          norm[i][2] = fmaf(g4.z, yy, norm[i][2]);
+          norm[i][3] = fmaf(g4.w, yy, norm[i][3]);
+        }
+      }
+    }
+    const int ia = a0 + row;
+    if (ia >= h) continue;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int ib = b0 + col0 + i;
+      if (ib >= wd) break;
+      const float4 y4 = *reinterpret_cast<const float4*>(y_s + at + i * cp + o);
+      const float v[4] = {y4.x, y4.y, y4.z, y4.w};
+      E* dst = out + ((static_cast<long long>(n) * oh + 2 * ia + edh) * ow +
+                      2 * ib + edw) * cout + o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (o + j >= cout) break;
+        float r = v[j];
+        if (mode) r = (mode == 1) ? r * sqrtf(norm[i][j]) : r * rsqrtf(norm[i][j]);
+        dst[j] = narrow<E>(r);
+      }
+    }
+  }
+}
+
 // Grid (4 x tiles, B), or (tiles, B) where cout <= 4: block (tile, image)
 // owns the parity planes q = 2 dh + dw of a ta x tb tile (q from the
 // block, 4 tile + q, or, where Cout <= 4, all four planes, q from the
@@ -402,20 +540,7 @@ deconv_igdn_tiled_kernel(const E* __restrict__ x, const float* __restrict__ w,
   // Group 0: chunk 0, gamma (transposed by the copies' addresses) and
   // beta, and in float32 the input tile.
   stage_chunk(0);
-  if (mode) {
-    int o = tid / cout, j = tid - o * cout;
-    const int o_by = nthreads / cout, j_by = nthreads - o_by * cout;
-    for (int i = tid; i < cout * cout; i += nthreads) {
-      cp_async4(g_s + j * cp + o, gamma + i);
-      o += o_by;
-      j += j_by;
-      if (j >= cout) {
-        j -= cout;
-        ++o;
-      }
-    }
-    for (int i = tid; i < cout; i += nthreads) cp_async4(b_s + i, beta + i);
-  }
+  if (mode) stage_gamma(g_s, b_s, gamma, beta, cout, cp);
   // The input tile + halo, zero outside the image: x_s[ci][r][c] =
   // x[n][a0 - 1 + r][b0 - 1 + c][ci], element i = (r wx + c) cin + ci read
   // along i (coalesced), (ci, r, c) kept by adds. float32 by cp.async;
@@ -659,65 +784,342 @@ deconv_igdn_tiled_kernel(const E* __restrict__ x, const float* __restrict__ w,
     }
     return;
   }
-  // one plane: item = (position group, channel quad), the main loop's
-  // roles: per input channel j one float4 of gT (4 output channels) and
-  // the group's kP values of y^2 for 4 kP FMAs. Stores run along an output
-  // pixel's channels.
-  for (int e = tid; e < nq * base; e += nthreads) {
-    const int eu = e / base, eg = (e - eu * base) / cq;
-    const int o = 4 * (e - eu * base - eg * cq);
-    int edh = 0, edw = 0;
+  plane_epilogue<E, kP>(y_s, y2_s, g_s, b_s, out, n, h, wd, cout, npos, tb,
+                        a0, b0, pq[0] >> 1, pq[0] & 1, mode, 0);
+}
+
+// ---- tiled kernel on the tensor cores (bf16) ------------------------------
+
+constexpr int kMmaMaxWarps = 16;  // warps a block, at most
+constexpr int kMmaMinWarps = 8;   // warps a block aims for (N groups)
+constexpr int kMmaMaxNT = 8;      // n8 tiles a warp, at most
+constexpr int kMmaP = 8;          // epilogue positions a thread
+constexpr int kMmaItems = 2;  // (row, column pair) items a thread stages
+// Blocks an SM a tensor-core kernel of kNT n8 tiles a warp and kItems
+// staged items a thread is compiled for (__launch_bounds__): two
+// 512-thread blocks (64 registers a thread) where its sums and staged
+// weights are few.
+template <int kNT, int kItems>
+constexpr int mma_min_blocks() {
+  return kNT <= 3 && kItems == 1 ? 2 : 1;
+}
+constexpr int kMmaSkew = 4;       // the epilogue's y^2 skew, floats a group
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Four 8x8 matrices, transposed: lane L gets rows 2 (L % 4), 2 (L % 4) + 1
+// of column L / 4 of each.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr,
+                                                  unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr,
+                                                  unsigned (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// Two float32 values that hold bf16 values as one bf16x2 register: lo in
+// the low half (the lower k of a fragment pair). Exact.
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  union {
+    __nv_bfloat162 v;
+    unsigned u;
+  } p;
+  p.v = __floats2bfloat162_rn(lo, hi);
+  return p.u;
+}
+
+// d += a (16 x 16, row) b (16 x 8, col): bf16 products, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (4 x tiles, B): block (4 tile + q, image) owns parity plane q = 2 dh
+// + dw of a ta x tb tile (tb a multiple of 8) with all Cout channels, as
+// the tiled kernel's one-plane blocks. The plane's sum is an implicit GEMM:
+// M = the tile's positions (row-major), N = Cout padded to np = 8 kNT ng,
+// K = the plane's taps x Cin padded to kx = 16 ceil(Cin / 16). Warp (mi,
+// ni), ni fastest, owns the m16 tile of positions 16 mi.. and the kNT n8
+// tiles of channels 8 kNT ni..; see mma_plan. Dynamic shared memory (bytes
+// from 0): the weight stages in bf16, [slot][chunk][nb] (two, one where a
+// chunk holds all of Cin; after the main loop y and y^2 in float32, y
+// [position][cp], y^2 skewed), the input tile + halo in bf16 [pixel][kx +
+// 8], gT [cout][cp] and beta (cp) in float32. kItems: the staged (row,
+// column pair) items a thread, mma_plan's items.
+template <int kNT, int kItems>
+__global__ void __launch_bounds__(kMmaMaxWarps * 32,
+                                  mma_min_blocks<kNT, kItems>())
+deconv_igdn_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       __nv_bfloat16* __restrict__ out, int h, int wd,
+                       int cin, int cout, int ta, int tb, int mode, int ng,
+                       int chunk, int nv) {
+  extern __shared__ float4 smem4[];
+  const int cp = (cout + 3) / 4 * 4;
+  const int npos = ta * tb;
+  const int wx = tb + 2, hw = (ta + 2) * wx;
+  const int np = 8 * kNT * ng;
+  const int nb = np + ((np / 8) % 2 ? 0 : 8);  // stage row, bf16: odd x 16 B
+  const int kx = (cin + 15) / 16 * 16;          // K of a tap, Cin padded
+  const int xs = kx + 8;  // tile row, bf16: an odd number of 16 bytes
+  const int stage_elems = nv * chunk * nb;
+  const int nchunks = (cin + chunk - 1) / chunk;
+  const int stage_bytes = (nchunks > 1 ? 2 : 1) * stage_elems * 2;
+  const int y_bytes = 4 * (2 * npos * cp + npos / kMmaP * kMmaSkew);
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(
+      smem + (stage_bytes > y_bytes ? stage_bytes : y_bytes));
+  float* g_s = reinterpret_cast<float*>(x_s + hw * xs);  // gT[j cp + o]
+  float* b_s = g_s + cout * cp;                          // beta, cp floats
+
+  const int tiles_w = (wd + tb - 1) / tb;
+  const int tile = blockIdx.x >> 2, q = blockIdx.x & 3;
+  const int dh = q >> 1, dw = q & 1;
+  const int a0 = tile / tiles_w * ta, b0 = tile % tiles_w * tb;
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  int t_lo, s_lo;
+  const int nt = parity_taps(dh, a0, ta, h, &t_lo);
+  const int ns = parity_taps(dw, b0, tb, wd, &s_lo);
+  const int ntaps = nt * ns;
+  // tap_s[slot]: offset in w of tap (t, s) = (t_lo + slot / ns, s_lo +
+  // slot % ns), kernel index (2t + dh) * 5 + 2s + dw, for Cin 0.
+  __shared__ int tap_s[9];
+  if (tid < ntaps)
+    tap_s[tid] = ((2 * (t_lo + tid / ns) + dh) * 5 + 2 * (s_lo + tid % ns) +
+                  dw) * cin * cout;
+  // The input tile starts zeroed: pixels outside the image and channels
+  // Cin.. kx - 1 stay so (a pad of K reads 0, never an unwritten word).
+  for (int i = tid; i < hw * xs / 8; i += nthreads)
+    reinterpret_cast<uint4*>(x_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // The weight stages, through registers: item e = (row c, column pair o2)
+  // of a chunk, e = tid, tid + nthreads (at most kItems a thread), over
+  // every tap slot: w_s[k % 2][slot][c][2 o2 + i] = w[tap][k chunk + c][2
+  // o2 + i] rounded to bf16 (exact: the weights hold bf16 values), 0 past
+  // Cin and past Cout. Every word a chunk's MMAs read is written, pads
+  // included (NaN x 0 is NaN). A chunk's loads go out before the previous
+  // chunk's MMAs, their stores after them.
+  const int pairs = np / 2;
+  const bool wide = cout % 2 == 0 &&
+                    reinterpret_cast<unsigned long long>(w) % 8 == 0;
+  float2 wv[kItems][9];
+  auto load_chunk = [&](int k) {
+    const int c0 = k * chunk;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      if (v == eu) {
-        edh = pq[v] >> 1;
-        edw = pq[v] & 1;
-      }
-    }
-    const int row = eg * kP / tb, col0 = eg * kP % tb;
-    const int at = (eu * npos + row * tb + col0) * cp;
-    float norm[kP][4];
-    if (mode) {
-      const float4 b4 = *reinterpret_cast<const float4*>(b_s + o);
+    for (int it = 0; it < kItems; ++it) {
+      const int e = tid + it * nthreads;
+      const int c = e / pairs, o = 2 * (e - c * pairs);
+      const bool live = c < chunk && c0 + c < cin && o < cout;
+      const float* src = w + (c0 + c) * cout + o;
 #pragma unroll
-      for (int i = 0; i < kP; ++i) {
-        norm[i][0] = b4.x;
-        norm[i][1] = b4.y;
-        norm[i][2] = b4.z;
-        norm[i][3] = b4.w;
-      }
-#pragma unroll 2
-      for (int j = 0; j < cout; ++j) {
-        const float4 g4 = *reinterpret_cast<const float4*>(g_s + j * cp + o);
-#pragma unroll
-        for (int i = 0; i < kP; ++i) {
-          const float yy = y2_s[at + i * cp + j];
-          norm[i][0] = fmaf(g4.x, yy, norm[i][0]);
-          norm[i][1] = fmaf(g4.y, yy, norm[i][1]);
-          norm[i][2] = fmaf(g4.z, yy, norm[i][2]);
-          norm[i][3] = fmaf(g4.w, yy, norm[i][3]);
+      for (int slot = 0; slot < 9; ++slot) {
+        wv[it][slot] = make_float2(0.f, 0.f);
+        if (slot < ntaps && live) {
+          if (wide) {
+            wv[it][slot] =
+                __ldg(reinterpret_cast<const float2*>(src + tap_s[slot]));
+          } else {
+            wv[it][slot].x = __ldg(src + tap_s[slot]);
+            if (o + 1 < cout) wv[it][slot].y = __ldg(src + tap_s[slot] + 1);
+          }
         }
       }
     }
-    const int ia = a0 + row;
-    if (ia >= h) continue;
+  };
+  auto store_chunk = [&](int k) {
+    unsigned* dst = reinterpret_cast<unsigned*>(w_s + (k & 1) * stage_elems);
 #pragma unroll
-    for (int i = 0; i < kP; ++i) {
-      const int ib = b0 + col0 + i;
-      if (ib >= wd) break;
-      const float4 y4 = *reinterpret_cast<const float4*>(y_s + at + i * cp + o);
-      const float v[4] = {y4.x, y4.y, y4.z, y4.w};
-      E* dst = out + ((static_cast<long long>(n) * oh + 2 * ia + edh) * ow +
-                      2 * ib + edw) * cout + o;
+    for (int it = 0; it < kItems; ++it) {
+      const int e = tid + it * nthreads;
+      const int c = e / pairs, o2 = e - c * pairs;
+      if (c < chunk) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (o + j >= cout) break;
-        float r = v[j];
-        if (mode) r = (mode == 1) ? r * sqrtf(norm[i][j]) : r * rsqrtf(norm[i][j]);
-        dst[j] = narrow<E>(r);
+        for (int slot = 0; slot < 9; ++slot)
+          if (slot < ntaps)
+            dst[((slot * chunk + c) * nb) / 2 + o2] =
+                bf16x2(wv[it][slot].x, wv[it][slot].y);
+      }
+    }
+  };
+  load_chunk(0);
+  if (mode) stage_gamma(g_s, b_s, gamma, beta, cout, cp);
+  // The input tile + halo: x_s[r wx + col][c] = x[n][a0 - 1 + r][b0 - 1 +
+  // col][c] for the pixels in the image. A halo row's pixels in the image
+  // lie contiguous in x: item (r, j) loads the row's j-th 16-byte aligned
+  // chunk (the first and the last may reach up to 15 bytes past the row:
+  // an aligned 16-byte load that holds a byte of x stays within x's mapped
+  // pages) and stores its 2-byte values that belong to the row at their
+  // pixel and channel, kXBatch chunks in flight a thread. (2- and 4-byte
+  // copies of a pixel's channels were the slowest phase of the kernel.)
+  const int ib_lo = b0 > 0 ? b0 - 1 : 0;
+  const int ib_hi = b0 + tb + 1 < wd ? b0 + tb + 1 : wd;
+  const int row_elems = (ib_hi - ib_lo) * cin;   // of a halo row, in x
+  const int col_lo = ib_lo - (b0 - 1);           // its first pixel's column
+  const int row_chunks = row_elems / 8 + 2;      // 16-byte chunks, at most
+  const int x_items = (ta + 2) * row_chunks;
+  const unsigned long long xa = reinterpret_cast<unsigned long long>(x);
+  constexpr int kXBatch = 4;
+  for (int i0 = tid; i0 < x_items; i0 += kXBatch * nthreads) {
+    uint4 v[kXBatch];
+    int row[kXBatch], off[kXBatch];
+#pragma unroll
+    for (int b = 0; b < kXBatch; ++b) {
+      const int i = i0 + b * nthreads;
+      row[b] = -1;
+      const int r = i / row_chunks, ia = a0 - 1 + r;
+      if (i < x_items && ia >= 0 && ia < h) {
+        const unsigned long long start =
+            xa + 2ull * ((static_cast<unsigned long long>(n) * h + ia) * wd +
+                         ib_lo) * cin;
+        const unsigned long long at = (start & ~15ull) + 16ull * (i - r *
+                                                                  row_chunks);
+        if (at < start + 2ull * row_elems) {
+          v[b] = __ldg(reinterpret_cast<const uint4*>(at));
+          row[b] = r;
+          off[b] = static_cast<int>(static_cast<long long>(at - start) / 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kXBatch; ++b) {
+      if (row[b] < 0) continue;
+      const unsigned words[4] = {v[b].x, v[b].y, v[b].z, v[b].w};
+      const int e0 = off[b] > 0 ? off[b] : 0;
+      int pix = e0 / cin, ch = e0 - pix * cin;
+      unsigned short* dst = reinterpret_cast<unsigned short*>(x_s) +
+                            (row[b] * wx + col_lo) * xs;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int e = off[b] + k;
+        if (e >= e0 && e < row_elems) {
+          dst[pix * xs + ch] =
+              static_cast<unsigned short>(words[k >> 1] >> (16 * (k & 1)));
+          if (++ch == cin) {
+            ch = 0;
+            ++pix;
+          }
+        }
       }
     }
   }
+
+  store_chunk(0);
+  cp_async_wait_all();  // gamma
+  __syncthreads();
+
+  // Fragments (mma.m16n8k16): A from the tile by ldmatrix.x4, lane L giving
+  // the row address of position 16 mi + L % 16 (clamped to the tile; rows
+  // past it are not stored) at channel 8 (L / 16); B from the stage by
+  // ldmatrix.x4.trans, two n8 tiles at a time, lane L giving the address
+  // of row L % 8 + 8 (L / 8 % 2) of n8 tile L / 16 (x2 for a last odd
+  // tile); the sums in float32 registers, (rows g, g + 8) x (columns 2t, 2t
+  // + 1) of each n8 tile, (g, t) = (L / 4, L % 4). For tap (t, s) of the
+  // plane, the A row of position (pa, pb) is halo pixel (pa + t + dh) wx +
+  // pb + s + dw.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int mi = warp / ng, ni = warp - mi * ng;
+  const int g = lane >> 2, t4 = lane & 3;
+  int p = 16 * mi + (lane & 15);
+  p = p < npos ? p : npos - 1;
+  const unsigned a_lane =
+      smem_addr(x_s + ((p / tb + t_lo + dh) * wx + p % tb + s_lo + dw) * xs +
+                (lane >> 4) * 8);
+  const unsigned b_lane = smem_addr(
+      w_s + ((lane & 7) + 8 * ((lane >> 3) & 1)) * nb + 8 * kNT * ni +
+      8 * (lane >> 4));
+  float bv[kNT][2];  // the bias of the lane's sums' columns, 0 past Cout
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int o = 8 * (kNT * ni + j) + 2 * t4 + i;
+      bv[j][i] = o < cout ? __ldg(bias + o) : 0.f;
+    }
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = acc_start<__nv_bfloat16>(0.f);
+
+  // K in a fixed order: chunks, then taps in kernel-index order, then k16
+  // steps; no split of K between warps or blocks.
+  for (int k = 0; k < nchunks; ++k) {
+    if (k + 1 < nchunks) load_chunk(k + 1);
+    const int c0 = k * chunk;
+    const int steps = (kx - c0 < chunk ? kx - c0 : chunk) / 16;
+    const unsigned b_stage = b_lane + (k & 1) * stage_elems * 2;
+    for (int ti = 0; ti < nt; ++ti) {
+      for (int si = 0; si < ns; ++si) {
+        const unsigned a_tap = a_lane + ((ti * wx + si) * xs + c0) * 2;
+        const unsigned b_tap = b_stage + (ti * ns + si) * chunk * nb * 2;
+        for (int kk = 0; kk < steps; ++kk) {
+          unsigned a[4];
+          ldmatrix_x4(a_tap + kk * 32, a);
+          const unsigned b16 = b_tap + kk * 16 * nb * 2;
+#pragma unroll
+          for (int j = 0; j + 1 < kNT; j += 2) {
+            unsigned b[4];
+            ldmatrix_x4_trans(b16 + j * 16, b);
+            mma_bf16(acc[j], a, b[0], b[1]);
+            mma_bf16(acc[j + 1], a, b[2], b[3]);
+          }
+          if (kNT % 2) {
+            unsigned b[2];
+            ldmatrix_x2_trans(b16 + (kNT - 1) * 16, b);
+            mma_bf16(acc[kNT - 1], a, b[0], b[1]);
+          }
+        }
+      }
+    }
+    if (k + 1 < nchunks) store_chunk(k + 1);  // last read before the last sync
+    __syncthreads();
+  }
+
+  // y (the sum rounded, plus the bias, rounded) and y^2 over the dead
+  // stages, [position][cp]; then the one-plane epilogue on the CUDA cores.
+  float* y_s = reinterpret_cast<float*>(smem);
+  float* y2_s = y_s + npos * cp;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int o0 = 8 * (kNT * ni + j) + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int pos = 16 * mi + g + 8 * (i >> 1), o = o0 + (i & 1);
+      if (pos < npos && o < cp) {
+        const float v = pre_activation<__nv_bfloat16>(acc[j][i], bv[j][i & 1]);
+        y_s[pos * cp + o] = v;
+        y2_s[pos * cp + pos / kMmaP * kMmaSkew + o] = v * v;
+      }
+    }
+  }
+  __syncthreads();
+  plane_epilogue<__nv_bfloat16, kMmaP>(y_s, y2_s, g_s, b_s, out, n, h, wd,
+                                       cout, npos, tb, a0, b0, dh, dw, mode,
+                                       kMmaSkew);
 }
 
 // ---- tiled kernel with gamma in L2 --------------------------------------
@@ -1249,6 +1651,139 @@ int launch_tiled_p(const void* x, const float* w, const float* bias,
   }
 }
 
+// The tensor-core kernel's plan for ta x tb tiles (ops/deconv_igdn.py:
+// tiled_mma_config mirrors it); threads == 0 where none fits.
+struct MmaPlan {
+  int nt;      // n8 tiles a warp: ceil(ceil(Cout / 8) / ng)
+  int ng;      // N groups: the fewest (with at most kMmaMaxNT n8 tiles a
+               // warp) that give the block kMmaMinWarps warps, less any
+               // that nt n8 tiles a group leave wholly past Cout
+  int chunk;   // Cin channels a stage, a multiple of 16: the largest, from
+               // kx down, whose (row, column pair) items come to at most
+               // kMmaItems a thread and that fits kHalfSmem, else kMaxSmem
+  int nv;      // weight rows of a stage: the most taps a plane reads
+  int threads;  // 32 x ceil(ta tb / 16) x ng
+  int items;    // staged (row, column pair) items a thread: 1 or 2
+  int smem_bytes;
+};
+
+int mma_smem_bytes(int ta, int tb, int cin, int cout, int np, int nv,
+                   int chunk) {
+  const int cp = (cout + 3) / 4 * 4;
+  const int nb = np + ((np / 8) % 2 ? 0 : 8);
+  const int stages = 2 * (chunk < cin ? 2 : 1) * nv * chunk * nb;
+  const int ys = 4 * (2 * ta * tb * cp + ta * tb / kMmaP * kMmaSkew);
+  return (stages > ys ? stages : ys) +
+         2 * (ta + 2) * (tb + 2) * ((cin + 15) / 16 * 16 + 8) +
+         4 * (cout * cp + cp);
+}
+
+MmaPlan mma_plan(int h, int wd, int cin, int cout, int ta, int tb) {
+  MmaPlan plan = {};
+  if (ta < 1 || tb < 1 || tb % 8 || cin < 1 || cout <= 4) return plan;
+  const int mt = (ta * tb + 15) / 16, ntiles = (cout + 7) / 8;
+  int ng = (ntiles + kMmaMaxNT - 1) / kMmaMaxNT;
+  while (mt * ng < kMmaMinWarps && ng < ntiles) ++ng;
+  const int nt = (ntiles + ng - 1) / ng;
+  ng = (ntiles + nt - 1) / nt;  // no group wholly past Cout
+  if (mt * ng > kMmaMaxWarps) return plan;
+  int nv = 0;
+  for (int q = 0; q < 4; ++q) {
+    const int taps =
+        max_parity_taps(h, ta, q >> 1) * max_parity_taps(wd, tb, q & 1);
+    nv = taps > nv ? taps : nv;
+  }
+  const int kx = (cin + 15) / 16 * 16;
+  const int threads = 32 * mt * ng;
+  int chunk = 0;
+  for (int pass = 0; pass < 2 && !chunk; ++pass)
+    for (int c = kx; c >= 16 && !chunk; c -= 16)
+      if (c * 4 * nt * ng <= kMmaItems * threads &&
+          mma_smem_bytes(ta, tb, cin, cout, 8 * nt * ng, nv, c) <=
+              (pass == 0 ? kHalfSmem : kMaxSmem))
+        chunk = c;
+  if (!chunk) return plan;
+  plan.nt = nt;
+  plan.ng = ng;
+  plan.chunk = chunk;
+  plan.nv = nv;
+  plan.threads = threads;
+  plan.items = (chunk * 4 * nt * ng + threads - 1) / threads;
+  plan.smem_bytes = mma_smem_bytes(ta, tb, cin, cout, 8 * nt * ng, nv, chunk);
+  return plan;
+}
+
+template <int kNT, int kItems>
+cudaError_t mma_ready() {
+  static const cudaError_t err =
+      allow_max_smem(deconv_igdn_mma_kernel<kNT, kItems>);
+  return err;
+}
+
+template <int kNT, int kItems>
+int launch_mma_items(const void* x, const float* w, const float* bias,
+                     const float* gamma, const float* beta, void* out, int b,
+                     int h, int wd, int cin, int cout, int ta, int tb,
+                     int mode, const MmaPlan& plan, cudaStream_t st) {
+  const cudaError_t ready = mma_ready<kNT, kItems>();
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int tiles = ((h + ta - 1) / ta) * ((wd + tb - 1) / tb);
+  deconv_igdn_mma_kernel<kNT, kItems>
+      <<<dim3(4 * tiles, b), plan.threads, plan.smem_bytes, st>>>(
+          static_cast<const __nv_bfloat16*>(x), w, bias, gamma, beta,
+          static_cast<__nv_bfloat16*>(out), h, wd, cin, cout, ta, tb, mode,
+          plan.ng, plan.chunk, plan.nv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNT>
+int launch_mma_nt(const void* x, const float* w, const float* bias,
+                  const float* gamma, const float* beta, void* out, int b,
+                  int h, int wd, int cin, int cout, int ta, int tb, int mode,
+                  const MmaPlan& plan, cudaStream_t st) {
+  if (plan.items == 1)
+    return launch_mma_items<kNT, 1>(x, w, bias, gamma, beta, out, b, h, wd,
+                                    cin, cout, ta, tb, mode, plan, st);
+  return launch_mma_items<kNT, kMmaItems>(x, w, bias, gamma, beta, out, b, h,
+                                          wd, cin, cout, ta, tb, mode, plan,
+                                          st);
+}
+
+int launch_mma(const void* x, const float* w, const float* bias,
+               const float* gamma, const float* beta, void* out, int b, int h,
+               int wd, int cin, int cout, int ta, int tb, int mode,
+               cudaStream_t st) {
+  const MmaPlan plan = mma_plan(h, wd, cin, cout, ta, tb);
+  switch (plan.threads ? plan.nt : 0) {
+    case 1:
+      return launch_mma_nt<1>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 2:
+      return launch_mma_nt<2>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 3:
+      return launch_mma_nt<3>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 4:
+      return launch_mma_nt<4>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 5:
+      return launch_mma_nt<5>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 6:
+      return launch_mma_nt<6>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 7:
+      return launch_mma_nt<7>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    case 8:
+      return launch_mma_nt<8>(x, w, bias, gamma, beta, out, b, h, wd, cin,
+                              cout, ta, tb, mode, plan, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename E, int kCols>
 cudaError_t l2_ready() {
   static const cudaError_t err =
@@ -1320,7 +1855,7 @@ template <typename E>
 int launch_type(const void* x, const float* w, const float* bias,
                 const float* gamma, const float* beta, void* out, int b,
                 int h, int wd, int cin, int cout, int ta, int tb, int splits,
-                int mode, int gamma_l2, cudaStream_t st) {
+                int mode, int variant, cudaStream_t st) {
   if (splits != 1) {
     const bool ok = (splits == 2 || splits == 4 || splits == 8) && ta == tb &&
                     cout > 0 && cout % 4 == 0 && cout <= 128;
@@ -1335,7 +1870,13 @@ int launch_type(const void* x, const float* w, const float* bias,
                                 cout, splits, mode, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (gamma_l2) {
+  if (variant == 2) {
+    if (std::is_same<E, float>::value)  // exact f32: not on the tensor cores
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mma(x, w, bias, gamma, beta, out, b, h, wd, cin, cout, ta,
+                      tb, mode, st);
+  }
+  if (variant == 1) {
     // ops/deconv_igdn.py:l2_smem_bytes mirrors this
     const size_t floats = static_cast<size_t>((ta + 2) * (tb + 2) * cin) +
                           static_cast<size_t>(4 * ta * tb * cout) +
@@ -1363,12 +1904,14 @@ int launch_type(const void* x, const float* w, const float* bias,
 // x (b, h, wd, cin) and out (b, 2h, 2wd, cout), float32, or bfloat16 where
 // bf16 != 0; w (5, 5, cin, cout), bias (cout,), gamma (cout, cout) and beta
 // (cout,) (ignored when mode == 0) float32; all contiguous. mode: 0 none,
-// 1 IGDN, 2 GDN. splits == 1: the tiled kernel on ta x tb tiles, one block
-// per tile and parity plane (tiled_plan); gamma_l2 != 0 instead the kernel
-// that leaves gamma in global memory, one block per tile (a tb that is a
-// multiple of 4 runs 4 columns per thread, any other tb one;
+// 1 IGDN, 2 GDN. splits == 1: variant 0, the tiled kernel on ta x tb
+// tiles, one block per tile and parity plane (tiled_plan); variant 1, the
+// kernel that leaves gamma in global memory, one block per tile (a tb that
+// is a multiple of 4 runs 4 columns per thread, any other tb one;
 // ops/deconv_igdn.py:launch_plan picks it where the tiled kernel's stages
-// and gamma do not fit in shared memory). splits in {2, 4, 8}: the
+// and gamma do not fit in shared memory); variant 2, bf16 only, the tiled
+// kernel on the tensor cores (mma_plan: tb a multiple of 8, Cout above
+// 4). splits in {2, 4, 8}: the
 // cluster split-K kernel on ta x tb tiles, ta == tb in {1, 2, 4}, cout a
 // multiple of 4 up to 128, w, gamma and beta 16-byte aligned.
 // Launches on `stream`; returns the launch's CUDA error (0 on success), or
@@ -1378,14 +1921,14 @@ extern "C" int mmnc_deconv_igdn_forward(const void* x, const float* w,
                                         const float* beta, void* out, int b,
                                         int h, int wd, int cin, int cout,
                                         int ta, int tb, int splits, int mode,
-                                        int gamma_l2, int bf16,
+                                        int variant, int bf16,
                                         void* stream) {
   if (b <= 0 || h <= 0 || wd <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_type<__nv_bfloat16>(x, w, bias, gamma, beta, out, b, h, wd,
                                       cin, cout, ta, tb, splits, mode,
-                                      gamma_l2, st);
+                                      variant, st);
   return launch_type<float>(x, w, bias, gamma, beta, out, b, h, wd, cin,
-                            cout, ta, tb, splits, mode, gamma_l2, st);
+                            cout, ta, tb, splits, mode, variant, st);
 }

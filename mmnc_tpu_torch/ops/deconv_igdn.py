@@ -3,8 +3,8 @@
 Replaces mmnc_tpu/ops/deconv_igdn_pallas.py:deconv_igdn_pallas (kernel
 body `_kernel`) with the hand-written CUDA kernel `csrc/deconv_igdn.cu`.
 On the H100 the 100- and 50-channel stages are bound by f32 FMAs and the
-3-channel ones by bytes. The kernel has three variants, picked per shape
-by `launch_plan`:
+3-channel ones by bytes. The kernel has four variants, picked per shape
+and type by `launch_plan`:
 - "tiled" (every stage off the split kernel): a block owns one output
   parity plane of a `tile_shape` tile of input positions with all Cout
   channels (all four planes where Cout <= 4), so the (I)GDN epilogue
@@ -20,7 +20,13 @@ by `launch_plan`:
 - "split", for the latent stages (Cout 32-128, a multiple of 4) whose
   tiles would leave most SMs idle: a thread-block cluster per tile whose
   blocks take slices of Cin and add their partial sums in rank order
-  through distributed shared memory.
+  through distributed shared memory;
+- "tiled_mma", for bf16 x in place of "tiled" (Cout above 4, tiles a
+  multiple of 8 wide, `mma_tile_shape`): the same blocks, their sum an
+  implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 products,
+  which are exact, float32 sums), the input tile and the weight stages
+  in bf16 (the weights converted through registers as they are staged)
+  and read by ldmatrix; the same epilogue (`tiled_mma_config`).
 All write the interleaved output once, and each output's sum runs in an
 order set by the shape and the plan alone: two launches are bitwise
 equal. See the source for the design. Forward only: the decode path runs
@@ -38,9 +44,8 @@ float32 (the bf16 model's layers hand over values rounded to bf16,
 `ops/layers.py`). The kernel sums in float32, rounds y before the
 epilogue as the unfused chain does (the sum, then + b) and the output
 once at the store; `deconv_igdn_plain` is the JAX package's unfused
-bf16 chain. The launch
-plan does not depend on x's type: the staged input tile is float32 in
-either.
+bf16 chain. The launch plan depends on x's type only where bf16 takes the
+tensor cores: float32 stays exact, off them.
 """
 
 import ctypes
@@ -54,6 +59,8 @@ from . import _build
 from .gdn import gdn_plain
 
 _MODES = {None: 0, "igdn": 1, "gdn": 2}
+# the entry point's variant argument where splits == 1
+_VARIANTS = {"tiled": 0, "tiled_l2": 1, "tiled_mma": 2}
 
 
 def deconv_weight_taps(weight):
@@ -288,9 +295,121 @@ def l2_smem_bytes(ta: int, tb: int, cin: int, cout: int, mode="igdn",
     return 4 * floats
 
 
+# the tensor-core kernel's limits (csrc/deconv_igdn.cu): warps a block, the
+# warps a block aims for (it splits N into groups below that), n8 tiles a
+# warp, positions a thread of its epilogue (tb must be a multiple), and
+# (row, column pair) items of a weight chunk a thread stages, at most
+MMA_MAX_WARPS, MMA_MIN_WARPS, MMA_MAX_NT, MMA_P = 16, 8, 8, 8
+MMA_ITEMS = 2
+# blocks a tensor-core launch needs, where its shape has them: every block
+# stages the plane's whole weight, so 128 blocks of twice the positions
+# beat 256 on the H100 (a tile sweep of the planned shapes, PERF.md §6)
+MMA_MIN_BLOCKS = 128
+
+
+class MmaConfig(NamedTuple):
+    """The tensor-core kernel's plan of one launch (csrc/deconv_igdn.cu:
+    MmaPlan): n8 tiles a warp, N groups, Cin channels a stage, weight rows
+    a stage, threads a block, staged (row, column pair) items a thread (1
+    or MMA_ITEMS), dynamic shared memory, and the padded strides it
+    implies, in bf16 values: a stage row (nb) and an input tile row (xs),
+    each an odd number of 16 bytes."""
+    nt: int
+    ng: int
+    chunk: int
+    nv: int
+    threads: int
+    items: int
+    smem_bytes: int
+    nb: int
+    xs: int
+
+
+def stage_row(np_: int) -> int:
+    """bf16 values a row of a tensor-core weight stage takes: N, plus 8
+    where N / 8 is even, so that rows lie an odd number of 16 bytes apart
+    (ldmatrix's 8 rows in distinct banks)."""
+    return np_ + (0 if np_ // 8 % 2 else 8)
+
+
+def mma_smem_bytes(ta: int, tb: int, cin: int, cout: int, np_: int, nv: int,
+                   chunk: int) -> int:
+    """Dynamic shared memory of one tensor-core block: the bf16 weight
+    stages (two, one where a chunk holds all of Cin), rows of
+    `stage_row(np_)` values (y and y^2 in float32 in their place after the
+    main loop, if larger; y^2 skewed by 4 floats a group of MMA_P
+    positions), the bf16 input tile + halo, rows of 16 ceil(Cin / 16) + 8
+    values, gamma (transposed, rows padded to Cp) and beta (Cp), whatever
+    the mode (csrc/deconv_igdn.cu:mma_smem_bytes)."""
+    cp, npos = 4 * _cdiv(cout, 4), ta * tb
+    stages = 2 * (2 if chunk < cin else 1) * nv * chunk * stage_row(np_)
+    ys = 4 * (2 * npos * cp + npos // MMA_P * 4)
+    return (max(stages, ys)
+            + 2 * (ta + 2) * (tb + 2) * (16 * _cdiv(cin, 16) + 8)
+            + 4 * (cout * cp + cp))
+
+
 @functools.cache
-def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
-    """(variant, TA, TB, splits) for one launch.
+def tiled_mma_config(h: int, w: int, cin: int, cout: int, ta: int, tb: int):
+    """The tensor-core kernel's plan for ta x tb tiles of h x w inputs, or
+    None where it has none (tb not a multiple of MMA_P, Cout <= 4, more
+    than MMA_MAX_WARPS warps, or no chunk fits; csrc/deconv_igdn.cu:
+    mma_plan):
+
+    - M tiles: ceil(ta tb / 16), one a warp; N groups ng: the fewest with
+      at most MMA_MAX_NT n8 tiles a warp that give MMA_MIN_WARPS warps;
+    - nt = ceil(ceil(Cout / 8) / ng) n8 tiles a warp (N = 8 nt ng), then
+      ng = ceil(ceil(Cout / 8) / nt), so that no group lies wholly past
+      Cout;
+    - chunk of Cin a stage, a multiple of 16: the largest from 16 ceil(Cin
+      / 16) down whose chunk x N / 2 (row, column pair) items come to at
+      most MMA_ITEMS a thread and that fits HALF_SMEM, else MAX_SMEM;
+    - nv weight rows a stage, the most taps a plane reads.
+    Nothing here depends on the mode, so neither does the order of sums."""
+    if min(ta, tb, cin) < 1 or tb % MMA_P or cout <= 4:
+        return None
+    mt, ntiles = _cdiv(ta * tb, 16), _cdiv(cout, 8)
+    ng = _cdiv(ntiles, MMA_MAX_NT)
+    while mt * ng < MMA_MIN_WARPS and ng < ntiles:
+        ng += 1
+    nt = _cdiv(ntiles, ng)
+    ng = _cdiv(ntiles, nt)  # no group wholly past Cout
+    if mt * ng > MMA_MAX_WARPS:
+        return None
+    nv = max(max_parity_taps(h, ta, q >> 1) * max_parity_taps(w, tb, q & 1)
+             for q in range(4))
+    kx, threads = 16 * _cdiv(cin, 16), 32 * mt * ng
+    for limit in (HALF_SMEM, MAX_SMEM):
+        for chunk in range(kx, 0, -16):
+            smem = mma_smem_bytes(ta, tb, cin, cout, 8 * nt * ng, nv, chunk)
+            items = chunk * 4 * nt * ng
+            if items <= MMA_ITEMS * threads and smem <= limit:
+                return MmaConfig(nt, ng, chunk, nv, threads,
+                                 _cdiv(items, threads), smem,
+                                 stage_row(8 * nt * ng), kx + 8)
+    return None
+
+
+@functools.cache
+def mma_tile_shape(b: int, h: int, w: int, cin: int, cout: int):
+    """(TA, TB) of the tensor-core kernel, or None: the largest of TILES
+    (each no taller or wider than the input) whose launch has at least
+    min(MMA_MIN_BLOCKS, B x 4 x ceil(H W / 8)) blocks, among those whose
+    width is a multiple of MMA_P and whose plan fits
+    (`tiled_mma_config`)."""
+    need = min(MMA_MIN_BLOCKS, b * 4 * _cdiv(h * w, 8))
+    for ta, tb in TILES:
+        ta, tb = min(ta, h), min(tb, w)
+        if (tiled_blocks(b, h, w, ta, tb, cout) >= need
+                and tiled_mma_config(h, w, cin, cout, ta, tb)):
+            return ta, tb
+    return None
+
+
+@functools.cache
+def launch_plan(b: int, h: int, w: int, cin: int, cout: int,
+                dtype=torch.float32):
+    """(variant, TA, TB, splits) for one launch on x of `dtype`.
 
     "split": the latent stages, where `wide_tiles` give fewer blocks than
     SMs (Cout >= 32, a multiple of 4, at most 128, and those tiles with
@@ -300,7 +419,10 @@ def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
     _SPLIT_MAX_BLOCKS blocks, the one with the most blocks wins, the larger
     tile on a tie (fewer weight reads). "tiled": `tile_shape`'s tiles,
     splits 1. "tiled_l2": where no tiled plan fits (Cout above about 225),
-    `wide_tiles`."""
+    `wide_tiles`. "tiled_mma": for bf16 x, in place of "tiled" where the
+    tensor-core kernel has tiles (`mma_tile_shape`: Cout above 4, inputs
+    at least 8 wide). With float32 x the plan is what it was before the
+    tensor-core kernel: float32 stays exact, off the tensor cores."""
     wa, wb = wide_tiles(b, h, w)
     if (l2_smem_bytes(wa, wb, cin, cout, gamma=True) <= MAX_SMEM
             and 32 <= cout <= _SPLIT_MAX_COUT and cout % 4 == 0
@@ -319,9 +441,13 @@ def launch_plan(b: int, h: int, w: int, cin: int, cout: int):
             _, t, s = best
             return "split", t, t, s
     tile = tile_shape(b, h, w, cin, cout)
-    if tile is not None:
-        return ("tiled", *tile, 1)
-    return "tiled_l2", wa, wb, 1
+    if tile is None:
+        return "tiled_l2", wa, wb, 1
+    if dtype == torch.bfloat16:
+        mma = mma_tile_shape(b, h, w, cin, cout)
+        if mma is not None:
+            return ("tiled_mma", *mma, 1)
+    return ("tiled", *tile, 1)
 
 
 def cin_slices(cin: int, splits: int):
@@ -337,7 +463,8 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
     (the output x's type), w, b, gamma and beta float32; raises otherwise.
 
     `plan` overrides `launch_plan` (chip_smoke.py times one variant
-    against the other at the same shape)."""
+    against the other at the same shape); a plan with no kernel, or
+    "tiled_mma" with float32 x, raises."""
     _check_mode(mode, gamma, beta)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
@@ -358,7 +485,8 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
     gamma, beta = gamma.contiguous(), beta.contiguous()
     out = torch.empty((bsz, 2 * h, 2 * wd, cout), dtype=x.dtype,
                       device=x.device)
-    variant, ta, tb, splits = plan or launch_plan(bsz, h, wd, cin, cout)
+    variant, ta, tb, splits = plan or launch_plan(bsz, h, wd, cin, cout,
+                                                  x.dtype)
     if variant == "split":
         if (splits not in SPLITS or ta != tb or ta not in SPLIT_TILES
                 or cout > _SPLIT_MAX_COUT or cout % 4):
@@ -370,20 +498,28 @@ def deconv_igdn_cuda(x, w, b, gamma=None, beta=None, mode="igdn", plan=None):
     elif variant == "tiled":
         if splits != 1 or not tiled_config(bsz, h, wd, cin, cout, ta, tb):
             raise ValueError(f"plan {plan}: no tiled kernel for it")
+    elif variant == "tiled_mma":
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"plan {plan}: the tensor-core kernel takes "
+                             f"bf16 x, not {x.dtype}")
+        if splits != 1 or not tiled_mma_config(h, wd, cin, cout, ta, tb):
+            raise ValueError(f"plan {plan}: no tensor-core kernel for it")
     elif (variant != "tiled_l2" or splits != 1 or min(ta, tb) < 1
           or l2_smem_bytes(ta, tb, cin, cout, mode) > MAX_SMEM):
         raise ValueError(f"plan {plan}: no kernel for it")
     rc = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,
                   ta, tb, splits if variant == "split" else 1, _MODES[mode],
-                  int(variant == "tiled_l2"), int(x.dtype == torch.bfloat16),
+                  _VARIANTS.get(variant, 0), int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(rc, "deconv_igdn")
     deconv_igdn_cuda.launches += 1
+    deconv_igdn_cuda.mma_launches += variant == "tiled_mma"
     return out
 
 
-deconv_igdn_cuda.launches = 0
+# launches, and those of them on the tensor cores ("tiled_mma")
+deconv_igdn_cuda.launches = deconv_igdn_cuda.mma_launches = 0
 
 
 def deconv_igdn(x, w, b, gamma=None, beta=None, mode="igdn"):

@@ -20,7 +20,11 @@ CPU and back. The serving programs' graphs (`graphs.py`) are held to
 their eager programs bitwise under deterministic cuDNN, at the bench's
 rgb width and at shared4, in float32 and bf16, also after an Adam step
 and a `load_state_dict` changed the parameters in place, and a captured
-deconv+IGDN launch (split and tiled plans) to an eager one.
+deconv+IGDN launch (split and tiled plans, and bf16 on the tensor cores)
+to an eager one. deconv+IGDN's bf16 path on the tensor cores ("tiled_mma")
+and the CUDA-core tiled path at the same shapes are held stage by stage
+as chip_smoke holds them (`check_deconv_bf16`), and a "tiled_mma" plan
+with float32 x or without a kernel raises.
 """
 
 import contextlib
@@ -1196,6 +1200,99 @@ def test_deconv_igdn_kernel_bf16_matches_plain(device, shape, cout, plan,
     for p in plans:
         chip_smoke.check_deconv_bf16(torch, x, w, b, gamma, beta, mode, p,
                                      f"deconv_igdn {shape} {cout} {p}")
+
+
+# the bf16 stages where cuDNN beat the CUDA-core kernel (batch 8), the
+# bench's (batch 64) and ragged ones, with the tensor-core plan forced
+# where the launch plan keeps the CUDA cores (tiles cut by the image's
+# edge; Cin 17 and 21 staged by plain loads, 50 by 4-byte copies, 32 by
+# 16-byte ones)
+_MMA_DECONVS = [((8, 32, 32, 50), 50, None), ((8, 16, 16, 100), 50, None),
+                ((8, 64, 64, 21), 17, None), ((8, 128, 128, 17), 17, None),
+                ((8, 32, 32, 21), 21, None), ((64, 16, 16, 100), 50, None),
+                ((64, 32, 32, 50), 50, None), ((8, 16, 16, 42), 21, None),
+                ((1, 13, 9, 17), 21, (8, 8)), ((1, 9, 16, 50), 17, (4, 8)),
+                ((2, 17, 33, 17), 17, (8, 16)), ((1, 5, 24, 21), 17, (4, 8)),
+                ((2, 3, 16, 32), 21, (2, 8)), ((1, 8, 8, 100), 50, (8, 8)),
+                # conv 192's 32x32 stage (kNT 6, two N groups) and the
+                # plans of kNT 5, 8, 6 in one group and 1
+                ((8, 32, 32, 96), 96, None), ((8, 32, 32, 40), 40, None),
+                ((8, 32, 32, 64), 64, None), ((8, 32, 32, 48), 48, None),
+                ((1, 32, 32, 21), 21, None)]
+
+
+@pytest.mark.parametrize("shape,cout,tile", _MMA_DECONVS, ids=str)
+@pytest.mark.parametrize("mode", ["igdn", "gdn", None])
+def test_deconv_igdn_tensor_core_path_bf16_matches_plain(device, shape, cout,
+                                                         tile, mode):
+    """The bf16 tiled path on the tensor cores ("tiled_mma"), and the
+    CUDA-core tiled path forced at the same shape, held stage by stage
+    (chip_smoke.check_deconv_bf16: the sums round as cuDNN's but at a
+    boundary within float32 summation error, y bitwise the rounded sum
+    plus the bias, rounded, the epilogue within 2^-7, two launches bitwise
+    equal)."""
+    import chip_smoke
+
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, cout)
+    x = x.to(torch.bfloat16)
+    w, b, gamma = _bf16_values(w, b, gamma)
+    plan = launch_plan(*shape, cout, dtype=torch.bfloat16)
+    if tile is not None:
+        plan = ("tiled_mma", *tile, 1)
+    assert plan[0] == "tiled_mma"
+    for p in (plan, ("tiled", *tile_shape(*shape, cout), 1)):
+        chip_smoke.check_deconv_bf16(torch, x, w, b, gamma, beta, mode, p,
+                                     f"deconv_igdn {shape} {cout} {p}")
+
+
+def test_tensor_core_plan_refuses_float32_and_plans_without_a_kernel(device):
+    """A "tiled_mma" plan launches its kernel or raises: float32 x, tiles
+    whose width is not a multiple of 8 and Cout <= 4 have no kernel, and
+    nothing is launched."""
+    x, w, b, gamma, beta = _deconv_inputs(device, (2, 16, 16, 42), 21, 0)
+    xb = x.to(torch.bfloat16)
+    _, w3, b3, gamma3, beta3 = _deconv_inputs(device, (2, 16, 16, 42), 3, 0)
+    before = deconv_igdn_cuda.launches
+    for args, plan in (((x, w, b, gamma, beta), ("tiled_mma", 8, 8, 1)),
+                       ((xb, w, b, gamma, beta), ("tiled_mma", 4, 4, 1)),
+                       ((xb, w3, b3, gamma3, beta3), ("tiled_mma", 8, 8, 1)),
+                       ((xb, w, b, gamma, beta), ("tiled_mma", 8, 8, 2))):
+        with pytest.raises(ValueError):
+            deconv_igdn_cuda(*args, "igdn", plan=plan)
+    assert deconv_igdn_cuda.launches == before
+    assert launch_plan(2, 16, 16, 42, 21)[0] == "tiled"
+
+
+@pytest.mark.parametrize("shape,cout", [((8, 16, 16, 100), 50),
+                                        ((8, 32, 32, 21), 21)])
+def test_captured_tensor_core_deconv_igdn_launch_equals_eager(device, shape,
+                                                              cout):
+    """One bf16 launch on the tensor cores captured into a graph and
+    replayed on new inputs equals an eager launch on them bitwise."""
+    plan = launch_plan(*shape, cout, dtype=torch.bfloat16)
+    assert plan[0] == "tiled_mma"
+    x, w, b, gamma, beta = _deconv_inputs(device, shape, cout, 1)
+    w, b, gamma = _bf16_values(w, b, gamma)
+    x = x.to(torch.bfloat16)
+    eager = deconv_igdn_cuda(x, w, b, gamma, beta, "igdn", plan=plan)
+    static = torch.zeros_like(x)
+    stream = graphs.capture_stream(x.device)
+    graphs.warm_up(lambda: deconv_igdn_cuda(static, w, b, gamma, beta,
+                                            "igdn", plan=plan),
+                   stream=stream)
+    graph, out = graphs.capture(
+        lambda: deconv_igdn_cuda(static, w, b, gamma, beta, "igdn",
+                                 plan=plan), stream)
+    for seed in (2, 3):
+        x2 = _deconv_inputs(device, shape, cout, seed)[0].to(torch.bfloat16)
+        static.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, deconv_igdn_cuda(x2, w, b, gamma, beta,
+                                                 "igdn", plan=plan)), seed
+    static.copy_(x)
+    graph.replay()
+    assert torch.equal(out, eager)
 
 
 def test_kernel_wrappers_refuse_other_activation_types(device):
