@@ -4298,7 +4298,7 @@ def record_kind(record):
 def in_graph_reduction(replay_events, span_records):
     """The gradient all-reduce's nodes in a replayed step's graph records:
     the run of records whose kinds (`record_kind`) are, in order, those an
-    eager step launched inside its `all_reduce_gradients` span
+    eager step launched inside its `train.all_reduce` span
     (`span_records`: the flattening copies and the cat, NCCL's kernels,
     the division and the copy-backs) -> {"nodes", "nccl_ms", "copy_ms"
     (the other nodes)}, or None where no such run is found (the profiler
@@ -4327,8 +4327,8 @@ def profile_dp_step(torch, call):
     events, wall = run["events"], run["wall"] * 1e3
     device = [e for e in events if e.get("cat") in DEVICE_WORK]
     spans = [e["dur"] for e in events if e.get("cat") == "user_annotation"
-             and e["name"] == "all_reduce_gradients"]
-    in_span = launched_records(events, lambda n: n == "all_reduce_gradients")
+             and e["name"] == "train.all_reduce"]
+    in_span = launched_records(events, lambda n: n == "train.all_reduce")
     return {"wall_ms": wall, "busy_ms": busy_us(device) / 1e3,
             "all_reduce_ms": sum(spans) / 1e3, "all_reduce_spans": len(spans),
             "span_records": in_span,
@@ -4350,7 +4350,7 @@ def dp_fit(mesh, cache_dir, out_dir, steps, batch_size, steps_per_call=1,
     loop's multi-step is made of eager steps and the eval step and the
     serving programs run under `graphs.disabled()` (the reference a
     graphed run is held to). A graphed mesh run also profiles one eager
-    step after it: its `all_reduce_gradients` span names the nodes of the
+    step after it: its `train.all_reduce` span names the nodes of the
     reduction in the replay's graph records (`in_graph_reduction`). A
     rank of `parallel.launch`, or (mesh None) the single process. ->
     {"trace": rank 0's logged train losses (one a call: the last step's),

@@ -51,7 +51,18 @@ runs eagerly on the CPU, under `disabled()` (the counterpart of
 wrappers' launch counters see a warm-up and a capture once each and a
 replay never. `stats(model, name)` counts a program's "eager" calls
 (warm-ups included), "captures" and "replays" (a capture replays too)
-and keeps each capture's host seconds ("capture_s").
+and keeps each capture's host seconds ("capture_s"); they are counted
+whether or not a profiler records.
+
+While a torch profiler records, a replayed signature's call keeps spans
+(`utils/profiling.py`): graphs.run around the whole call, with the
+program's name as its "program" attribute, and in it graphs.signature
+(the signature's host time) and graphs.launch (`graph.replay()` alone,
+where a card-paced caller blocks on a full launch queue); and a device
+span named by the program around the input copies, the replay and the
+clones, which gives the program's device ms. Warm-ups and captures keep
+no graphs.run record; the device span times every replay, a capture's
+too.
 """
 
 import collections
@@ -63,6 +74,8 @@ import time
 
 import numpy as np
 import torch
+
+from .utils import profiling
 
 MAX_GRAPHS = 8  # signatures kept a program
 WARMED = "warmed"  # a signature warmed up, not yet captured
@@ -210,7 +223,8 @@ class _Graph:
         clones of the outputs."""
         for static, x in zip(self.inputs, inputs):
             static.copy_(x)
-        self.graph.replay()
+        with profiling.span("graphs.launch"):
+            self.graph.replay()
         return _map(torch.Tensor.clone, self.outputs)
 
 
@@ -253,34 +267,39 @@ def run(model, name, body, args):
     if not _on_card(model) or _disabled[0]:
         counts["eager"] += 1
         return body(*args)
-    arrays = []
-    spec = _flatten(args, arrays)
-    # host arrays and tensors are copied to the device before any graph
-    inputs = [torch.as_tensor(x, device=model.device) for x in arrays]
-    key = signature(model, spec, inputs)
-    cache = _cache(model)
-    with cache.lock:
-        table = cache.graphs.setdefault(name, collections.OrderedDict())
-        entry = table.get(key)
-        if entry is None:
-            table[key] = WARMED
-            while len(table) > MAX_GRAPHS:
-                table.popitem(last=False)
-            counts["eager"] += 1
-            with _inside():
-                return warm_up(body, *_unflatten(spec, iter(inputs)),
-                               stream=capture_stream(model.device))
-        table.move_to_end(key)
-        if entry is WARMED:
-            entry = _Graph(body, spec, inputs,
-                           capture_stream(model.device), cache.pool)
-            if cache.pool is None:
-                cache.pool = entry.graph.pool()
-            table[key] = entry
-            counts["captures"] += 1
-            counts["capture_s"].append(entry.capture_s)
-        counts["replays"] += 1
-        return entry.replay(inputs)
+    with profiling.span("graphs.run", {"program": name}) as run_span:
+        arrays = []
+        spec = _flatten(args, arrays)
+        # host arrays and tensors are copied to the device before any graph
+        inputs = [torch.as_tensor(x, device=model.device) for x in arrays]
+        with profiling.span("graphs.signature"):
+            key = signature(model, spec, inputs)
+        cache = _cache(model)
+        with cache.lock:
+            table = cache.graphs.setdefault(name, collections.OrderedDict())
+            entry = table.get(key)
+            if entry is None:
+                run_span.drop()
+                table[key] = WARMED
+                while len(table) > MAX_GRAPHS:
+                    table.popitem(last=False)
+                counts["eager"] += 1
+                with _inside():
+                    return warm_up(body, *_unflatten(spec, iter(inputs)),
+                                   stream=capture_stream(model.device))
+            table.move_to_end(key)
+            if entry is WARMED:
+                run_span.drop()
+                entry = _Graph(body, spec, inputs,
+                               capture_stream(model.device), cache.pool)
+                if cache.pool is None:
+                    cache.pool = entry.graph.pool()
+                table[key] = entry
+                counts["captures"] += 1
+                counts["capture_s"].append(entry.capture_s)
+            counts["replays"] += 1
+            with profiling.device_span(name, model.device):
+                return entry.replay(inputs)
 
 
 def program(fn):

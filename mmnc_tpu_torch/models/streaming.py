@@ -52,10 +52,15 @@ allocations of the compute stream like an eager program's, so
 `record_stream` covers the slot's copies of them as before and a later
 replay never overwrites x_hats a caller still holds.
 
-Stages are labelled for torch.profiler (`record_function`):
-stream.compress, stream.d2h_wait, stream.rans_encode, stream.rans_decode,
-stream.synthesize. On the CPU (`device="cpu"` models) the same pipeline
-runs without streams, events or pinned memory.
+While a torch profiler records, the pipeline keeps spans
+(`utils/profiling.py`), each tagged with its batch's index on both
+threads: the stages stream.compress, stream.d2h_wait, stream.rans_encode,
+stream.rans_decode and stream.synthesize (through `_span`), the wait for
+the dispatch lock (stream.lock_wait, every thread) and a batch's wait in
+the coder queue, from its submission to the coder's start
+(stream.queued); the graphs add their replays' (`graphs.py`). On the CPU
+(`device="cpu"` models) the same pipeline runs without streams, events or
+pinned memory.
 """
 
 import contextlib
@@ -66,20 +71,20 @@ from typing import Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..entropy import rans
+from ..utils import profiling
 
 _I16_LIMIT = 2 ** 15 - 1
 IMPLS = ("v2", "v1")
 
 
 def _span(name):
-    """A profiler label for one stage of the pipeline. Also the timing
-    hook: the profiler keeps only the spans of the thread that started it,
-    so chip_smoke.py's SpanTimer replaces this function to time the stages
-    of every thread."""
-    return record_function(name)
+    """The span of one stage of the pipeline (`profiling.span`). Also the
+    timing hook: chip_smoke.py's SpanTimer and the benchmark replace this
+    function to time the stages of every thread whether or not a profiler
+    records."""
+    return profiling.span(name)
 
 
 class _Slot:
@@ -141,12 +146,16 @@ class _Pipeline:
     def device(self):
         """Device work of any thread: under the dispatch lock and on the
         compute stream (current streams are per thread)."""
-        with self.lock:
+        with profiling.span("stream.lock_wait"):
+            self.lock.acquire()
+        try:
             if self.cuda:
                 with torch.cuda.stream(self.compute):
                     yield
             else:
                 yield
+        finally:
+            self.lock.release()
 
     def indexes(self, z_dec, y_shape):
         """The decoder's y indexes (uint8, host) from decoded z symbols:
@@ -191,6 +200,14 @@ def _coder_pool(threads: int) -> ThreadPoolExecutor:
 def _z_indexes(z_shape):
     return np.broadcast_to(np.arange(z_shape[-1], dtype=np.int32),
                            z_shape).ravel()
+
+
+def _coded(k, submitted, roundtrip, *args):
+    """The coder's stages of batch `k` on a coder thread, its spans tagged
+    k; `submitted`: the `profiling.stamp` of its submission."""
+    with profiling.tagged(k):
+        profiling.record("stream.queued", submitted)
+        return roundtrip(*args)
 
 
 def _wait(host, event):
@@ -292,10 +309,12 @@ def stream_roundtrip(model, batches: Iterable, depth: int = 3,
     try:
         for k, batch in enumerate(batches):
             slot = slots[k % len(slots)]
-            with pipe.device(), _span("stream.compress"):
-                host, event = pipe.host(slot, compress(batch))
-            futures.append(pool.submit(roundtrip, pipe, slot, batch, host,
-                                       event))
+            with profiling.tagged(k):
+                with pipe.device(), _span("stream.compress"):
+                    host, event = pipe.host(slot, compress(batch))
+                futures.append(pool.submit(_coded, k, profiling.stamp(),
+                                           roundtrip, pipe, slot, batch,
+                                           host, event))
             while len(futures) > depth:
                 yield futures.pop(0).result()
         while futures:

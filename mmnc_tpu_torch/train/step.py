@@ -68,6 +68,7 @@ from ..graphs import capture_stream as _capture_stream
 from ..graphs import warm_up as _warm_up
 from ..ops import metrics as M
 from ..ops.bound import gates_after_reduce
+from ..utils import profiling
 from .state import TrainState
 
 
@@ -148,7 +149,7 @@ def _global_noise(model, batch, generator, mesh):
 def _all_reduce_gradients(grads, mesh):
     """Average `grads` over the ranks in place: one all-reduce (sum) of
     their flattened concatenation, then / N."""
-    with torch.profiler.record_function("all_reduce_gradients"):
+    with profiling.span("train.all_reduce"):
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=mesh.group)
         flat /= mesh.world_size
@@ -327,17 +328,20 @@ class _TrainGraph:
         pinned memory, without a sync), replay, mark the parameters as
         changed in place (`ops/layers.py:_derived` keys on their version),
         and return a copy of the logs, which the next replay overwrites."""
-        for statics, given in ((self.batches, batches),
-                               (self.noises, noises)):
-            for static, x in zip(statics, given):
-                for k, v in x.items():
-                    static[k].copy_(v)
-        self.lrs.copy_(torch.tensor(lrs, dtype=torch.float32,
-                                    pin_memory=True), non_blocking=True)
-        self.graph.replay()
-        for p in params:
-            increment_version(p)
-        return {k: v.clone() for k, v in self.logs.items()}
+        with profiling.span("train.inputs"):
+            for statics, given in ((self.batches, batches),
+                                   (self.noises, noises)):
+                for static, x in zip(statics, given):
+                    for k, v in x.items():
+                        static[k].copy_(v)
+            self.lrs.copy_(torch.tensor(lrs, dtype=torch.float32,
+                                        pin_memory=True), non_blocking=True)
+        with profiling.span("train.replay"):
+            self.graph.replay()
+        with profiling.span("train.outputs"):
+            for p in params:
+                increment_version(p)
+            return {k: v.clone() for k, v in self.logs.items()}
 
 
 def make_multi_train_step(model, steps_per_call: int,
@@ -364,7 +368,14 @@ def make_multi_train_step(model, steps_per_call: int,
     its "eager" calls (warm-ups included), "captures" and "replays" (a
     capture replays too) and keeps each capture's host seconds
     ("capture_s"). On the CPU and under a gloo mesh the K steps run
-    eagerly."""
+    eagerly.
+
+    While a torch profiler records, each call keeps spans
+    (`utils/profiling.py`), tagged with the call's first step: train.call
+    (its "steps" attribute K) and in it train.inputs (the batches to the
+    device, the rates, the signature, the copies into the graph's inputs),
+    train.noise (the draws), train.replay (`graph.replay()`) and
+    train.outputs (the version bumps and the logs' clones)."""
     update = _make_update(model, compute_metrics, clip_norm, remat, mesh)
     params = list(model.parameters())
     graphed = _on_card(model) and (mesh is None or mesh.captures)
@@ -377,8 +388,9 @@ def make_multi_train_step(model, steps_per_call: int,
         return logs
 
     def graphed_call(state, batches, noises, lrs):
-        key = graph_signature(batches, compute_metrics, clip_norm, remat,
-                              mesh)
+        with profiling.span("train.inputs"):
+            key = graph_signature(batches, compute_metrics, clip_norm,
+                                  remat, mesh)
         stream = _capture_stream(model.device)
         if state.graph is None or state.graph[0] != key:
             state.drop_graph()
@@ -400,22 +412,26 @@ def make_multi_train_step(model, steps_per_call: int,
         if noise is None and (generator is None or seed is None):
             raise ValueError("multi_step needs a generator and a seed, or "
                              "noise")
-        batches = [model.to_device(b)
-                   for b in _micro_batches(super_batch, steps_per_call)]
-        noises = ([noise] * steps_per_call if noise is not None else
-                  step_noises(model, batches, generator, seed, state.step,
-                              mesh))
-        noises = [_rank_noise(n, mesh) for n in noises]
-        lrs = state.learning_rates(steps_per_call)
         step = state.step
-        try:
-            if graphed:
-                logs = graphed_call(state, batches, noises, lrs)
-            else:
-                stats["eager"] += 1
-                logs = body(state, batches, noises, lrs)
-        finally:
-            state.step = step
+        with profiling.tagged(step), profiling.span(
+                "train.call", {"steps": steps_per_call}):
+            with profiling.span("train.inputs"):
+                batches = [model.to_device(b) for b in
+                           _micro_batches(super_batch, steps_per_call)]
+                lrs = state.learning_rates(steps_per_call)
+            with profiling.span("train.noise"):
+                noises = ([noise] * steps_per_call if noise is not None
+                          else step_noises(model, batches, generator, seed,
+                                           step, mesh))
+                noises = [_rank_noise(n, mesh) for n in noises]
+            try:
+                if graphed:
+                    logs = graphed_call(state, batches, noises, lrs)
+                else:
+                    stats["eager"] += 1
+                    logs = body(state, batches, noises, lrs)
+            finally:
+                state.step = step
         state.step += steps_per_call
         return state, logs
 

@@ -230,7 +230,7 @@ def test_bound_gates_apply_to_the_reduced_gradient():
 def test_chip_smoke_finds_the_reduction_among_a_replays_records():
     """chip_smoke reads the in-graph reduction's device ms from a replay's
     records by the kinds of the records an eager step launched in its
-    `all_reduce_gradients` span; a device-to-device copy is a copy record
+    `train.all_reduce` span; a device-to-device copy is a copy record
     eagerly and a "memcpy32_post" kernel in a graph."""
     import chip_smoke
 
